@@ -1,0 +1,96 @@
+"""The port's import boundary and device rules.
+
+Every module of ``src/repro_torch`` and ``chip_smoke.py`` imports neither
+``jax`` nor anything of ``repro``; the port imports and runs with JAX
+unimportable; an entry point asked for the default device raises when
+CUDA is absent; ``chip_smoke.py`` fails, printing no result, without a GPU
+or away from the repository."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def _run(code: str, cwd=ROOT, timeout=120):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+BLOCKED = """
+import sys
+sys.modules["jax"] = None          # any import of jax now raises
+import torch
+torch.cuda.is_available = lambda: False
+"""
+
+
+def test_port_runs_without_jax_and_refuses_a_missing_gpu():
+    code = BLOCKED + """
+import dataclasses, pkgutil, importlib
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+assert not any(k == "repro" or k.startswith(("repro.", "jax.")) for k in sys.modules)
+from repro_torch.configs import get_config
+from repro_torch.runtime.split_exec import SplitModelBank
+cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), num_layers=2)
+try:
+    SplitModelBank(cfg, 16)
+except RuntimeError as e:
+    assert "CUDA" in str(e), e
+else:
+    raise SystemExit("SplitModelBank without device='cpu' did not raise")
+bank = SplitModelBank(cfg, 16, device="cpu")
+r = bank.runner(1)
+p, s, c0 = r.edge_half(r.params, [[1, 2, 3, 4]])
+logits, _ = r.cloud_half(r.params, p, s)
+assert logits.shape == (1, cfg.vocab_size)
+print("ok")
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("isolated", [False, True],
+                         ids=["no-gpu", "alone-in-a-directory"])
+def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, isolated):
+    if isolated:
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd, script = tmp_path, tmp_path / "chip_smoke.py"
+    else:
+        cwd, script = ROOT, ROOT / "chip_smoke.py"
+    code = BLOCKED + f"""
+import runpy
+runpy.run_path({str(script)!r}, run_name="__main__")
+"""
+    proc = _run(code, cwd=cwd)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and "FAIL" in proc.stderr
