@@ -41,17 +41,14 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
-# data-sheet rates (NVIDIA, dense): bytes/s of device memory and bf16
-# tensor-core FLOP/s (the kernels' inputs are bf16 at the timed shapes)
-CARD_RATES = {
-    "H200": (4.8e12, 989e12),
-    "H100 PCIe": (2.0e12, 756e12),
-    "H100": (3.35e12, 989e12),
-}
+# data-sheet rates of the H100 SXM (NVIDIA, dense): bytes/s of device memory
+# and bf16 tensor-core FLOP/s (the kernels' inputs are bf16 at the timed shapes)
+H100_RATES = (3.35e12, 989e12)
 
 D, D_R = 4096, 64
-CHECK_ROWS = (1, 4, 8, 37, 64, 128, 512, 4096)
-TIME_ROWS = (1, 128, 4096)
+CHECK_ROWS = (1, 4, 8, 37, 64, 128, 512, 1024, 1025, 4096)
+# reduce_quant runs 1-row blocks up to 1,024 rows and 16-row blocks above
+TIME_ROWS = (1, 128, 1024, 1025, 4096)
 JSON_ROWS = 128          # a 128-token prompt's edge/cloud call on the main path
 
 
@@ -75,11 +72,10 @@ def phase_device():
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, devices {torch.cuda.device_count()}")
-    rates = next((v for k, v in CARD_RATES.items() if k in name), None)
-    if rates is None:
-        fail(f"no data-sheet rates for {name!r}")
+    if "H100" not in name or "PCIe" in name:
+        fail(f"the bounds use the H100 SXM's data-sheet rates, not {name!r}'s")
     sys.path.insert(0, str(ROOT / "src"))
-    return name, smi, rates
+    return name, smi, H100_RATES
 
 
 # --------------------------------------------------------------------------- 2

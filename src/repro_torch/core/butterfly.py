@@ -6,8 +6,10 @@
 
 ``use_kernel=True`` runs the fused reduce+quant / dequant+restore wrappers
 (``kernels/ops.py``: the Hopper kernels on a CUDA tensor, their plain
-versions on a CPU tensor, with f32 products); ``use_kernel=False`` runs the
-unfused ops in the activation dtype, as the JAX package's plain path does.
+versions on a CPU tensor, with f32 products; the fused codec emits int8
+codes, so it takes ``wire_bits <= 8`` and raises otherwise);
+``use_kernel=False`` runs the unfused ops in the activation dtype, as the JAX
+package's plain path does.
 The straight-through training form arrives with the training slice.
 """
 from __future__ import annotations
@@ -51,7 +53,7 @@ def apply_butterfly(params, x: torch.Tensor, *, wire_bits: int = 8,
                     use_kernel: bool = False) -> torch.Tensor:
     """In-graph wire at inference (the JAX ``train=False`` form): reduce,
     quantize, dequantize, restore."""
-    if use_kernel and wire_bits <= 8:
+    if use_kernel:
         codes, scales = reduce_unit(params, x, use_kernel=True,
                                     wire_bits=wire_bits)
         return restore_unit(params, codes, scales, x.dtype, use_kernel=True)

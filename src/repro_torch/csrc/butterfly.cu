@@ -39,7 +39,8 @@
 // butterfly_dequant_restore
 //   replaces src/repro/kernels/butterfly_kernel.py:_dequant_restore_kernel
 //   (butterfly_dequant_restore_kernel, pl.pallas_call at :197).
-//   out = (codes * scale) @ w_restore, f32 accumulation, cast to out dtype.
+//   out = (codes * scale) @ w_restore, f32 accumulation, cast to the dtype of
+//   w_restore (f32 or bf16; the wrapper refuses any other output dtype).
 //
 //   Bound on the card: memory, chiefly writing T*d*bytes(out); it reads
 //   T*d_r int8 codes, T f32 scales and w_restore (d_r*d*bytes).
@@ -251,11 +252,11 @@ cudaError_t dispatch_reduce(const void* x, const void* w, void* codes, void* sca
   return launch_reduce<T, 1, 32>(x, w, codes, scales, n_rows, d, d_r, qmax, s);
 }
 
-template <typename TW, typename TO>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dequant_restore_kernel(const int8_t* __restrict__ codes,
                        const float* __restrict__ scales,
-                       const TW* __restrict__ w, TO* __restrict__ out,
+                       const T* __restrict__ w, T* __restrict__ out,
                        int n_rows, int d_r, int d) {
   extern __shared__ __align__(16) float rs[];   // d_r x RD, codes * scale as f32
   const int tid = threadIdx.x;
@@ -290,12 +291,12 @@ dequant_restore_kernel(const int8_t* __restrict__ codes,
   }
 }
 
-template <typename TW, typename TO>
+template <typename T>
 cudaError_t launch_restore(const int8_t* codes, const float* scales,
                            const void* w, void* out, int n_rows, int d_r,
                            int d, cudaStream_t stream) {
   const size_t smem = (size_t)RD * d_r * sizeof(float);
-  auto kern = dequant_restore_kernel<TW, TO>;
+  auto kern = dequant_restore_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -303,8 +304,8 @@ cudaError_t launch_restore(const int8_t* codes, const float* scales,
   }
   dim3 grid((n_rows + RD - 1) / RD, (d + DD - 1) / DD);
   kern<<<grid, kThreads, smem, stream>>>(codes, scales,
-                                         static_cast<const TW*>(w),
-                                         static_cast<TO*>(out), n_rows, d_r, d);
+                                         static_cast<const T*>(w),
+                                         static_cast<T*>(out), n_rows, d_r, d);
   return cudaGetLastError();
 }
 
@@ -328,24 +329,15 @@ extern "C" int butterfly_reduce_quant(const void* x, const void* w, void* codes,
   return (int)cudaErrorInvalidValue;
 }
 
+// out has the dtype of w.
 extern "C" int butterfly_dequant_restore(const void* codes, const void* scales,
                                          const void* w, void* out, int n_rows,
-                                         int d_r, int d, int w_dtype,
-                                         int out_dtype, void* stream) {
+                                         int d_r, int d, int dtype, void* stream) {
   if (n_rows <= 0 || d <= 0 || d_r <= 0 || d_r > kMaxDr) return (int)cudaErrorInvalidValue;
   const int8_t* c = static_cast<const int8_t*>(codes);
   const float* sc = static_cast<const float*>(scales);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (w_dtype == 0 && out_dtype == 0)
-    err = launch_restore<float, float>(c, sc, w, out, n_rows, d_r, d, s);
-  else if (w_dtype == 0 && out_dtype == 1)
-    err = launch_restore<float, __nv_bfloat16>(c, sc, w, out, n_rows, d_r, d, s);
-  else if (w_dtype == 1 && out_dtype == 0)
-    err = launch_restore<__nv_bfloat16, float>(c, sc, w, out, n_rows, d_r, d, s);
-  else if (w_dtype == 1 && out_dtype == 1)
-    err = launch_restore<__nv_bfloat16, __nv_bfloat16>(c, sc, w, out, n_rows, d_r, d, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  if (dtype == 0) return (int)launch_restore<float>(c, sc, w, out, n_rows, d_r, d, s);
+  if (dtype == 1) return (int)launch_restore<__nv_bfloat16>(c, sc, w, out, n_rows, d_r, d, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -28,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "butterfly_reduce_quant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "butterfly_dequant_restore": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "butterfly_dequant_restore": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "butterfly_reduce_width": [_I],
 }
 

@@ -78,12 +78,13 @@ reduce_quant.launches = 0
 def dequant_restore(codes: torch.Tensor, scales: torch.Tensor,
                     w_restore: torch.Tensor, out_dtype=torch.float32):
     """codes (T, d_r) int8, scales (T, 1) f32, w_restore (d_r, d) f32|bf16 ->
-    (T, d) in ``out_dtype`` (f32|bf16)."""
+    (T, d) in ``out_dtype``, which must be the dtype of ``w_restore``."""
     _check(codes, "codes", (torch.int8,))
     _check(scales, "scales", (torch.float32,))
     _check(w_restore, "w_restore", _DTYPE_CODE)
-    if out_dtype not in _DTYPE_CODE:
-        raise TypeError(f"out_dtype {out_dtype} not in {tuple(_DTYPE_CODE)}")
+    if out_dtype != w_restore.dtype:
+        raise TypeError(f"out_dtype {out_dtype} must be the dtype of w_restore "
+                        f"({w_restore.dtype})")
     T, d_r = codes.shape
     if tuple(scales.shape) != (T, 1) or w_restore.shape[0] != d_r \
             or not 1 <= d_r <= MAX_D_R:
@@ -96,8 +97,7 @@ def dequant_restore(codes: torch.Tensor, scales: torch.Tensor,
         return out
     err = build.load().butterfly_dequant_restore(
         codes.data_ptr(), scales.data_ptr(), w_restore.data_ptr(),
-        out.data_ptr(), T, d_r, d, _DTYPE_CODE[w_restore.dtype],
-        _DTYPE_CODE[out_dtype], _stream(codes))
+        out.data_ptr(), T, d_r, d, _DTYPE_CODE[out_dtype], _stream(codes))
     _raise_on(err, "butterfly_dequant_restore")
     dequant_restore.launches += 1
     return out

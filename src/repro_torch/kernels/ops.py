@@ -31,7 +31,7 @@ def butterfly_reduce_quant(x: torch.Tensor, w_reduce: torch.Tensor, *,
                            bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (..., d) -> (codes (..., d_r) int8, scales (..., 1) f32)."""
     if bits > 8:
-        raise ValueError("the fused codec emits int8 codes; wider wires go eager")
+        raise ValueError(f"the fused codec emits int8 codes: bits={bits} > 8")
     shape = x.shape
     d_r = w_reduce.shape[1]
     xf = x.reshape(-1, shape[-1])

@@ -6,8 +6,9 @@ model-axis degree 1).
 split's edge/cloud halves run views of its stacked layer params
 (``models/transformer.slice_stage_params``), so only the per-split
 butterfly projections are materialised per candidate.  The int8 wire runs
-through the fused butterfly wrappers (``kernels/ops.py``): the Hopper
-kernels on the card, their plain versions on the CPU.
+through the butterfly unit's fused wrappers (``core/butterfly.py`` ->
+``kernels/ops.py``): the Hopper kernels on the card, their plain versions on
+the CPU.  The unfused codec runs only in :meth:`SplitRunner.reference_prefill`.
 
 The JAX bank jits one function per ``(kind, split)`` at bucket-padded
 ``(B, S)`` shapes.  PyTorch runs eagerly, but the port keeps the same
@@ -24,10 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch import device as dev_lib
 from repro_torch.configs.base import ButterflyConfig
-from repro_torch.core.butterfly import init_butterfly
-from repro_torch.core.quantization import dequantize, pack_int4, quantize, \
-    unpack_int4
-from repro_torch.kernels import ops as kops
+from repro_torch.core import butterfly as bf_lib
+from repro_torch.core.quantization import pack_int4, unpack_int4
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed, rms_norm, unembed
@@ -56,9 +55,8 @@ class SplitModelBank:
     JAX weights in; otherwise the bank initialises on ``device`` from
     ``seed``."""
 
-    def __init__(self, base_cfg, d_r: int, *, wire_bits: int = 8,
-                 wire_mode: str = "int8", seed: int = 0, device="cuda",
-                 params: Optional[dict] = None,
+    def __init__(self, base_cfg, d_r: int, *, wire_mode: str = "int8",
+                 seed: int = 0, device="cuda", params: Optional[dict] = None,
                  butterfly: Optional[Dict[int, dict]] = None):
         self.device = dev_lib.resolve(device)
         # Matmuls run at full precision: no TF32 for f32 products, and bf16
@@ -78,7 +76,6 @@ class SplitModelBank:
             base_cfg = dataclasses.replace(base_cfg, butterfly=None)
         self.base_cfg = base_cfg
         self.d_r = d_r
-        self.wire_bits = wire_bits
         self.wire_mode = wire_mode
         self.seed = seed
         self.built = M.build(base_cfg)
@@ -95,10 +92,9 @@ class SplitModelBank:
         self._seq_bucket_ok = all(d.mixer == "attn" and d.window is None
                                   and not d.cross for d in self._defs)
         self._batch_bucket_ok = all(d.ffn != "moe" for d in self._defs)
-        self.wire_eff_bits = 4 if wire_mode == "int4" else wire_bits
-        # the fused codec emits int8 codes, which covers every sub-byte
-        # precision too; only wider wires take the unfused path
-        self._kernel_wire_ok = self.wire_eff_bits <= 8
+        # the fused codec emits int8 codes: the int8 wire, and the int4 wire
+        # as codes in [-8, 7] packed two to a byte after the kernel
+        self.wire_eff_bits = 4 if wire_mode == "int4" else 8
         self.row_block = ROW_BLOCK
         self._wire_sig = (wire_mode, self.wire_eff_bits, self.row_block)
 
@@ -114,16 +110,13 @@ class SplitModelBank:
     def candidates(self) -> Tuple[int, ...]:
         return tuple(range(1, self.base_cfg.num_layers))
 
-    @property
-    def jit_cache_entries(self) -> int:
-        return len(self.jit_cache_keys)
-
     def cache_key(self, kind: str, split: int, mp: int, B: int, S: int) -> Tuple:
         """The JAX bank's compile-cache key: padded shape bucket plus the
         wire signature (mode, effective bits, decode-row block)."""
         return (kind, split, mp, B, S) + self._wire_sig
 
-    def timed_call(self, key: Tuple, fn, *args):
+    def keyed_call(self, key: Tuple, fn, *args):
+        """Count ``key`` as the JAX bank's jit cache would, then call."""
         self.note_key(key)
         return fn(*args)
 
@@ -133,10 +126,6 @@ class SplitModelBank:
         else:
             self.cache_misses += 1
             self.jit_cache_keys.add(key)
-
-    @property
-    def batch_numerics_ok(self) -> bool:
-        return self._batch_bucket_ok
 
     def runner(self, split: int) -> "SplitRunner":
         if split not in self._runners:
@@ -154,7 +143,7 @@ class SplitModelBank:
                 self.seed * 1_000_003 + split)
             bf = ButterflyConfig(layer=split, d_r=self.d_r,
                                  wire_bits=self.wire_eff_bits)
-            self._butterfly[split] = init_butterfly(
+            self._butterfly[split] = bf_lib.init_butterfly(
                 gen, self.base_cfg.d_model, bf, self._dt, self.device)
         return self._butterfly[split]
 
@@ -210,11 +199,8 @@ class SplitModelBank:
             r = x @ bf["w_reduce"]
             return r, torch.zeros((*r.shape[:2], 1), dtype=torch.float32,
                                   device=x.device)
-        if self._kernel_wire_ok:
-            codes, scales = kops.butterfly_reduce_quant(
-                x, bf["w_reduce"], bits=self.wire_eff_bits)
-        else:
-            codes, scales = quantize(x @ bf["w_reduce"], self.wire_eff_bits)
+        codes, scales = bf_lib.reduce_unit(bf, x, use_kernel=True,
+                                           wire_bits=self.wire_eff_bits)
         return self._pack_wire(codes), scales
 
     def _restore(self, bf, payload, scales):
@@ -223,24 +209,19 @@ class SplitModelBank:
             return payload
         if self.wire_mode == "reduced":
             return payload @ bf["w_restore"]
-        if self._kernel_wire_ok:
-            return kops.butterfly_dequant_restore(
-                self._unpack_wire(payload), scales, bf["w_restore"],
-                out_dtype=self._dt)
-        return dequantize(self._unpack_wire(payload), scales, self._dt) @ \
-            bf["w_restore"]
+        return bf_lib.restore_unit(bf, self._unpack_wire(payload), scales,
+                                   self._dt, use_kernel=True)
 
     def _wire_ingraph(self, bf, x, *, use_kernel: bool):
         """The wire as the hosted model sees it: raw passes x, reduced
         projects down/up, int8/int4 round-trip the quantized codec (int4 also
         round-trips the nibble packing).  ``use_kernel=False`` is the JAX
-        reference codec, in the activation dtype."""
-        if self.wire_mode in ("raw", "reduced") or (use_kernel and self._kernel_wire_ok):
+        reference codec, unfused in the activation dtype (the packing is an
+        exact round trip, so it is left out there)."""
+        if use_kernel or self.wire_mode in ("raw", "reduced"):
             payload, scales = self._reduce(bf, x)
             return self._restore(bf, payload, scales)
-        codes, scales = quantize(x @ bf["w_reduce"], self.wire_eff_bits)
-        codes = self._unpack_wire(self._pack_wire(codes))
-        return dequantize(codes, scales, x.dtype) @ bf["w_restore"]
+        return bf_lib.apply_butterfly(bf, x, wire_bits=self.wire_eff_bits)
 
     # ------------------------------------------------------ the split halves
     def _fn(self, kind: str, split: int):
@@ -355,7 +336,7 @@ class SplitRunner:
         toks = self._tensor(toks)
         B, S = toks.shape
         Bb, Sb = bank._buckets(B, S)
-        payload, scales, cache0 = bank.timed_call(
+        payload, scales, cache0 = bank.keyed_call(
             bank.cache_key("edge", self.split, 1, Bb, Sb),
             bank._fn("edge", self.split), params, bank._pad_toks(toks, Bb, Sb))
         return (payload[:B, :S], scales[:B, :S],
@@ -371,7 +352,7 @@ class SplitRunner:
         if (Bb, Sb) != (B, S):
             pad = (0, 0, 0, Sb - S, 0, Bb - B)
             payload, scales = F.pad(payload, pad), F.pad(scales, pad)
-        logits, cache1 = bank.timed_call(
+        logits, cache1 = bank.keyed_call(
             bank.cache_key("cloud", self.split, 1, Bb, Sb),
             bank._fn("cloud", self.split), params, payload, scales, S)
         return logits[:B], bank._slice_cache(cache1, 1, self.split, B, S)
@@ -384,7 +365,7 @@ class SplitRunner:
         ``(payload, scales, cache0)``."""
         bank = self.bank
         tok = self._tensor(tok, torch.int64)
-        return bank.timed_call(
+        return bank.keyed_call(
             bank.cache_key("edge_step", self.split, 1, tok.shape[0], 1),
             bank._fn("edge_step", self.split), params, tok, cache0,
             self._tensor(pos, torch.int64))
@@ -416,7 +397,7 @@ class SplitRunner:
         toks = self._tensor(toks)
         B, S = toks.shape
         Bb, Sb = bank._buckets(B, S)
-        logits, caches = bank.timed_call(
+        logits, caches = bank.keyed_call(
             bank.cache_key("prefill", self.split, 1, Bb, Sb),
             bank._fn("prefill", self.split), params,
             bank._pad_toks(toks, Bb, Sb), S)

@@ -10,7 +10,8 @@ Elsewhere they skip.  Tolerances: codes differ by at most 1 on at most
 0.1% of entries (rounded up to a whole entry), because the kernel's f32
 sums run in another order than the plain product's; scales within rtol
 1e-5; the restore within one bf16 ulp (rtol 2**-7, atol 1e-3), or rtol
-1e-5 (atol 1e-6) in f32.
+1e-5 (atol 1e-6) in f32 up to d_r = 64; a wider f32 restore, and its plain
+version, within the f32 summation bound of an f64 product.
 """
 import dataclasses
 import math
@@ -38,10 +39,19 @@ def _inputs(T, d, d_r, dtype, seed):
     return x.to(dtype), w.to(dtype)
 
 
-@pytest.mark.parametrize("T", [1, 4, 8, 37, 512])
+# every compiled variant: reduce_quant's channel widths 32..1024 (CJ = 1..32)
+# with 1-row blocks up to 1,024 rows and 16-row blocks above (d_r <= 64);
+# dequant_restore past 48 KB of shared memory at d_r = 1024
+@pytest.mark.parametrize("T", [1, 4, 8, 37, 512, 1025])
 @pytest.mark.parametrize("d,d_r,dtype", [(4096, 64, torch.bfloat16),
                                          (256, 16, torch.float32),
-                                         (200, 48, torch.bfloat16)])
+                                         (200, 48, torch.bfloat16),
+                                         (512, 128, torch.float32),
+                                         (512, 128, torch.bfloat16),
+                                         (384, 256, torch.bfloat16),
+                                         (384, 512, torch.float32),
+                                         (256, 1024, torch.float32),
+                                         (256, 1024, torch.bfloat16)])
 def test_kernels_match_plain(cuda, T, d, d_r, dtype):
     x, w = (t.to(cuda) for t in _inputs(T, d, d_r, dtype, seed=T))
     n0 = butterfly_kernel.reduce_quant.launches
@@ -57,6 +67,17 @@ def test_kernels_match_plain(cuda, T, d, d_r, dtype):
     out = ops.butterfly_dequant_restore(codes_p, scales_p, wr, out_dtype=dtype)
     assert butterfly_kernel.dequant_restore.launches == n0 + 1
     out_p = ref.butterfly_dequant_restore_ref(codes_p, scales_p, wr, dtype)
+    if dtype == torch.float32 and d_r > 64:
+        # 128-1024 f32 products per output: the kernel and cuBLAS sum them
+        # in different orders, so each is held to the f32 summation bound
+        # against an f64 product, |err| <= n*u*sum|a_k b_k| (n = d_r,
+        # u = 2**-24), on the same f32 dequantized inputs
+        r64 = (codes_p.float() * scales_p).double()
+        exact = r64 @ wr.double()
+        bound = 1.01 * d_r * 2 ** -24 * (r64.abs() @ wr.double().abs())
+        for o in (out, out_p):
+            assert bool(((o.double() - exact).abs() <= bound).all())
+        return
     tol = dict(rtol=2 ** -7, atol=1e-3) if dtype == torch.bfloat16 else \
         dict(rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(out, out_p, **tol)
@@ -70,6 +91,12 @@ def test_kernel_wrappers_refuse_bad_input(cuda):
         butterfly_kernel.reduce_quant(x.t(), w)                  # not contiguous
     with pytest.raises(ValueError):
         butterfly_kernel.reduce_quant(x, torch.zeros((64, 1025), device=cuda))
+    codes, scales = butterfly_kernel.reduce_quant(x, w)
+    with pytest.raises(TypeError):                               # out != w dtype
+        butterfly_kernel.dequant_restore(codes, scales, w.t().contiguous(),
+                                         torch.bfloat16)
+    with pytest.raises(ValueError):                              # wider than int8
+        ops.butterfly_reduce_quant(x, w, bits=16)
 
 
 def test_split_path_launches_both_kernels(cuda):

@@ -125,3 +125,18 @@ def test_cpu_tensor_takes_the_plain_version():
         butterfly_kernel.reduce_quant(xt, wt)
     with pytest.raises(ValueError, match="CUDA"):
         butterfly_kernel.dequant_restore(codes, scales, wt.t().contiguous())
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_fused_codec_refuses_wider_than_int8(use_kernel):
+    """The fused codec emits int8 codes: a wider wire raises, on every
+    device, rather than taking an unfused path.  The unfused ops still
+    quantize it (int16 codes)."""
+    (_, xt), (_, wt) = _rq_inputs(8, 64, 16, "float32")
+    params = {"w_reduce": wt, "w_restore": wt.t().contiguous()}
+    if use_kernel:
+        with pytest.raises(ValueError, match="int8"):
+            tbf.apply_butterfly(params, xt, wire_bits=16, use_kernel=True)
+    else:
+        codes, _ = tbf.reduce_unit(params, xt, wire_bits=16)
+        assert codes.dtype == torch.int16
