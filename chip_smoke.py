@@ -1,35 +1,63 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's main path on one NVIDIA GPU, end to end.
+"""Run the PyTorch/CUDA port's main paths on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
+
+On one H100 80GB HBM3 it takes 40-60 s, the kernels' build included.
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
   1. device  - requires CUDA; prints the card's name and power limit;
-  2. build   - compiles the butterfly kernels from src/repro_torch/csrc with
-               nvcc for sm_90a and prints the build seconds and ptxas report;
+  2. build   - compiles the butterfly and flash-attention kernels from
+               src/repro_torch/csrc with nvcc for sm_90a, one nvcc per
+               source, all at once, and prints the build seconds and ptxas
+               report;
   3. kernels - holds each kernel against its plain PyTorch version on the
-               card at the main path's shapes (d=4096, d_r=64, bf16) and at
-               a small f32 shape;
-  4. times   - median CUDA-event time of each kernel and of its plain
-               version (inputs cold in L2), beside the least time the card
-               could take (bytes or operations over its data-sheet rates);
+               card: the butterfly kernels at both models' widths (d=4096,
+               d_r=64 and d=3840, d_r=60, bf16) and a small f32 shape; flash
+               attention at every head dim (32-256) in f32 and bf16, causal,
+               windowed and not, with S < T, S > T and ragged S and T, and at
+               the main paths' shapes;
+  4. times   - median CUDA-event time of each kernel, of its plain version
+               and, for flash attention, of one scaled_dot_product_attention
+               call (a yardstick the port never calls), inputs cold in L2,
+               beside the least time the card could take (bytes or
+               operations over its data-sheet rates);
   5. serving - full-width qwen3-8b (36 layers, d_model 4096, bf16, random
                weights from seed 0) split after layer 4 with a d_r=64 int8
                butterfly: four requests prefill through edge_half -> host
                wire -> cloud_half and decode 16 tokens each in the serving
                engine (cache handoff); one more decodes 8 tokens streamed
-               through edge_step/stream_step.  Both kernels' launch counts
-               must grow on this path, and the cloud logits must stay within
-               5% of the reference forward's largest logit.
-With ``--profile [DIR]`` it then profiles one prefill and 8 decode steps
-(torch.profiler: wall time, device-busy share, top kernels; the operator
-tables go to DIR when one is given).  It then prints the kernels' JSON line and, last, the
-result line.
+               through edge_step/stream_step.  Both butterfly kernels'
+               launch counts must grow on this path, and the cloud logits
+               must stay within 5% of the reference forward's largest logit;
+  6. kernel prefill - after the qwen3-8b model is freed, full-width
+               gemma3-12b (48 layers, 40 with a 1024-token window, d_model
+               3840, head_dim 256, bf16, random weights from seed 0) with a
+               d_r=60 butterfly after layer 6: prompts of 100 and 2,048 byte
+               tokens each go through forward_prefill(use_kernel=True) and
+               forward_prefill(use_kernel=False), then 16 greedy
+               forward_decode steps from caches padded to capacity (ring
+               caches of exactly min(capacity, 1024) rows for the windowed
+               layers, which wrap on the long prompt).  Each kernel prefill
+               must launch the flash kernel 48 times, both butterfly kernels
+               must launch, the logits must stay within 5% of the plain
+               prefill's largest logit with the same greedy token, the last
+               decode step must stay within 5% of a kernel prefill of the
+               whole sequence, and the peak must fit the 80 GB card.
+With ``--profile [DIR]`` it profiles one qwen3-8b prefill and 8 decode steps
+after phase 5, and gemma3-12b's kernel and plain prefills of the 2,048-token
+prompt and 8 decode steps after phase 6 (torch.profiler: wall time,
+device-busy share, top kernels; the operator tables go to DIR when one is
+given).  It then prints the
+kernels' JSON line (launches by path; flash attention's times per launch
+averaged over the 2,048-token prefill's 48 launches, and each path shape's
+under "by_shape") and, last, the result line.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import statistics
@@ -47,6 +75,9 @@ H100_RATES = (3.35e12, 989e12)
 
 D, D_R = 4096, 64
 CHECK_ROWS = (1, 4, 8, 37, 64, 128, 512, 1024, 1025, 4096)
+# gemma3-12b's butterfly: d_r = d_model // 64 = 60, padded to 64 channels
+GEMMA_D, GEMMA_D_R = 3840, 60
+GEMMA_ROWS = (1, 100, 2048, 2049)
 # reduce_quant runs 1-row blocks up to 1,024 rows and 16-row blocks above
 TIME_ROWS = (1, 128, 1024, 1025, 4096)
 JSON_ROWS = 128          # a 128-token prompt's edge/cloud call on the main path
@@ -81,12 +112,16 @@ def phase_device():
 # --------------------------------------------------------------------------- 2
 def phase_build():
     from repro_torch.kernels import build
-    lib, log, secs = build.compile_library()
-    build.load()
-    print(f"build: {lib.name} in {secs:.1f} s (nvcc, sm_90a)")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    built = build.compile_libraries()
+    for name, (lib, log, secs) in built.items():
+        build.load(name)
+        print(f"build: {lib.name} in {secs:.1f} s (nvcc, sm_90a)")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+    print(f"build: {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
+          f"(one nvcc per source, in parallel)")
 
 
 # --------------------------------------------------------------------------- 3
@@ -109,6 +144,7 @@ def phase_kernels():
     from repro_torch.kernels import butterfly_kernel as bk, ref
     worst = {"butterfly_reduce_quant": 0.0, "butterfly_dequant_restore": 0.0}
     cases = [(T, D, D_R, torch.bfloat16) for T in CHECK_ROWS] + \
+        [(T, GEMMA_D, GEMMA_D_R, torch.bfloat16) for T in GEMMA_ROWS] + \
         [(T, 256, 16, torch.float32) for T in (1, 37, 512)]
     for T, d, d_r, dtype in cases:
         x, w, wr = _inputs(T, d, d_r, dtype, seed=T)
@@ -133,6 +169,70 @@ def phase_kernels():
               f"differ {n_diff}/{diff.numel()} (max {max_diff}), restore max "
               f"|err| {err:.3g}")
     torch.cuda.synchronize()
+    return worst
+
+
+# flash attention at the main paths' shapes, (B, S, N, K, hd, window) with
+# T = S, causal: gemma3-12b's global and windowed layers on the 2,048- and
+# 100-token prompts, and qwen3-8b on a 128-token prompt
+FLASH_PATH = {
+    "gemma3 S=2048 global": (1, 2048, 16, 8, 256, None),
+    "gemma3 S=2048 window": (1, 2048, 16, 8, 256, 1024),
+    "gemma3 S=100": (1, 100, 16, 8, 256, None),
+    "qwen3 S=128": (1, 128, 32, 8, 128, None),
+}
+# the 2,048-token gemma3-12b prefill's 48 flash launches, by shape
+FLASH_JSON = {"gemma3 S=2048 window": 40, "gemma3 S=2048 global": 8}
+
+
+def _qkv(B, S, T, N, K, hd, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((B, S, N, hd), (B, T, K, hd), (B, T, K, hd))]
+
+
+def phase_flash_checks():
+    """Flash kernel vs its plain version: every head dim in f32 and bf16,
+    causal, windowed, not causal and not causal with a window, on S < T,
+    S > T (rows that see no key) and ragged S and T; then the paths' shapes
+    in bf16.  f32 within rtol/atol 2e-5 (f32 sums in another order), bf16
+    within one bf16 ulp (rtol 2**-7, atol 1e-3): both compute in f32 and
+    round once.  Returns the largest |error| at the paths' shapes."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ops, ref
+    shapes = [(2, 128, 128, 4, 2), (1, 37, 53, 4, 2), (1, 130, 65, 2, 2),
+              (1, 1, 77, 8, 2), (2, 200, 200, 8, 1)]
+    masks = [(True, None), (True, 16), (False, None), (False, 16)]
+    n = 0
+    for hd in fa.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else \
+                dict(rtol=2 ** -7, atol=1e-3)
+            worst = 0.0
+            for B, S, T, N, K in shapes:
+                q, k, v = _qkv(B, S, T, N, K, hd, dtype, seed=S * T + hd)
+                for causal, window in masks:
+                    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+                    want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                                   window=window)
+                    torch.testing.assert_close(out, want, **tol)
+                    worst = max(worst, float((out.float() - want.float()).abs().max()))
+                    n += 1
+            print(f"flash: hd={hd:3d} {str(dtype)[6:]:8s} {len(shapes)} shapes x "
+                  f"{len(masks)} masks, max |err| {worst:.3g}")
+    worst = 0.0
+    for label, (B, S, N, K, hd, window) in FLASH_PATH.items():
+        q, k, v = _qkv(B, S, S, N, K, hd, torch.bfloat16, seed=S + hd)
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        torch.testing.assert_close(out, want, rtol=2 ** -7, atol=1e-3)
+        err = float((out.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        n += 1
+        print(f"flash: {label:22s} bf16 max |err| {err:.3g}")
+    torch.cuda.synchronize()
+    print(f"flash: {n} checks against the plain version passed")
     return worst
 
 
@@ -171,6 +271,75 @@ def _bounds(rates, T, d, d_r):
     return pick(rq_bytes), pick(dr_bytes)
 
 
+def _visible_pairs(S: int, T: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave visible, summed over query rows;
+    a row that sees no key averages all T values."""
+    total = 0
+    for i in range(S):
+        qpos = i + T - S
+        lo = max(0, qpos - window + 1) if window else 0
+        hi = min(T - 1, qpos) if causal else T - 1
+        total += hi - lo + 1 if hi >= lo else T
+    return total
+
+
+def phase_flash_times(rates):
+    """Kernel, plain version and one scaled_dot_product_attention call at
+    the paths' shapes, bf16, against the bound: the larger of FLOPs (4 * hd
+    per visible pair and query head) over the bf16 tensor-core rate and the
+    bytes of q, k, v and the output over the memory rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    bw, bf16_ops = rates
+    out = {}
+    for label, (B, S, N, K, hd, window) in FLASH_PATH.items():
+        q, k, v = _qkv(B, S, S, N, K, hd, torch.bfloat16, seed=S + hd)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # SDPA's layout
+        if window:
+            pos = torch.arange(S, device=q.device)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            library = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        else:
+            library = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_out = library().transpose(1, 2)
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        lib_err = float((lib_out.float() - want.float()).abs().max())
+        ms = _device_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                    window=window))
+        plain_ms = _device_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=True, window=window))
+        library_ms = _device_ms(library)
+        flops = 4 * B * N * hd * _visible_pairs(S, S, True, window)
+        nbytes = 2 * (2 * B * S * N * hd + 2 * B * S * K * hd)
+        tb, to = nbytes / bw * 1e3, flops / bf16_ops * 1e3
+        bound_ms, bound_by = (tb, "bytes") if tb >= to else (to, "operations")
+        out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        print(f"times: flash_attention {label:22s} kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  sdpa {library_ms:.4f} ms (max |err| vs plain "
+              f"{lib_err:.3g})  bound {bound_ms:.4f} ms ({bound_by}; bytes "
+              f"{tb:.4f} ms)  {flops / ms / 1e9:.1f} TFLOP/s")
+    return out
+
+
+def _layer_mean(flash_times):
+    """Flash's times and bound per launch, averaged over the launches of the
+    2,048-token gemma3-12b prefill (:data:`FLASH_JSON`); bound by what bounds
+    the larger share of the summed bound."""
+    n = sum(FLASH_JSON.values())
+    out = {key: sum(w * flash_times[label][key] for label, w in FLASH_JSON.items()) / n
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    share: dict = {}
+    for label, w in FLASH_JSON.items():
+        t = flash_times[label]
+        share[t["bound_by"]] = share.get(t["bound_by"], 0.0) + w * t["bound_ms"]
+    out["bound_by"] = max(share, key=share.get)
+    return out
+
+
 def phase_times(rates):
     import torch
     from repro_torch.kernels import butterfly_kernel as bk, ref
@@ -199,6 +368,19 @@ def phase_times(rates):
 
 
 # --------------------------------------------------------------------------- 5
+def _counts():
+    from repro_torch.kernels import butterfly_kernel as bk, flash_attention as fa
+    return {"butterfly_reduce_quant": bk.reduce_quant.launches,
+            "butterfly_dequant_restore": bk.dequant_restore.launches,
+            "flash_attention": fa.flash_attention.launches}
+
+
+def _zero_counts():
+    from repro_torch.kernels import butterfly_kernel as bk, flash_attention as fa
+    bk.reduce_quant.launches = bk.dequant_restore.launches = 0
+    fa.flash_attention.launches = 0
+
+
 def _prompts(n: int, lengths):
     from repro_torch.data import tokenizer
     words = ("edge", "cloud", "butterfly", "wire", "split", "layer", "token",
@@ -270,7 +452,6 @@ def _serve_streamed(runner, engine, toks, new_tokens, max_len):
 def phase_serving():
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import butterfly_kernel as bk
     from repro_torch.runtime.split_exec import SplitModelBank
 
     cfg = get_config("qwen3-8b")
@@ -294,17 +475,17 @@ def phase_serving():
     print(f"serving: warm-up {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
 
-    bk.reduce_quant.launches = 0
-    bk.dequant_restore.launches = 0
+    _zero_counts()
     reqs, cloud_logits, prefill_ms, wire_bytes, raw_bytes, decode_ms, \
         decode_steps = _serve_handoff(runner, engine, prompts[:4], 16)
     sreq, stream_ms = _serve_streamed(runner, engine, prompts[4], 8, max_len)
-    launches = {"butterfly_reduce_quant": bk.reduce_quant.launches,
-                "butterfly_dequant_restore": bk.dequant_restore.launches}
+    launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
+    # the bank's attention is the plain one: only the butterfly kernels run
     print(f"serving: launches on the main path {launches}")
-    if min(launches.values()) <= 0:
+    if min(launches["butterfly_reduce_quant"],
+           launches["butterfly_dequant_restore"]) <= 0:
         fail(f"a kernel was not launched on the main path: {launches}")
     for r in reqs + [sreq]:
         if not r.done:
@@ -349,6 +530,163 @@ def phase_serving():
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
+
+
+# --------------------------------------------------------------------------- 6
+def _serve_prompt(params, built, toks, new_tokens):
+    """One prompt: kernel prefill, plain prefill, pad the caches to
+    capacity, greedy decode.  Returns what came out and what it measured."""
+    import torch
+    from repro_torch.models import model as M
+    S = toks.shape[1]
+    n0 = _counts()["flash_attention"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, caches = M.forward_prefill(params, built, {"tokens": toks},
+                                       use_kernel=True)
+    torch.cuda.synchronize()
+    kernel_ms = (time.perf_counter() - t) * 1e3
+    flash_kernel = _counts()["flash_attention"] - n0
+    t = time.perf_counter()
+    ref, _ = M.forward_prefill(params, built, {"tokens": toks})
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    cap = S + new_tokens
+    caches = M.pad_decode_caches(built, caches, cap)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    generated = [tok]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for pos in range(S, cap):
+        step_logits, caches = M.forward_decode(params, built, tok, caches, pos,
+                                               use_kernel=True)
+        tok = step_logits[:, -1].argmax(-1, keepdim=True)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / new_tokens
+    return dict(S=S, cap=cap, logits=logits, ref=ref, caches=caches,
+                step_logits=step_logits, generated=generated,
+                flash_kernel=flash_kernel,
+                flash_rest=_counts()["flash_attention"] - n0 - flash_kernel,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, decode_ms=decode_ms)
+
+
+def _check_prompt(params, built, toks, r):
+    """Hold one prompt's results from :func:`_serve_prompt` to the phase's
+    limits.  Its whole-sequence prefill is a check, so it runs after the
+    path's launches were read."""
+    import torch
+    from repro_torch.models import model as M
+    cfg = built.cfg
+    S, cap, logits, ref, caches, step_logits, generated = (
+        r[k] for k in ("S", "cap", "logits", "ref", "caches", "step_logits",
+                       "generated"))
+    flash = r["flash_kernel"]
+    if flash != cfg.num_layers or r["flash_rest"] != 0:
+        fail(f"S={S}: the kernel prefill launched the flash kernel {flash} "
+             f"times, the plain prefill and decode {r['flash_rest']}; "
+             f"expected {cfg.num_layers} and 0")
+    if not (torch.isfinite(logits).all() and logits.shape == (1, 1, cfg.vocab_size)):
+        fail(f"S={S}: kernel prefill logits are not finite or of the wrong shape")
+    delta = float((logits - ref).abs().max())
+    limit = 0.05 * float(ref.abs().max())
+    if delta > limit:
+        fail(f"S={S}: kernel prefill logits differ from the plain prefill's by "
+             f"{delta} > {limit}")
+    if int(logits.argmax()) != int(ref.argmax()):
+        fail(f"S={S}: the kernel and plain prefills disagree on the greedy token")
+    windowed = {d.window for segs in built.stages for seg in segs for d in seg.unit}
+    want_lengths = {cap if w is None else min(cap, w) for w in windowed}
+    lengths = {leaf.shape[2] for leaf in _leaves(caches)}
+    if lengths != want_lengths:
+        fail(f"S={S}: decode cache lengths {sorted(lengths)}, expected "
+             f"{sorted(want_lengths)}")
+    # the last decode step against a kernel prefill of the whole sequence,
+    # whose windowed layers see the same 1024 positions the rings hold
+    seq = torch.cat([toks] + generated[:-1], dim=1)
+    whole, _ = M.forward_prefill(params, built, {"tokens": seq}, use_kernel=True)
+    d_delta = float((step_logits - whole).abs().max())
+    d_limit = 0.05 * float(whole.abs().max())
+    if not torch.isfinite(step_logits).all() or d_delta > d_limit:
+        fail(f"S={S}: the last decode step differs from a prefill of the "
+             f"whole sequence by {d_delta} > {d_limit}")
+    tokens = [int(x) for x in torch.cat(generated[1:], dim=1)[0].tolist()]
+    print(f"kernel prefill: S={S:5d} prefill kernel {r['kernel_ms']:.3f} ms, "
+          f"plain {r['plain_ms']:.3f} ms; flash launches {flash}; max|logits - plain| "
+          f"{delta:.4g} (limit {limit:.4g}), greedy token {int(ref.argmax())} "
+          f"both")
+    print(f"kernel prefill: S={S:5d} decode {r['decode_ms']:.3f} ms per token "
+          f"over {cap - S} steps; cache rows {sorted(lengths)}; last step vs "
+          f"whole-sequence prefill {d_delta:.4g} (limit {d_limit:.4g}), greedy "
+          f"{'same' if int(step_logits.argmax()) == int(whole.argmax()) else 'differs'}")
+    print(f"kernel prefill: S={S:5d} tokens {tokens}")
+    return tokens
+
+
+def phase_kernel_prefill(profile: bool = False, out_dir: Optional[Path] = None):
+    """Full-width gemma3-12b through forward_prefill(use_kernel=True) and
+    greedy forward_decode (see the module docstring).  With ``profile`` it
+    then profiles the 2,048-token prompt's kernel and plain prefills and 8
+    decode steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    base = get_config("gemma3-12b")
+    cfg = base.with_butterfly(base.num_layers // 8, max(16, base.d_model // 64))
+    built = M.build(cfg)
+    t0 = time.perf_counter()
+    params = M.init_model(torch.Generator(device="cuda").manual_seed(0), built,
+                          device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"kernel prefill: {cfg.name} {cfg.num_layers} layers d_model "
+          f"{cfg.d_model} head_dim {cfg.resolved_head_dim} window "
+          f"{cfg.sliding_window} {cfg.dtype}, {n_params / 1e9:.3f} B params, "
+          f"butterfly after layer {cfg.butterfly.layer} d_r {cfg.butterfly.d_r}; "
+          f"init {time.perf_counter() - t0:.1f} s")
+    new_tokens = 16
+    prompts = [torch.tensor(p, dtype=torch.int64, device="cuda")[None]
+               for p in _prompts(2, (100, 2048))]
+    if [p.shape[1] for p in prompts] != [100, 2048]:
+        fail("the prompts are not 100 and 2048 tokens long")
+    # warm-up at the same shapes, so the timed run pays no first-call costs
+    t0 = time.perf_counter()
+    for toks in prompts:
+        _serve_prompt(params, built, toks, 2)
+    print(f"kernel prefill: warm-up {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+
+    _zero_counts()
+    served = [_serve_prompt(params, built, toks, new_tokens) for toks in prompts]
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"kernel prefill: launches on the path {launches}")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel was not launched on the kernel-prefill path: {launches}")
+    if peak_gb >= 80:
+        fail(f"peak device memory {peak_gb:.2f} GB does not fit the card")
+    results = [_check_prompt(params, built, toks, r)
+               for toks, r in zip(prompts, served)]
+    del served
+    print(f"kernel prefill: peak device memory {peak_gb:.2f} GB")
+    if profile:
+        toks = prompts[1]
+        S = toks.shape[1]
+        _profiled("gemma3_kernel_prefill", lambda: M.forward_prefill(
+            params, built, {"tokens": toks}, use_kernel=True), out_dir)
+        _profiled("gemma3_plain_prefill", lambda: M.forward_prefill(
+            params, built, {"tokens": toks}), out_dir)
+        logits, caches = M.forward_prefill(params, built, {"tokens": toks},
+                                           use_kernel=True)
+        caches = M.pad_decode_caches(built, caches, S + 8)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+
+        def decode():
+            for pos in range(S, S + 8):
+                M.forward_decode(params, built, tok, caches, pos, use_kernel=True)
+        _profiled("gemma3_decode", decode, out_dir)
+    return launches, results
 
 
 # --------------------------------------------------------------------- profile
@@ -416,30 +754,49 @@ def main():
     ap = argparse.ArgumentParser(description="Run the port's main path on "
                                  "one NVIDIA GPU (see the module docstring).")
     ap.add_argument("--profile", nargs="?", const="", metavar="DIR",
-                    help="profile one prefill and 8 decode steps; write the "
-                         "operator tables to DIR if given")
+                    help="profile prefills and 8 decode steps of both "
+                         "models; write the operator tables to DIR if given")
     args = ap.parse_args()
     name, smi, rates = phase_device()
+    import torch
+    # the plain versions' f32 products in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     phase_build()
     worst = phase_kernels()
+    worst["flash_attention"] = phase_flash_checks()
     times = phase_times(rates)
-    launches, runner = phase_serving()
+    flash_times = phase_flash_times(rates)
+    serving_launches, runner = phase_serving()
+    profile_dir = Path(args.profile) if args.profile else None
     if args.profile is not None:
-        phase_profile(runner, Path(args.profile) if args.profile else None)
-    kernels = []
-    for kname, line in (("butterfly_reduce_quant", 38),
-                        ("butterfly_dequant_restore", 188)):
-        t = times[(kname, JSON_ROWS)]
-        kernels.append({
-            "name": kname, "route": "cuda",
-            "source": "src/repro_torch/csrc/butterfly.cu",
-            "replaces": f"src/repro/kernels/butterfly_kernel.py:{line}",
-            "launches": launches[kname], "max_abs_err": worst[kname],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
-        })
+        phase_profile(runner, profile_dir)
+    del runner                       # the qwen3-8b weights leave the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefill_launches, _ = phase_kernel_prefill(args.profile is not None,
+                                               profile_dir)
+
+    by_path = {k: {"qwen3-8b split serving": serving_launches[k],
+                   "gemma3-12b kernel prefill": prefill_launches[k]}
+               for k in prefill_launches}
+    rows = [("butterfly_reduce_quant", "src/repro_torch/csrc/butterfly.cu",
+             "src/repro/kernels/butterfly_kernel.py:38",
+             times[("butterfly_reduce_quant", JSON_ROWS)]),
+            ("butterfly_dequant_restore", "src/repro_torch/csrc/butterfly.cu",
+             "src/repro/kernels/butterfly_kernel.py:188",
+             times[("butterfly_dequant_restore", JSON_ROWS)]),
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:75", _layer_mean(flash_times))]
+    kernels = [{
+        "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(by_path[kname].values()),
+        "launches_by_path": by_path[kname], "max_abs_err": worst[kname],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
+    } for kname, source, replaces, t in rows]
+    kernels[-1]["by_shape"] = flash_times
     print(json.dumps({"kernels": kernels}))
-    import torch
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

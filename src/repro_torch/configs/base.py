@@ -2,8 +2,8 @@
 
 The port keeps its own copy (it imports nothing of ``repro``): every
 architecture is a frozen dataclass registered under its ``--arch`` id.
-Only the families this port runs are registered (``qwen3_8b``); the other
-families arrive with their slices.
+Only the families this port runs are registered (``qwen3_8b``,
+``gemma3_12b``); the other families arrive with their slices.
 """
 from __future__ import annotations
 
@@ -201,15 +201,20 @@ def register(name: str):
     return deco
 
 
+def _import_archs():
+    # the per-arch modules are imported lazily so `register` runs
+    import repro_torch.configs.gemma3_12b  # noqa: F401
+    import repro_torch.configs.qwen3_8b  # noqa: F401
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
-        # import the per-arch modules lazily so `register` runs
-        import repro_torch.configs.qwen3_8b  # noqa: F401
+        _import_archs()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
 
 
 def list_archs() -> list[str]:
-    import repro_torch.configs.qwen3_8b  # noqa: F401
+    _import_archs()
     return sorted(_REGISTRY)

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-The sources under ``repro_torch/csrc/`` are compiled at first use for
-``sm_90a`` into ``build/repro_torch_kernels/`` at the repository root (a
-directory ``.gitignore`` lists), keyed on a hash of the source and the
-flags, so a changed source never loads a stale library.  The library has a
-plain C interface: no PyTorch headers, so ``nvcc`` takes seconds.
+Each source ``repro_torch/csrc/<name>.cu`` is compiled at first use for
+``sm_90a`` into its own library under ``build/repro_torch_kernels/`` at the
+repository root (a directory ``.gitignore`` lists), keyed on a hash of the
+source and the flags, so a changed source never loads a stale library.  The
+libraries have a plain C interface: no PyTorch headers, so ``nvcc`` takes
+seconds.  :func:`compile_libraries` starts one ``nvcc`` per source, all at
+once.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -23,13 +26,18 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# ctypes signatures of the C entry points (pointers and the stream as
-# c_void_p, ints as c_int; the return value is a cudaError_t)
+# ctypes signatures of each library's C entry points (pointers and the
+# stream as c_void_p, ints as c_int; the return value is a cudaError_t)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "butterfly_reduce_quant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "butterfly_dequant_restore": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "butterfly_reduce_width": [_I],
+    "butterfly": {
+        "butterfly_reduce_quant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "butterfly_dequant_restore": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "butterfly_reduce_width": [_I],
+    },
+    "flash_attention": {
+        "flash_attention": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    },
 }
 
 
@@ -44,7 +52,7 @@ def _nvcc() -> str:
     return found
 
 
-def compile_library(name: str = "butterfly") -> tuple[Path, str, float]:
+def compile_library(name: str) -> tuple[Path, str, float]:
     """Compile ``csrc/<name>.cu`` unless a library for this exact source and
     these flags exists.  Returns (library path, compiler log, seconds)."""
     src = CSRC / f"{name}.cu"
@@ -72,12 +80,19 @@ def compile_library(name: str = "butterfly") -> tuple[Path, str, float]:
     return lib, log_path.read_text(), time.perf_counter() - t0
 
 
+def compile_libraries(names=tuple(SIGNATURES)) -> dict:
+    """:func:`compile_library` for each name, one ``nvcc`` per source, all
+    started together.  Returns {name: (library path, compiler log, seconds)}."""
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(compile_library, names)))
+
+
 @functools.cache
-def load(name: str = "butterfly") -> ctypes.CDLL:
-    """The compiled kernel library, built at first use."""
+def load(name: str) -> ctypes.CDLL:
+    """The compiled kernel library ``name``, built at first use."""
     path, _, _ = compile_library(name)
     lib = ctypes.CDLL(str(path))
-    for fn, argtypes in SIGNATURES.items():
+    for fn, argtypes in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib

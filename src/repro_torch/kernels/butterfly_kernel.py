@@ -56,7 +56,7 @@ def reduce_quant(x: torch.Tensor, w_reduce: torch.Tensor, bits: int = 8):
     scales = torch.empty((T, 1), dtype=torch.float32, device=x.device)
     if T == 0:
         return codes, scales
-    lib = build.load()
+    lib = build.load("butterfly")
     # the kernel reads w_reduce in 16-byte pieces at a padded channel width;
     # the zero columns give zero sums, which it computes and drops
     width = lib.butterfly_reduce_width(d_r)
@@ -95,7 +95,7 @@ def dequant_restore(codes: torch.Tensor, scales: torch.Tensor,
     out = torch.empty((T, d), dtype=out_dtype, device=codes.device)
     if T == 0:
         return out
-    err = build.load().butterfly_dequant_restore(
+    err = build.load("butterfly").butterfly_dequant_restore(
         codes.data_ptr(), scales.data_ptr(), w_restore.data_ptr(),
         out.data_ptr(), T, d_r, d, _DTYPE_CODE[out_dtype], _stream(codes))
     _raise_on(err, "butterfly_dequant_restore")

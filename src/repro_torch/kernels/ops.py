@@ -1,5 +1,5 @@
-"""Public wrappers for the butterfly kernels (port of the butterfly part of
-``repro/kernels/ops.py``).
+"""Public wrappers for the port's kernels (port of the butterfly and
+flash-attention parts of ``repro/kernels/ops.py``).
 
 A CPU tensor takes the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor launches the hand-written Hopper kernel (``kernels/butterfly_kernel``)
@@ -8,15 +8,17 @@ or raises.  There is no fallback from one to the other.
 The JAX wrappers route rows <= 8 to a jnp fast path and pad the row count
 to the Pallas block; both exist only because of Pallas dispatch and TPU
 tiling.  On the card every row count goes through the kernel, which masks
-the ragged edge itself, so neither is kept here.
+the ragged edge itself, so neither is kept here.  For the same reason the
+flash kernel takes any S and T, where the Pallas kernel asserts that its
+blocks divide them.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import butterfly_kernel, ref
+from repro_torch.kernels import butterfly_kernel, flash_attention as fa, ref
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -57,3 +59,17 @@ def butterfly_dequant_restore(codes: torch.Tensor, scales: torch.Tensor,
         out = butterfly_kernel.dequant_restore(
             cf.contiguous(), sf.contiguous(), w_restore.contiguous(), out_dtype)
     return out.reshape(*shape[:-1], d)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B,S,N,hd), k/v (B,T,K,hd) -> (B,S,N,hd) in q's dtype; queries
+    align to the end of the keys, ``window`` (>= 1) bounds how far back a
+    query sees."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal, window=window)

@@ -1,8 +1,12 @@
 """Plain PyTorch versions of the port's kernels: what the wrappers in
 ``kernels/ops.py`` run on a CPU tensor, and what the kernels are held
-against on the card.  They follow ``repro/kernels/ref.py``: f32 product,
-per-row absmax, scale, round half to even, clip."""
+against on the card.  They follow ``repro/kernels/ref.py``: for the
+butterfly, f32 product, per-row absmax, scale, round half to even, clip;
+for attention, f32 scores over an end-aligned causal/window mask."""
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
@@ -24,3 +28,26 @@ def butterfly_dequant_restore_ref(codes: torch.Tensor, scales: torch.Tensor,
     """codes: (T, d_r) int8, scales (T, 1) f32, w_restore (d_r, d) -> (T, d)."""
     r = codes.float() * scales
     return (r @ w_restore.float()).to(out_dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q: (B,S,N,hd), k/v: (B,T,K,hd) with N % K == 0 -> (B,S,N,hd) in
+    q's dtype, f32 math.  Query i sits at position i + T - S (the ends
+    align); a masked score is -1e30, so a row that sees no key averages v."""
+    B, S, N, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, K, N // K, hd).float()
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) / math.sqrt(hd)
+    qpos = torch.arange(S, device=q.device)[:, None] + (T - S)
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    return out.reshape(B, S, N, hd).to(q.dtype)

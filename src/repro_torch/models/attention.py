@@ -1,10 +1,12 @@
-"""GQA attention with qk-norm and RoPE, full-sequence and one-token decode
-(port of ``repro/models/attention.py``, the plain path: the flash-attention
-kernel arrives with its own slice).  Scores, masks and softmax run in f32
-with ``MASK_VALUE`` for masked slots.
+"""GQA attention with qk-norm, RoPE, sliding windows and ring-buffer KV
+caches, full-sequence and one-token decode (port of
+``repro/models/attention.py``).  Scores, masks and softmax run in f32 with
+``MASK_VALUE`` for masked slots.  ``use_kernel=True`` sends full-sequence
+attention through ``kernels/ops.flash_attention`` (the Hopper kernel on a
+CUDA tensor).
 
-Windowed ring-buffer caches arrive with the windowed families; a layer with
-a window raises here.
+When a window is set the decode cache holds ``min(capacity, window)`` rows
+and is a ring buffer: position ``p`` lives in slot ``p % T``.
 """
 from __future__ import annotations
 
@@ -14,14 +16,10 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
 MASK_VALUE = -1e30
-
-
-def _no_window(window: Optional[int]):
-    if window is not None:
-        raise NotImplementedError("windowed attention is not ported yet")
 
 
 def init_attention(gen, cfg: ModelConfig, dtype, device) -> dict:
@@ -94,19 +92,24 @@ def causal_mask(S: int, T: int, offset: int = 0, window: Optional[int] = None,
 
 
 def attention_fullseq(params, x, *, cfg: ModelConfig, window: Optional[int],
-                      positions=None, causal: bool = True, rope: bool = True):
-    """Train/prefill attention over the whole sequence; returns (out, kv)."""
-    _no_window(window)
+                      positions=None, use_kernel: bool = False,
+                      causal: bool = True, rope: bool = True):
+    """Train/prefill attention over the whole sequence; returns (out, kv).
+    As in the JAX package, the plain path applies ``window`` only with the
+    causal mask; the kernel applies it either way."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(params, x, cfg, positions, rope=rope)
-    scores = _gqa_scores(q, k)
-    if causal:
-        mask = causal_mask(S, S, device=x.device)[None, None, None]
+    if use_kernel:
+        out = kops.flash_attention(q, k, v, causal=causal, window=window)
     else:
-        mask = torch.ones((1, 1, 1, S, S), dtype=torch.bool, device=x.device)
-    out = _attend(scores, v, mask, x.dtype)
+        scores = _gqa_scores(q, k)
+        if causal:
+            mask = causal_mask(S, S, window=window, device=x.device)[None, None, None]
+        else:
+            mask = torch.ones((1, 1, 1, S, S), dtype=torch.bool, device=x.device)
+        out = _attend(scores, v, mask, x.dtype)
     out = out.reshape(B, S, -1) @ params["wo"]
     return out, {"k": k, "v": v}
 
@@ -115,24 +118,35 @@ def attention_decode(params, x, cache, cache_pos, *, cfg: ModelConfig,
                      window: Optional[int], rope: bool = True):
     """x: (B,1,d).  ``cache_pos`` is the absolute position of the new token:
     an int or 0-d tensor (all rows aligned) or a (B,) tensor (the ragged
-    serving engine).  The new k/v row is written at ``min(pos, T-1)``.
+    serving engine).  The new k/v row is written at ``min(pos, T-1)``, or,
+    when ``window`` is set, at ring slot ``pos % T`` (the cache then holds
+    ``min(capacity, window)`` rows).
 
     Unlike the JAX function, the cache is updated IN PLACE (and returned):
     its leaves are views into the caller's stacked stage cache, so a decode
     step writes one row per layer instead of copying the cache."""
-    _no_window(window)
     B = x.shape[0]
     T = cache["k"].shape[1]
     pos = torch.as_tensor(cache_pos, dtype=torch.int64, device=x.device)
     positions = pos.expand(B)[:, None] if pos.dim() == 0 else pos[:, None]
     q, k_new, v_new = _project_qkv(params, x, cfg, positions, rope=rope)
-    slots = torch.clamp(positions[:, 0], max=T - 1)
+    if window is not None:
+        slots = positions[:, 0] % T
+    else:
+        slots = torch.clamp(positions[:, 0], max=T - 1)
     b_idx = torch.arange(B, device=x.device)
     k, v = cache["k"], cache["v"]
     k[b_idx, slots] = k_new[:, 0].to(k.dtype)
     v[b_idx, slots] = v_new[:, 0].to(v.dtype)
     scores = _gqa_scores(q, k)                                 # (B,K,G,1,T)
-    valid = torch.arange(T, device=x.device)[None, :] <= positions
+    idx = torch.arange(T, device=x.device)[None, :]
+    if window is not None:
+        # ring buffer: slot s holds absolute position p iff p % T == s and
+        # p <= pos and p > pos - window
+        age = (slots[:, None] - idx) % T                       # 0 = newest
+        valid = age < torch.clamp(positions + 1, max=window)
+    else:
+        valid = idx <= positions
     out = _attend(scores, v, valid[:, None, None, None, :], x.dtype)
     out = out.reshape(B, 1, -1) @ params["wo"]
     return out, {"k": k, "v": v}

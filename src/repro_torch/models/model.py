@@ -5,7 +5,12 @@
   init_model(gen, built, device=...)          -> params
   forward_train(params, built, batch)         -> (logits, aux)
   forward_prefill(params, built, batch)       -> (last-position logits, caches)
+  pad_decode_caches(built, caches, length)    -> caches at decode capacity
   forward_decode(params, built, tokens, caches, pos) -> (logits, caches)
+
+``use_kernel=True`` runs full-sequence attention through the flash kernel
+and the in-graph butterfly wire through the fused butterfly kernels (the
+Hopper kernels on CUDA tensors, their plain versions on CPU tensors).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from repro_torch.core import butterfly as bf_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed, init_embedding, init_rms_norm, \
     rms_norm, unembed
+from repro_torch.tree import tree_leaves
 
 
 @dataclass(frozen=True)
@@ -74,7 +80,8 @@ def _logits(params, built: BuiltModel, x):
     return unembed(table, x, cfg.logit_softcap)
 
 
-def _run_stages(params, built: BuiltModel, x, *, mode, caches, pos):
+def _run_stages(params, built: BuiltModel, x, *, mode, caches, pos,
+                use_kernel: bool):
     cfg = built.cfg
     new_caches = []
     for stage_idx, segs in enumerate(built.stages):
@@ -84,32 +91,54 @@ def _run_stages(params, built: BuiltModel, x, *, mode, caches, pos):
                     "the straight-through training wire arrives with the "
                     "training slice")
             x = bf_lib.apply_butterfly(params["butterfly"], x,
-                                       wire_bits=cfg.butterfly.wire_bits)
+                                       wire_bits=cfg.butterfly.wire_bits,
+                                       use_kernel=use_kernel)
         stage_cache = None if caches is None else caches[stage_idx]
         x, nc = tfm.apply_stage(list(segs), params["stages"][stage_idx], x,
                                 cfg=cfg, mode=mode, stage_cache=stage_cache,
-                                pos=pos)
+                                pos=pos, use_kernel=use_kernel)
         new_caches.append(nc)
     return x, new_caches
 
 
-def forward_train(params, built: BuiltModel, batch: dict):
+def forward_train(params, built: BuiltModel, batch: dict,
+                  use_kernel: bool = False):
     x = _embed_inputs(params, built, batch["tokens"])
-    x, _ = _run_stages(params, built, x, mode="train", caches=None, pos=None)
+    x, _ = _run_stages(params, built, x, mode="train", caches=None, pos=None,
+                       use_kernel=use_kernel)
     return _logits(params, built, x), {}
 
 
-def forward_prefill(params, built: BuiltModel, batch: dict):
+def forward_prefill(params, built: BuiltModel, batch: dict,
+                    use_kernel: bool = False):
+    """Last-position logits and the caches: full length for global layers,
+    ring order (``min(S, window)`` rows) for windowed ones."""
     x = _embed_inputs(params, built, batch["tokens"])
     x, caches = _run_stages(params, built, x, mode="prefill", caches=None,
-                            pos=None)
+                            pos=None, use_kernel=use_kernel)
     return _logits(params, built, x[:, -1:]), caches
 
 
-def forward_decode(params, built: BuiltModel, tokens, caches, pos):
+def pad_decode_caches(built: BuiltModel, caches, length: int):
+    """Zero-pad prefill caches to decode capacity ``length``: global caches
+    to ``length`` rows, ring caches to exactly ``min(length, window)``, even
+    when the prompt was shorter than the window."""
+    cfg = built.cfg
+    batch = tree_leaves(caches)[0].shape[1]           # leaves: (reps, B, S, ..)
+    dtype = dev_lib.torch_dtype(cfg.dtype)
+    return [tfm.pad_to_template(
+                stage_cache,
+                tfm.init_stage_cache(list(segs), cfg, batch, length, dtype, "meta"))
+            for segs, stage_cache in zip(built.stages, caches)]
+
+
+def forward_decode(params, built: BuiltModel, tokens, caches, pos,
+                   use_kernel: bool = False):
     """tokens: (B, 1); pos: int or (B,) tensor of absolute positions.  The
-    caches are updated in place and returned."""
+    caches (at decode capacity, see :func:`pad_decode_caches`) are updated
+    in place and returned.  ``use_kernel`` reaches only the butterfly wire:
+    decode attention is the plain path, as in the JAX package."""
     x = _embed_inputs(params, built, tokens)
     x, new_caches = _run_stages(params, built, x, mode="decode", caches=caches,
-                                pos=pos)
+                                pos=pos, use_kernel=use_kernel)
     return _logits(params, built, x), new_caches

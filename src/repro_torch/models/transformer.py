@@ -151,12 +151,14 @@ def slice_stage_params(segments: Sequence[Segment], stage_params, lo: int, hi: i
 
 
 def apply_layer_range(segments: Sequence[Segment], stage_params, x, lo: int,
-                      hi: int, *, cfg, mode, range_cache, pos, first_h=None):
+                      hi: int, *, cfg, mode, range_cache, pos,
+                      use_kernel: bool = False, first_h=None):
     """Run flat layers [lo, hi) of a full stacked stage; ``range_cache`` is
     structured per :func:`range_segments`."""
     segs, params = slice_stage_params(segments, stage_params, lo, hi)
     return apply_stage(segs, params, x, cfg=cfg, mode=mode,
-                       stage_cache=range_cache, pos=pos, first_h=first_h)
+                       stage_cache=range_cache, pos=pos,
+                       use_kernel=use_kernel, first_h=first_h)
 
 
 # ---------------------------------------------------------------------------
@@ -195,10 +197,12 @@ def init_segment(gen, seg: Segment, cfg: ModelConfig, dtype, device) -> list:
 
 def init_layer_cache(ldef: LayerDef, cfg: ModelConfig, batch: int, length: int,
                      dtype, device) -> dict:
-    """Cache template (zeros) for one layer in decode mode."""
-    if ldef.mixer != "attn" or ldef.window is not None:
+    """Cache template (zeros) for one layer in decode mode: ``length`` rows,
+    or a ring of ``min(length, window)`` rows for a windowed layer."""
+    if ldef.mixer != "attn":
         raise NotImplementedError(f"cache of layer {ldef} is not ported")
-    return {"kv": attn.init_kv_cache(cfg, batch, length, dtype, device)}
+    cache_len = min(length, ldef.window) if ldef.window else length
+    return {"kv": attn.init_kv_cache(cfg, batch, cache_len, dtype, device)}
 
 
 def init_stage_cache(segments: List[Segment], cfg, batch, length, dtype,
@@ -217,15 +221,45 @@ def init_stage_cache(segments: List[Segment], cfg, batch, length, dtype,
     return out
 
 
+def pad_to_template(cache, template):
+    """Zero-pad each leaf of a prefill-shaped cache to its decode template's
+    shape (a tree of the same structure, e.g. on the meta device).  A ring
+    cache comes out exactly ``min(capacity, window)`` rows long, as its slot
+    is ``pos % T``."""
+    def pad(leaf, t):
+        if leaf.shape == t.shape:
+            return leaf
+        if any(ls > ts for ls, ts in zip(leaf.shape, t.shape)):
+            raise ValueError(f"cache leaf {tuple(leaf.shape)} is longer than "
+                             f"its decode template {tuple(t.shape)}")
+        out = torch.zeros(t.shape, dtype=leaf.dtype, device=leaf.device)
+        out[tuple(slice(0, s) for s in leaf.shape)] = leaf
+        return out
+
+    return tree_map(pad, cache, template)
+
+
+def to_ring(kv: dict, window: int) -> dict:
+    """Arrange the last ``window`` positions of a full-seq KV into ring
+    order: position ``p`` in slot ``p % window``."""
+    S = kv["k"].shape[1]
+    if S <= window:
+        return kv
+    # tail row i holds position S - window + i, whose slot is (i + S) % window
+    return {name: torch.roll(a[:, -window:], shifts=S % window, dims=1)
+            for name, a in kv.items()}
+
+
 # ---------------------------------------------------------------------------
 # apply
 # ---------------------------------------------------------------------------
 
 
 def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
-                pos, h_pre=None):
+                pos, use_kernel: bool = False, h_pre=None):
     """Returns (x, new_cache).  ``h_pre`` short-circuits the input RMSNorm
-    for a caller that already holds ``rms_norm(x, norm1)``."""
+    for a caller that already holds ``rms_norm(x, norm1)``.  Prefill caches
+    of windowed layers come back in ring order (:func:`to_ring`)."""
     h = h_pre if h_pre is not None else rms_norm(x, p["norm1"], cfg.rms_eps)
     new_cache = None
     if mode == "decode":
@@ -234,9 +268,10 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
         new_cache = {"kv": kv}
     else:
         out, kv = attn.attention_fullseq(p["mixer"], h, cfg=cfg,
-                                         window=ldef.window)
+                                         window=ldef.window,
+                                         use_kernel=use_kernel)
         if mode == "prefill":
-            new_cache = {"kv": kv}
+            new_cache = {"kv": to_ring(kv, ldef.window) if ldef.window else kv}
     x = x + out
     h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
     x = x + apply_mlp(p["ffn"], h2, cfg.act)
@@ -244,7 +279,7 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
 
 
 def apply_segment(seg: Segment, seg_params, x, *, cfg, mode, seg_cache, pos,
-                  first_h=None):
+                  use_kernel: bool = False, first_h=None):
     """seg_params: per unit position, leaves stacked over repeats.  Decode
     writes the stacked ``seg_cache`` in place and returns it; prefill
     returns the new caches stacked over repeats; train returns None."""
@@ -256,7 +291,7 @@ def apply_segment(seg: Segment, seg_params, x, *, cfg, mode, seg_cache, pos,
             c = None if seg_cache is None else \
                 tree_map(lambda a: a[rep], seg_cache[i])
             x, nc = apply_layer(ldef, p, x, cfg=cfg, mode=mode, cache=c,
-                                pos=pos,
+                                pos=pos, use_kernel=use_kernel,
                                 h_pre=first_h if rep == 0 and i == 0 else None)
             caches.append(nc)
         per_rep.append(caches)
@@ -269,13 +304,13 @@ def apply_segment(seg: Segment, seg_params, x, *, cfg, mode, seg_cache, pos,
 
 
 def apply_stage(segments: List[Segment], stage_params, x, *, cfg, mode,
-                stage_cache, pos, first_h=None):
+                stage_cache, pos, use_kernel: bool = False, first_h=None):
     """Returns (x, new stage caches)."""
     new_caches = []
     for si, seg in enumerate(segments):
         cache = None if stage_cache is None else stage_cache[si]
         x, nc = apply_segment(seg, stage_params[si], x, cfg=cfg, mode=mode,
-                              seg_cache=cache, pos=pos,
+                              seg_cache=cache, pos=pos, use_kernel=use_kernel,
                               first_h=first_h if si == 0 else None)
         new_caches.append(nc)
     return x, new_caches

@@ -380,16 +380,8 @@ class SplitRunner:
     def pad_decode_cache(self, cache, stage: int, length: int):
         """Pad a prefill-shaped (B=1, seq=S) stage cache to decode capacity
         ``length`` (zeros past the prompt)."""
-        template = self.bank._cache_template(stage, self.split, 1, length)
-
-        def pad(leaf, t):
-            if leaf.shape == t.shape:
-                return leaf
-            out = torch.zeros(t.shape, dtype=leaf.dtype, device=leaf.device)
-            out[tuple(slice(0, s) for s in leaf.shape)] = leaf
-            return out
-
-        return tree_map(pad, cache, template)
+        return tfm.pad_to_template(
+            cache, self.bank._cache_template(stage, self.split, 1, length))
 
     # ------------------------------------------------------------- engine glue
     def _engine_prefill(self, params, toks):
