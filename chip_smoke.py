@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-On one H100 80GB HBM3 it takes 40-60 s, the kernels' build included.
+On one H100 80GB HBM3 it takes about two minutes, the kernels' build
+included.
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
   1. device  - requires CUDA; prints the card's name and power limit;
-  2. build   - compiles the butterfly and flash-attention kernels from
-               src/repro_torch/csrc with nvcc for sm_90a, one nvcc per
+  2. build   - compiles the butterfly, flash-attention and RMSNorm kernels
+               from src/repro_torch/csrc with nvcc for sm_90a, one nvcc per
                source, all at once, and prints the build seconds and ptxas
                report;
   3. kernels - holds each kernel against its plain PyTorch version on the
@@ -31,6 +32,15 @@ result line):
                through edge_step/stream_step.  Both butterfly kernels'
                launch counts must grow on this path, and the cloud logits
                must stay within 5% of the reference forward's largest logit;
+  7. pipeline - on the same qwen3-8b bank: the fused restore+norm and RMSNorm
+               kernels against their plain versions (f32 and bf16, d 4096
+               and 3840, d_r 16-1024, 1 to 4,096 rows), restore+norm's x
+               against the restore kernel and its h against the RMSNorm
+               kernel, bit for bit, and their times (phase 4's way, with
+               one torch.nn.functional.rms_norm call as RMSNorm's
+               yardstick); then the two-pod decode pipeline with both pods
+               on this card, each on its own stream (see phase_pipeline),
+               and the RMSNorm kernel through its ops.rmsnorm entry point;
   6. kernel prefill - after the qwen3-8b model is freed, full-width
                gemma3-12b (48 layers, 40 with a 1024-token window, d_model
                3840, head_dim 256, bf16, random weights from seed 0) with a
@@ -46,13 +56,14 @@ result line):
                decode step must stay within 5% of a kernel prefill of the
                whole sequence, and the peak must fit the 80 GB card.
 With ``--profile [DIR]`` it profiles one qwen3-8b prefill and 8 decode steps
-after phase 5, and gemma3-12b's kernel and plain prefills of the 2,048-token
-prompt and 8 decode steps after phase 6 (torch.profiler: wall time,
-device-busy share, top kernels; the operator tables go to DIR when one is
-given).  It then prints the
-kernels' JSON line (launches by path; flash attention's times per launch
-averaged over the 2,048-token prefill's 48 launches, and each path shape's
-under "by_shape") and, last, the result line.
+and a short pipelined and serial decode pipeline after phase 7, and
+gemma3-12b's kernel and plain prefills of the 2,048-token prompt and 8
+decode steps after phase 6 (torch.profiler: wall time, device-busy share,
+top kernels; the operator tables go to DIR when one is given).  It then
+prints the kernels' JSON line (launches by path; the times of flash
+attention and of the two norm kernels per launch, averaged over their
+path's launches, and each path shape's under "by_shape") and, last, the
+result line.
 """
 from __future__ import annotations
 
@@ -60,6 +71,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -67,11 +79,18 @@ import time
 from pathlib import Path
 from typing import Optional
 
+# cuBLAS gives the same result on two streams only with a fixed workspace
+# (phase 7 runs the pipeline's two pods on two streams); it reads this when
+# its first handle is made, so it is set before anything touches the card
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 ROOT = Path(__file__).resolve().parent
 
 # data-sheet rates of the H100 SXM (NVIDIA, dense): bytes/s of device memory
 # and bf16 tensor-core FLOP/s (the kernels' inputs are bf16 at the timed shapes)
 H100_RATES = (3.35e12, 989e12)
+# f32 FLOP/s outside the tensor cores (the RMSNorm arithmetic)
+H100_F32 = 67e12
 
 D, D_R = 4096, 64
 CHECK_ROWS = (1, 4, 8, 37, 64, 128, 512, 1024, 1025, 4096)
@@ -325,21 +344,6 @@ def phase_flash_times(rates):
     return out
 
 
-def _layer_mean(flash_times):
-    """Flash's times and bound per launch, averaged over the launches of the
-    2,048-token gemma3-12b prefill (:data:`FLASH_JSON`); bound by what bounds
-    the larger share of the summed bound."""
-    n = sum(FLASH_JSON.values())
-    out = {key: sum(w * flash_times[label][key] for label, w in FLASH_JSON.items()) / n
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    share: dict = {}
-    for label, w in FLASH_JSON.items():
-        t = flash_times[label]
-        share[t["bound_by"]] = share.get(t["bound_by"], 0.0) + w * t["bound_ms"]
-    out["bound_by"] = max(share, key=share.get)
-    return out
-
-
 def phase_times(rates):
     import torch
     from repro_torch.kernels import butterfly_kernel as bk, ref
@@ -368,17 +372,23 @@ def phase_times(rates):
 
 
 # --------------------------------------------------------------------------- 5
-def _counts():
+def _wrappers():
     from repro_torch.kernels import butterfly_kernel as bk, flash_attention as fa
-    return {"butterfly_reduce_quant": bk.reduce_quant.launches,
-            "butterfly_dequant_restore": bk.dequant_restore.launches,
-            "flash_attention": fa.flash_attention.launches}
+    from repro_torch.kernels import rmsnorm as rn
+    return {"butterfly_reduce_quant": bk.reduce_quant,
+            "butterfly_dequant_restore": bk.dequant_restore,
+            "flash_attention": fa.flash_attention,
+            "butterfly_dequant_restore_norm": bk.dequant_restore_norm,
+            "rmsnorm": rn.rmsnorm}
+
+
+def _counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _zero_counts():
-    from repro_torch.kernels import butterfly_kernel as bk, flash_attention as fa
-    bk.reduce_quant.launches = bk.dequant_restore.launches = 0
-    fa.flash_attention.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _prompts(n: int, lengths):
@@ -662,7 +672,9 @@ def phase_kernel_prefill(profile: bool = False, out_dir: Optional[Path] = None):
     launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"kernel prefill: launches on the path {launches}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in ("butterfly_reduce_quant",
+                                 "butterfly_dequant_restore",
+                                 "flash_attention")) <= 0:
         fail(f"a kernel was not launched on the kernel-prefill path: {launches}")
     if peak_gb >= 80:
         fail(f"peak device memory {peak_gb:.2f} GB does not fit the card")
@@ -687,6 +699,310 @@ def phase_kernel_prefill(profile: bool = False, out_dir: Optional[Path] = None):
                 M.forward_decode(params, built, tok, caches, pos, use_kernel=True)
         _profiled("gemma3_decode", decode, out_dir)
     return launches, results
+
+
+# --------------------------------------------------------------------------- 7
+# the fused restore+norm and RMSNorm kernels: checked at both models' widths,
+# every compiled channel width and 1 to 4,096 rows, in f32 and bf16
+NORM_D = (4096, 3840)
+NORM_D_R = (16, 60, 64, 1024)
+NORM_ROWS = (1, 4, 128, 512, 1025, 4096)
+# the pipeline's shapes: a 4-row decode tick and a 4 x 128-token prefill
+# microbatch; per kernel run 30 ticks and 2 prefills (PIPE below)
+PIPE = dict(Mmb=2, mb=4, S=128, T=16)
+PIPE_ROWS = {4: PIPE["Mmb"] * (PIPE["T"] - 1), 512: PIPE["Mmb"]}
+RMSNORM_ROWS = {4: 1, 512: 1}         # the ops.rmsnorm entry point's calls
+
+
+def _restore_inputs(T, d, d_r, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    codes = torch.randint(-127, 128, (T, d_r), generator=g, device="cuda",
+                          dtype=torch.int8)
+    scales = torch.rand((T, 1), generator=g, device="cuda") * 0.09 + 0.01
+    wr = (torch.randn((d_r, d), generator=g, device="cuda") / math.sqrt(d_r)).to(dtype)
+    nw = (0.1 * torch.randn((d,), generator=g, device="cuda")).to(dtype)
+    return codes, scales, wr, nw
+
+
+def _restore_err(x, codes, scales, wr):
+    """max |x - plain restore|, failing unless it is within one bf16 ulp
+    (rtol 2**-7, atol 1e-3) in bf16, or in f32 within the f32 summation
+    bound of an f64 product, n*u*sum|a_k b_k| (n = d_r, u = 2**-24), as the
+    plain version must be too: codes span [-127, 127], so a sum can cancel
+    to near zero, where a relative tolerance says nothing."""
+    import torch
+    from repro_torch.kernels import ref
+    plain = ref.butterfly_dequant_restore_ref(codes, scales, wr, x.dtype)
+    if x.dtype == torch.float32:
+        r64 = (codes.float() * scales).double()
+        exact = r64 @ wr.double()
+        bound = 1.01 * codes.shape[1] * 2 ** -24 * (r64.abs() @ wr.double().abs())
+        for o in (x, plain):
+            if not bool(((o.double() - exact).abs() <= bound).all()):
+                return None
+    elif not torch.allclose(x.float(), plain.float(), rtol=2 ** -7, atol=1e-3):
+        return None
+    return float((x.float() - plain.float()).abs().max())
+
+
+def _norm_err(h, x, nw, eps):
+    """max |h - plain RMSNorm of x|, failing unless within rtol 1e-5 (atol
+    1e-6) in f32 (the mean of squares sums in another order) and one bf16
+    ulp (rtol 2**-7, atol 1e-3) in bf16 (both round one f32 value)."""
+    import torch
+    from repro_torch.kernels import ref
+    plain = ref.rms_norm_ref(x, nw, eps)
+    tol = dict(rtol=1e-5, atol=1e-6) if h.dtype == torch.float32 else \
+        dict(rtol=2 ** -7, atol=1e-3)
+    if not torch.allclose(h.float(), plain.float(), **tol):
+        return None
+    return float((h.float() - plain.float()).abs().max())
+
+
+def phase_norm_kernels():
+    """butterfly_dequant_restore_norm and rmsnorm against their plain
+    versions on the card, and against each other: the fused kernel's x
+    equals dequant_restore's and its h equals rmsnorm of that x, bit for
+    bit.  The fused kernel's plain version is the plain restore followed by
+    the plain norm: x is held to the plain restore, h to the plain norm of
+    the kernel's x (see _restore_err, _norm_err).  Returns the largest
+    |error| of each kernel."""
+    import torch
+    from repro_torch.kernels import butterfly_kernel as bk, ref, rmsnorm as rn
+    worst = {"butterfly_dequant_restore_norm": 0.0, "rmsnorm": 0.0}
+    eps = 1e-6
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in NORM_D:
+            for d_r in NORM_D_R:
+                for T in NORM_ROWS:
+                    codes, scales, wr, nw = _restore_inputs(T, d, d_r, dtype,
+                                                            seed=T + d + d_r)
+                    x, h = bk.dequant_restore_norm(codes, scales, wr, nw, eps,
+                                                   dtype)
+                    if not torch.equal(x, bk.dequant_restore(codes, scales, wr,
+                                                             dtype)):
+                        fail(f"restore_norm T={T} d={d} d_r={d_r} {dtype}: x "
+                             f"differs from dequant_restore's")
+                    if not torch.equal(h, rn.rmsnorm(x, nw, eps)):
+                        fail(f"restore_norm T={T} d={d} d_r={d_r} {dtype}: h "
+                             f"differs from rmsnorm of its x")
+                    xe, he = _restore_err(x, codes, scales, wr), _norm_err(h, x, nw, eps)
+                    if xe is None or he is None:
+                        fail(f"restore_norm T={T} d={d} d_r={d_r} {dtype}: "
+                             f"x err {xe}, h err {he} (None: out of tolerance)")
+                    worst["butterfly_dequant_restore_norm"] = max(
+                        worst["butterfly_dequant_restore_norm"], xe, he)
+                    n += 1
+                print(f"norm kernels: restore_norm d={d} d_r={d_r:4d} "
+                      f"{str(dtype)[6:]:8s} rows {NORM_ROWS}: x == dequant_restore, "
+                      f"h == rmsnorm(x), bitwise; max |err| vs plain so far "
+                      f"{worst['butterfly_dequant_restore_norm']:.3g}")
+            for T in NORM_ROWS:
+                g = torch.Generator(device="cuda").manual_seed(T + d)
+                xr = torch.randn((T, d), generator=g, device="cuda").to(dtype)
+                nw = (0.1 * torch.randn((d,), generator=g, device="cuda")).to(dtype)
+                err = _norm_err(rn.rmsnorm(xr, nw, eps), xr, nw, eps)
+                if err is None:
+                    fail(f"rmsnorm T={T} d={d} {dtype}: out of tolerance")
+                worst["rmsnorm"] = max(worst["rmsnorm"], err)
+                n += 1
+            print(f"norm kernels: rmsnorm d={d} {str(dtype)[6:]:8s} rows "
+                  f"{NORM_ROWS}: max |err| vs plain so far {worst['rmsnorm']:.3g}")
+    torch.cuda.synchronize()
+    print(f"norm kernels: {n} checks against the plain versions passed")
+    return worst
+
+
+def phase_norm_times(rates):
+    """Kernel and plain version of both norm kernels at d=4096, d_r=64,
+    bf16, and for rmsnorm one torch.nn.functional.rms_norm call (a
+    yardstick the port never calls; ``1 + w`` made beforehand in bf16),
+    against the
+    bound: the larger of the bytes (inputs read once, outputs written once)
+    over the memory rate and the operations (2*T*d*d_r multiply-adds at the
+    bf16 tensor-core rate, 4 f32 operations an element of the norm at the
+    f32 rate) over the card's rates."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import butterfly_kernel as bk, ref, rmsnorm as rn
+    bw, bf16_ops = rates
+    eps = 1e-6
+    out = {}
+
+    def bound(nbytes, seconds_of_ops):
+        tb, to = nbytes / bw * 1e3, seconds_of_ops * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    for T in NORM_ROWS:
+        codes, scales, wr, nw = _restore_inputs(T, D, D_R, torch.bfloat16, seed=T)
+        x = ref.butterfly_dequant_restore_ref(codes, scales, wr, torch.bfloat16)
+        w1 = 1.0 + nw           # in bf16, so rms_norm takes its fused path
+        rows = {
+            "butterfly_dequant_restore_norm": (
+                lambda: bk.dequant_restore_norm(codes, scales, wr, nw, eps,
+                                                torch.bfloat16),
+                lambda: ref.butterfly_restore_norm_ref(codes, scales, wr, nw,
+                                                       eps, torch.bfloat16),
+                None,
+                bound(T * D_R + T * 4 + D_R * D * 2 + D * 2 + 2 * T * D * 2,
+                      2 * T * D * D_R / bf16_ops + 4 * T * D / H100_F32)),
+            "rmsnorm": (
+                lambda: rn.rmsnorm(x, nw, eps),
+                lambda: ref.rms_norm_ref(x, nw, eps),
+                lambda: F.rms_norm(x, (D,), w1, eps),
+                bound(2 * T * D * 2 + D * 2, 4 * T * D / H100_F32)),
+        }
+        for name, (kern, plain, library, (bound_ms, bound_by)) in rows.items():
+            ms, plain_ms = _device_ms(kern), _device_ms(plain)
+            library_ms = _device_ms(library) if library else None
+            out[(name, T)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by)
+            lib = f"  library {library_ms:.4f} ms" if library else ""
+            print(f"times: {name:30s} T={T:5d} kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms{lib}  bound {bound_ms:.6f} ms ({bound_by})")
+    return out
+
+
+def _launch_mean(times, weights):
+    """A kernel's times and bound per launch, averaged over a path's
+    launches (``weights``: shape -> launches, ``times``: shape -> times);
+    bound by what bounds the larger share of the summed bound."""
+    n = sum(weights.values())
+    out = {}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        vals = [times[shape][key] for shape in weights]
+        out[key] = None if None in vals else \
+            sum(w * v for w, v in zip(weights.values(), vals)) / n
+    share: dict = {}
+    for shape, w in weights.items():
+        t = times[shape]
+        share[t["bound_by"]] = share.get(t["bound_by"], 0.0) + w * t["bound_ms"]
+    out["bound_by"] = max(share, key=share.get)
+    return out
+
+
+def phase_pipeline(runner):
+    """The two-pod decode pipeline on the qwen3-8b bank of phase 5, both
+    pods on this card with their own streams: 8 byte-tokenized 128-token
+    prompts as 2 microbatches of 4, 16 greedy tokens each.  Runs int8
+    pipelined and serial with the kernels, int8 pipelined without them, and
+    int4 pipelined and serial with them (a second bank on the same weights).
+    Each kernel run must launch reduce_quant and restore_norm exactly
+    Mmb + Mmb*(T-1) = 32 times (one per prefill microbatch, one per decode
+    tick), dequant_restore and flash never; the plain run none of them.
+    Pipelined ids must equal serial ids, bit for bit, and column 0 of the
+    int8 kernel run the greedy tokens of the bank's edge_half -> cloud_half
+    on the same microbatches.  Returns the path's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime.split_exec import SplitModelBank
+    from repro_torch.serving.pipeline import wire_stats
+    bank, split = runner.bank, runner.split
+    Mmb, mb, S, T = PIPE["Mmb"], PIPE["mb"], PIPE["S"], PIPE["T"]
+    prompts = _prompts(Mmb * mb, (S,) * (Mmb * mb))
+    if {len(p) for p in prompts} != {S}:
+        fail(f"the pipeline's prompts are not {S} tokens long")
+    toks = torch.tensor(np.stack(prompts), dtype=torch.int64, device="cuda")
+    bank4 = SplitModelBank(bank.base_cfg, bank.d_r, wire_mode="int4",
+                           device="cuda", params=bank.params,
+                           butterfly={split: bank.butterfly_params(split)})
+    runners = {"int8": runner, "int4": bank4.runner(split)}
+    settings = [("int8", True, True), ("int8", False, True),
+                ("int8", True, False), ("int4", True, True),
+                ("int4", False, True)]
+    per_run = Mmb + Mmb * (T - 1)
+
+    def run_fn(wire, pipelined, use_kernel, new_tokens):
+        return runners[wire].decode_pipeline(None, Mmb, S, mb, new_tokens,
+                                             pipelined=pipelined,
+                                             use_kernel=use_kernel)
+
+    t0 = time.perf_counter()
+    for wire, pipelined, use_kernel in settings:      # the same shapes, 2 tokens
+        run_fn(wire, pipelined, use_kernel, 2)(toks)
+    torch.cuda.synchronize()
+    print(f"pipeline: qwen3-8b, split {split}, d_r {bank.d_r}, Mmb {Mmb} x mb "
+          f"{mb}, S {S}, T {T}, both pods on {torch.cuda.get_device_name(0)} "
+          f"(two streams); warm-up {time.perf_counter() - t0:.1f} s")
+    for wire, bits in (("int8", 8), ("int4", 4)):
+        tick = wire_stats(runner.cfg, mb, 1, bits)
+        pre = wire_stats(runner.cfg, mb, S, bits)
+        print(f"pipeline: {wire} wire {tick['wire_bytes']} B a decode tick "
+              f"({tick['compression']:.1f}x fewer than {tick['raw_boundary_bytes']} "
+              f"B raw bf16), {pre['wire_bytes']} B a prefill microbatch")
+
+    launches = {k: 0 for k in _counts()}
+    ids = {}
+    for wire, pipelined, use_kernel in settings:
+        run = run_fn(wire, pipelined, use_kernel, T)
+        timings: dict = {}
+        _zero_counts()
+        out = run(toks, timings)
+        torch.cuda.synchronize()
+        got = _counts()
+        n = per_run if use_kernel else 0
+        want = dict.fromkeys(got, 0)
+        want["butterfly_reduce_quant"] = want["butterfly_dequant_restore_norm"] = n
+        if got != want:
+            fail(f"pipeline {wire} pipelined={pipelined} use_kernel="
+                 f"{use_kernel}: launches {got}, expected {want}")
+        for k, v in got.items():
+            launches[k] += v
+        if out.shape != (Mmb * mb, T) or out.dtype != torch.int32 or \
+                int(out.min()) < 0 or int(out.max()) >= runner.cfg.vocab_size:
+            fail(f"pipeline ids of shape {tuple(out.shape)} {out.dtype} are "
+                 f"not (Mmb*mb, T) int32 tokens of the vocabulary")
+        ids[wire, pipelined, use_kernel] = out
+        print(f"pipeline: {wire} {'pipelined' if pipelined else 'serial   '} "
+              f"use_kernel={str(use_kernel):5s} prefill "
+              f"{timings['prefill_ms'] / Mmb:.3f} ms a microbatch, decode "
+              f"{timings['decode_ms'] / timings['ticks']:.3f} ms a tick "
+              f"({timings['ticks']} ticks); launches {got}")
+    for wire in ("int8", "int4"):
+        if not torch.equal(ids[wire, True, True], ids[wire, False, True]):
+            fail(f"pipeline {wire}: pipelined ids differ from serial ids")
+    kernel8 = ids["int8", True, True]
+    for k in range(Mmb):
+        mb_toks = toks[k * mb:(k + 1) * mb]
+        payload, scales, _ = runner.edge_half(runner.params, mb_toks)
+        logits, _ = runner.cloud_half(runner.params, payload, scales)
+        if not torch.equal(logits.argmax(-1).int(), kernel8[k * mb:(k + 1) * mb, 0]):
+            fail(f"pipeline microbatch {k}: column 0 {kernel8[k * mb:(k + 1) * mb, 0].tolist()} "
+                 f"is not cloud_half's greedy tokens {logits.argmax(-1).tolist()}")
+    agree = lambda a, b: float((ids[a] == ids[b]).float().mean())
+    print(f"pipeline: pipelined == serial, bitwise, for int8 and int4 with the "
+          f"kernels; column 0 == cloud_half's greedy tokens")
+    print(f"pipeline: token agreement int8 kernel vs plain "
+          f"{agree(('int8', True, True), ('int8', True, False)):.3f}, int4 vs "
+          f"int8 {agree(('int4', True, True), ('int8', True, True)):.3f}")
+    print(f"pipeline: int8 kernel tokens {kernel8.tolist()}")
+    print(f"pipeline: launches on the path {launches}")
+    return launches
+
+
+def phase_rmsnorm_entry():
+    """The RMSNorm kernel's one caller is the ``ops.rmsnorm`` entry point:
+    drive it at the pipeline's boundary shapes (a 4-row tick, a 512-row
+    prefill microbatch; d=4096, bf16) and read its launches."""
+    import torch
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(7)
+    inputs = [(torch.randn((T, D), generator=g, device="cuda").to(torch.bfloat16),
+               (0.1 * torch.randn((D,), generator=g, device="cuda")).to(torch.bfloat16))
+              for T in RMSNORM_ROWS]
+    _zero_counts()
+    outs = [ops.rmsnorm(x, w, eps=1e-6) for x, w in inputs]
+    torch.cuda.synchronize()
+    launches = _counts()
+    if launches["rmsnorm"] != len(inputs) or sum(launches.values()) != len(inputs):
+        fail(f"ops.rmsnorm launched {launches}, expected {len(inputs)} rmsnorm")
+    for o, (x, _) in zip(outs, inputs):
+        if o.shape != x.shape or not bool(torch.isfinite(o).all()):
+            fail("ops.rmsnorm output is not finite or of the wrong shape")
+    print(f"rmsnorm entry point: launches {launches}")
+    return launches
 
 
 # --------------------------------------------------------------------- profile
@@ -750,6 +1066,23 @@ def phase_profile(runner, out_dir: Optional[Path]):
     _profiled("decode", lambda: [engine.step() for _ in range(8)], out_dir)
 
 
+def phase_profile_pipeline(runner, out_dir: Optional[Path]):
+    """Where the pipeline's time goes (``--profile``): one int8 kernel run
+    of 2 microbatches of 4 x 128-token prompts and 4 tokens, pipelined and
+    serial (2 prefills and 6 decode ticks each)."""
+    import numpy as np
+    import torch
+    Mmb, mb, S = PIPE["Mmb"], PIPE["mb"], PIPE["S"]
+    toks = torch.tensor(np.stack(_prompts(Mmb * mb, (S,) * (Mmb * mb))),
+                        dtype=torch.int64, device="cuda")
+    for pipelined in (True, False):
+        run = runner.decode_pipeline(None, Mmb, S, mb, 4, pipelined=pipelined,
+                                     use_kernel=True)
+        run(toks)
+        _profiled(f"pipeline_{'pipelined' if pipelined else 'serial'}",
+                  lambda: run(toks), out_dir)
+
+
 def main():
     ap = argparse.ArgumentParser(description="Run the port's main path on "
                                  "one NVIDIA GPU (see the module docstring).")
@@ -767,19 +1100,31 @@ def main():
     worst["flash_attention"] = phase_flash_checks()
     times = phase_times(rates)
     flash_times = phase_flash_times(rates)
-    serving_launches, runner = phase_serving()
+    paths = {}
+    paths["qwen3-8b split serving"], runner = phase_serving()
+    worst.update(phase_norm_kernels())
+    norm_times = phase_norm_times(rates)
+    paths["qwen3-8b decode pipeline"] = phase_pipeline(runner)
+    paths["ops.rmsnorm entry point"] = phase_rmsnorm_entry()
     profile_dir = Path(args.profile) if args.profile else None
     if args.profile is not None:
         phase_profile(runner, profile_dir)
+        phase_profile_pipeline(runner, profile_dir)
     del runner                       # the qwen3-8b weights leave the card
     gc.collect()
     torch.cuda.empty_cache()
-    prefill_launches, _ = phase_kernel_prefill(args.profile is not None,
-                                               profile_dir)
+    paths["gemma3-12b kernel prefill"], _ = phase_kernel_prefill(
+        args.profile is not None, profile_dir)
 
-    by_path = {k: {"qwen3-8b split serving": serving_launches[k],
-                   "gemma3-12b kernel prefill": prefill_launches[k]}
-               for k in prefill_launches}
+    # flash over the 2,048-token gemma3-12b prefill's 48 launches, the norm
+    # kernels over their path's launches; every timed shape under by_shape
+    flash = dict(_launch_mean(flash_times, FLASH_JSON), by_shape=flash_times)
+    norms = {}
+    for kname, weights in (("butterfly_dequant_restore_norm", PIPE_ROWS),
+                           ("rmsnorm", RMSNORM_ROWS)):
+        by_rows = {T: norm_times[(kname, T)] for T in NORM_ROWS}
+        norms[kname] = dict(_launch_mean(by_rows, weights), by_shape={
+            f"T={T}": t for T, t in by_rows.items()})
     rows = [("butterfly_reduce_quant", "src/repro_torch/csrc/butterfly.cu",
              "src/repro/kernels/butterfly_kernel.py:38",
              times[("butterfly_reduce_quant", JSON_ROWS)]),
@@ -787,15 +1132,23 @@ def main():
              "src/repro/kernels/butterfly_kernel.py:188",
              times[("butterfly_dequant_restore", JSON_ROWS)]),
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:75", _layer_mean(flash_times))]
-    kernels = [{
-        "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": sum(by_path[kname].values()),
-        "launches_by_path": by_path[kname], "max_abs_err": worst[kname],
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
-    } for kname, source, replaces, t in rows]
-    kernels[-1]["by_shape"] = flash_times
+             "src/repro/kernels/flash_attention.py:75", flash),
+            ("butterfly_dequant_restore_norm", "src/repro_torch/csrc/butterfly.cu",
+             "src/repro/kernels/butterfly_kernel.py:146",
+             norms["butterfly_dequant_restore_norm"]),
+            ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm.py:25", norms["rmsnorm"])]
+    kernels = []
+    for kname, source, replaces, t in rows:
+        by_path = {path: counts[kname] for path, counts in paths.items()}
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": worst[kname],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms")})
+        if "by_shape" in t:
+            kernels[-1]["by_shape"] = t["by_shape"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

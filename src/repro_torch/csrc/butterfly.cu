@@ -1,5 +1,6 @@
 // Hopper (sm_90a) kernels for the butterfly wire: the fused reduce+quantize
-// on the edge and the fused dequantize+restore on the cloud.
+// on the edge, the fused dequantize+restore on the cloud, and the fused
+// dequantize+restore+RMSNorm that feeds the first cloud layer.
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -54,11 +55,38 @@
 //   shared-memory copy would buy nothing.  bf16 output rounds with
 //   __float2bfloat16_rn.  Rows past T and columns past d are masked.
 // ---------------------------------------------------------------------------
+// butterfly_dequant_restore_norm
+//   replaces src/repro/kernels/butterfly_kernel.py:_dequant_restore_norm_kernel
+//   (butterfly_dequant_restore_norm_kernel, pl.pallas_call at :158).
+//   x = ((codes * scale) @ w_restore) rounded to the dtype of w_restore, then
+//   h = rms_norm(x) of the ROUNDED x in f32: x * (1/sqrt(mean(x^2) + eps)) *
+//   (1 + norm_w), rounded once.  Returns both: x is the residual stream, h
+//   the first cloud layer's norm1 output.
+//
+//   Bound on the card: memory.  It reads what dequant_restore reads plus
+//   norm_w (d*bytes) and writes two (T, d) outputs instead of one.
+//
+//   Design: the norm needs whole rows, so one block owns RD rows and ALL d
+//   columns: it walks the column slabs of DD that dequant_restore spreads
+//   over blocks, with the same helpers (stage_dequant, restore_column), so x
+//   equals dequant_restore's output bit for bit.  Once every column of x is
+//   written, __syncthreads() makes the block's stores visible to the block
+//   and each warp normalises one row at a time with row_norm.cuh's
+//   warp_row_norm, re-reading the rounded x from L1/L2 (2 bytes an element
+//   at bf16; shared memory would need 16 KB a row in f32).  rmsnorm uses the
+//   same routine, so its output equals h bit for bit.  Few rows fill few of
+//   the 132 SMs (a 4-row decode tick runs one block): a simple kernel first.
+// ---------------------------------------------------------------------------
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "row_norm.cuh"
+
 namespace {
+
+using row_norm::from_f32;
+using row_norm::to_f32;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -66,9 +94,6 @@ constexpr int kMaxDr = 1024;      // the wrappers require d_r <= 1024
 constexpr int kStageFloats = 8192;                // w chunk / partials (32 KB)
 constexpr int RD = 16;            // rows per dequant_restore block
 constexpr int DD = kThreads;      // output columns per dequant_restore block
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // 16 raw bytes of w (4 f32 or 8 bf16) stored to shared memory as f32
 __device__ __forceinline__ void store_f32x(float* dst, uint4 v, float) {
@@ -83,11 +108,6 @@ __device__ __forceinline__ void store_f32x(float* dst, uint4 v, __nv_bfloat16) {
   const float2 c = bf16x2_to_f32(v.z), e = bf16x2_to_f32(v.w);
   *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
   *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, e.x, e.y);
-}
-
-__device__ __forceinline__ void from_f32(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* dst) {
-  *dst = __float2bfloat16_rn(v);
 }
 
 // Channel widths the reduce kernel computes: d_r rounded up to 32 * CJ with
@@ -252,24 +272,22 @@ cudaError_t dispatch_reduce(const void* x, const void* w, void* codes, void* sca
   return launch_reduce<T, 1, 32>(x, w, codes, scales, n_rows, d, d_r, qmax, s);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dequant_restore_kernel(const int8_t* __restrict__ codes,
-                       const float* __restrict__ scales,
-                       const T* __restrict__ w, T* __restrict__ out,
-                       int n_rows, int d_r, int d) {
-  extern __shared__ __align__(16) float rs[];   // d_r x RD, codes * scale as f32
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * RD;
-  for (int e = tid; e < RD * d_r; e += kThreads) {
+// codes * scale of rows [row0, row0 + RD) as f32 in shared memory, k-major
+// (rs[k * RD + r]); rows past n_rows are zeros
+__device__ __forceinline__ void stage_dequant(const int8_t* __restrict__ codes,
+                                              const float* __restrict__ scales,
+                                              float* rs, int row0, int n_rows, int d_r) {
+  for (int e = threadIdx.x; e < RD * d_r; e += kThreads) {
     const int r = e / d_r, k = e % d_r, row = row0 + r;
     rs[k * RD + r] = row < n_rows ? (float)codes[(size_t)row * d_r + k] * scales[row] : 0.f;
   }
-  __syncthreads();
+}
 
-  const int col = blockIdx.y * DD + tid;
-  if (col >= d) return;
-  float acc[RD];
+// acc[r] = sum over k, in order, of rs[k][r] * w[k][col] (f32 fmaf): one
+// output column of the block's RD rows
+template <typename T>
+__device__ __forceinline__ void restore_column(const float* rs, const T* __restrict__ w,
+                                               int col, int d_r, int d, float (&acc)[RD]) {
 #pragma unroll
   for (int r = 0; r < RD; ++r) acc[r] = 0.f;
 #pragma unroll 8
@@ -284,10 +302,59 @@ dequant_restore_kernel(const int8_t* __restrict__ codes,
       acc[r + 3] = fmaf(rv.w, wv, acc[r + 3]);
     }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dequant_restore_kernel(const int8_t* __restrict__ codes,
+                       const float* __restrict__ scales,
+                       const T* __restrict__ w, T* __restrict__ out,
+                       int n_rows, int d_r, int d) {
+  extern __shared__ __align__(16) float rs[];   // d_r x RD, codes * scale as f32
+  const int row0 = blockIdx.x * RD;
+  stage_dequant(codes, scales, rs, row0, n_rows, d_r);
+  __syncthreads();
+
+  const int col = blockIdx.y * DD + threadIdx.x;
+  if (col >= d) return;
+  float acc[RD];
+  restore_column(rs, w, col, d_r, d, acc);
 #pragma unroll
   for (int r = 0; r < RD; ++r) {
     const int row = row0 + r;
     if (row < n_rows) from_f32(acc[r], &out[(size_t)row * d + col]);
+  }
+}
+
+// x is written and then read back by the same block, so it is a plain
+// pointer (see row_norm.cuh)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dequant_restore_norm_kernel(const int8_t* __restrict__ codes,
+                            const float* __restrict__ scales,
+                            const T* __restrict__ w, const T* __restrict__ norm_w,
+                            T* x, T* __restrict__ h, int n_rows, int d_r, int d,
+                            float eps) {
+  extern __shared__ __align__(16) float rs[];   // d_r x RD, codes * scale as f32
+  const int row0 = blockIdx.x * RD;
+  stage_dequant(codes, scales, rs, row0, n_rows, d_r);
+  __syncthreads();
+
+  for (int col = threadIdx.x; col < d; col += DD) {
+    float acc[RD];
+    restore_column(rs, w, col, d_r, d, acc);
+#pragma unroll
+    for (int r = 0; r < RD; ++r) {
+      const int row = row0 + r;
+      if (row < n_rows) from_f32(acc[r], &x[(size_t)row * d + col]);
+    }
+  }
+  __syncthreads();                  // every column of the block's rows is in x
+
+  for (int r = threadIdx.x / 32; r < RD; r += kWarps) {
+    const int row = row0 + r;
+    if (row < n_rows)
+      row_norm::warp_row_norm(x + (size_t)row * d, norm_w, h + (size_t)row * d, d, eps);
   }
 }
 
@@ -306,6 +373,26 @@ cudaError_t launch_restore(const int8_t* codes, const float* scales,
   kern<<<grid, kThreads, smem, stream>>>(codes, scales,
                                          static_cast<const T*>(w),
                                          static_cast<T*>(out), n_rows, d_r, d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_restore_norm(const int8_t* codes, const float* scales,
+                                const void* w, const void* norm_w, void* x, void* h,
+                                int n_rows, int d_r, int d, float eps,
+                                cudaStream_t stream) {
+  const size_t smem = (size_t)RD * d_r * sizeof(float);
+  auto kern = dequant_restore_norm_kernel<T>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((n_rows + RD - 1) / RD);
+  kern<<<grid, kThreads, smem, stream>>>(codes, scales, static_cast<const T*>(w),
+                                         static_cast<const T*>(norm_w),
+                                         static_cast<T*>(x), static_cast<T*>(h),
+                                         n_rows, d_r, d, eps);
   return cudaGetLastError();
 }
 
@@ -339,5 +426,22 @@ extern "C" int butterfly_dequant_restore(const void* codes, const void* scales,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_restore<float>(c, sc, w, out, n_rows, d_r, d, s);
   if (dtype == 1) return (int)launch_restore<__nv_bfloat16>(c, sc, w, out, n_rows, d_r, d, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x and h have the dtype of w and norm_w (d values).
+extern "C" int butterfly_dequant_restore_norm(const void* codes, const void* scales,
+                                              const void* w, const void* norm_w,
+                                              void* x, void* h, int n_rows, int d_r,
+                                              int d, float eps, int dtype, void* stream) {
+  if (n_rows <= 0 || d <= 0 || d_r <= 0 || d_r > kMaxDr) return (int)cudaErrorInvalidValue;
+  const int8_t* c = static_cast<const int8_t*>(codes);
+  const float* sc = static_cast<const float*>(scales);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_restore_norm<float>(c, sc, w, norm_w, x, h, n_rows, d_r, d, eps, s);
+  if (dtype == 1)
+    return (int)launch_restore_norm<__nv_bfloat16>(c, sc, w, norm_w, x, h, n_rows, d_r, d,
+                                                   eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,9 +3,9 @@
 Each source ``repro_torch/csrc/<name>.cu`` is compiled at first use for
 ``sm_90a`` into its own library under ``build/repro_torch_kernels/`` at the
 repository root (a directory ``.gitignore`` lists), keyed on a hash of the
-source and the flags, so a changed source never loads a stale library.  The
-libraries have a plain C interface: no PyTorch headers, so ``nvcc`` takes
-seconds.  :func:`compile_libraries` starts one ``nvcc`` per source, all at
+source, the headers of ``csrc/`` and the flags, so a changed source or
+header never loads a stale library.  The libraries have a plain C
+interface: no PyTorch headers, so ``nvcc`` takes seconds.  :func:`compile_libraries` starts one ``nvcc`` per source, all at
 once.
 """
 from __future__ import annotations
@@ -27,16 +27,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # ctypes signatures of each library's C entry points (pointers and the
-# stream as c_void_p, ints as c_int; the return value is a cudaError_t)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# stream as c_void_p, ints as c_int, floats as c_float; the return value is
+# a cudaError_t)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "butterfly": {
         "butterfly_reduce_quant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "butterfly_dequant_restore": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "butterfly_dequant_restore_norm": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
         "butterfly_reduce_width": [_I],
     },
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    },
+    "rmsnorm": {
+        "rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
     },
 }
 
@@ -57,6 +62,8 @@ def compile_library(name: str) -> tuple[Path, str, float]:
     these flags exists.  Returns (library path, compiler log, seconds)."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
     log_path = lib.with_suffix(".log")
     if lib.exists():

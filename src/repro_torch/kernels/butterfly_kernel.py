@@ -5,9 +5,10 @@ contiguity, allocates its outputs, launches on the current stream and
 raises if the launch was refused.  ``launches`` on each wrapper counts the
 kernel launches (and nothing else), so a run can show that its path went
 through the kernel.  The TPU kernels these replace are
-``repro/kernels/butterfly_kernel.py:butterfly_reduce_quant_kernel`` and
-``:butterfly_dequant_restore_kernel``; the source notes in the ``.cu`` file
-give each kernel's bound and design.
+``repro/kernels/butterfly_kernel.py:butterfly_reduce_quant_kernel``,
+``:butterfly_dequant_restore_kernel`` and
+``:butterfly_dequant_restore_norm_kernel``; the source notes in the ``.cu``
+file give each kernel's bound and design.
 """
 from __future__ import annotations
 
@@ -104,3 +105,42 @@ def dequant_restore(codes: torch.Tensor, scales: torch.Tensor,
 
 
 dequant_restore.launches = 0
+
+
+def dequant_restore_norm(codes: torch.Tensor, scales: torch.Tensor,
+                         w_restore: torch.Tensor, norm_w: torch.Tensor,
+                         eps: float = 1e-6, out_dtype=torch.float32):
+    """codes (T, d_r) int8, scales (T, 1) f32, w_restore (d_r, d) f32|bf16,
+    norm_w (d,) of the same dtype -> (x, h), both (T, d) in ``out_dtype``,
+    which must be the dtype of ``w_restore``: x as :func:`dequant_restore`
+    gives it, bit for bit, and h the RMSNorm of the rounded x, bit for bit
+    what ``kernels/rmsnorm.rmsnorm(x, norm_w, eps)`` gives."""
+    _check(codes, "codes", (torch.int8,))
+    _check(scales, "scales", (torch.float32,))
+    _check(w_restore, "w_restore", _DTYPE_CODE)
+    _check(norm_w, "norm_w", (w_restore.dtype,), ndim=1)
+    if out_dtype != w_restore.dtype:
+        raise TypeError(f"out_dtype {out_dtype} must be the dtype of w_restore "
+                        f"({w_restore.dtype})")
+    T, d_r = codes.shape
+    d = w_restore.shape[1]
+    if tuple(scales.shape) != (T, 1) or w_restore.shape[0] != d_r \
+            or not 1 <= d_r <= MAX_D_R or tuple(norm_w.shape) != (d,):
+        raise ValueError(f"shapes codes {tuple(codes.shape)}, scales "
+                         f"{tuple(scales.shape)}, w_restore "
+                         f"{tuple(w_restore.shape)}, norm_w "
+                         f"{tuple(norm_w.shape)} do not fit (d_r <= {MAX_D_R})")
+    x = torch.empty((T, d), dtype=out_dtype, device=codes.device)
+    h = torch.empty_like(x)
+    if T == 0:
+        return x, h
+    err = build.load("butterfly").butterfly_dequant_restore_norm(
+        codes.data_ptr(), scales.data_ptr(), w_restore.data_ptr(),
+        norm_w.data_ptr(), x.data_ptr(), h.data_ptr(), T, d_r, d, float(eps),
+        _DTYPE_CODE[out_dtype], _stream(codes))
+    _raise_on(err, "butterfly_dequant_restore_norm")
+    dequant_restore_norm.launches += 1
+    return x, h
+
+
+dequant_restore_norm.launches = 0

@@ -1,5 +1,5 @@
-"""Public wrappers for the port's kernels (port of the butterfly and
-flash-attention parts of ``repro/kernels/ops.py``).
+"""Public wrappers for the port's kernels (port of the butterfly,
+RMSNorm and flash-attention parts of ``repro/kernels/ops.py``).
 
 A CPU tensor takes the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor launches the hand-written Hopper kernel (``kernels/butterfly_kernel``)
@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import butterfly_kernel, flash_attention as fa, ref
+from repro_torch.kernels import rmsnorm as rmsnorm_kernel
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -59,6 +60,48 @@ def butterfly_dequant_restore(codes: torch.Tensor, scales: torch.Tensor,
         out = butterfly_kernel.dequant_restore(
             cf.contiguous(), sf.contiguous(), w_restore.contiguous(), out_dtype)
     return out.reshape(*shape[:-1], d)
+
+
+def butterfly_restore_norm(codes: torch.Tensor, scales: torch.Tensor,
+                           w_restore: torch.Tensor, norm_w: torch.Tensor, *,
+                           eps: float = 1e-6, out_dtype=torch.float32
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused dequant + restore + the first cloud layer's RMSNorm.
+
+    codes: (..., d_r) int8, scales (..., 1) f32, norm_w (d,) or (1, d) ->
+    (x (..., d), h (..., d)) in ``out_dtype``: x the restored boundary
+    activation, h ``rms_norm(x, norm_w)`` of x after its cast.  On the card
+    x equals :func:`butterfly_dequant_restore` and h equals :func:`rmsnorm`
+    of that x, bit for bit."""
+    shape = codes.shape
+    d = w_restore.shape[1]
+    cf = codes.reshape(-1, shape[-1])
+    sf = scales.reshape(-1, 1)
+    nw = norm_w.reshape(d)
+    if _on_cpu(codes):
+        x, h = ref.butterfly_restore_norm_ref(cf, sf, w_restore, nw, eps,
+                                              out_dtype)
+    else:
+        x, h = butterfly_kernel.dequant_restore_norm(
+            cf.contiguous(), sf.contiguous(), w_restore.contiguous(),
+            nw.contiguous(), eps, out_dtype)
+    return x.reshape(*shape[:-1], d), h.reshape(*shape[:-1], d)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., d) -> RMSNorm with the gemma-style ``1 + w`` weight, in x's
+    dtype."""
+    shape = x.shape
+    xf = x.reshape(-1, shape[-1])
+    if _on_cpu(x):
+        out = ref.rms_norm_ref(xf, w, eps)
+    else:
+        out = rmsnorm_kernel.rmsnorm(xf.contiguous(), w.contiguous(), eps)
+    return out.reshape(shape)
+
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return ref.rms_norm_ref(x, w, eps)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -2,7 +2,8 @@
 ``kernels/ops.py`` run on a CPU tensor, and what the kernels are held
 against on the card.  They follow ``repro/kernels/ref.py``: for the
 butterfly, f32 product, per-row absmax, scale, round half to even, clip;
-for attention, f32 scores over an end-aligned causal/window mask."""
+for RMSNorm, f32 mean of squares and ``1 + w``; for attention, f32 scores
+over an end-aligned causal/window mask."""
 from __future__ import annotations
 
 import math
@@ -28,6 +29,27 @@ def butterfly_dequant_restore_ref(codes: torch.Tensor, scales: torch.Tensor,
     """codes: (T, d_r) int8, scales (T, 1) f32, w_restore (d_r, d) -> (T, d)."""
     r = codes.float() * scales
     return (r @ w_restore.float()).to(out_dtype)
+
+
+def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """The model's RMSNorm (gemma-style ``1 + w`` weight) in f32, cast back
+    to x's dtype; restated here so the kernels' plain versions import no
+    model code."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(dtype)
+
+
+def butterfly_restore_norm_ref(codes: torch.Tensor, scales: torch.Tensor,
+                               w_restore: torch.Tensor, norm_w: torch.Tensor,
+                               eps: float = 1e-6, out_dtype=torch.float32):
+    """Dequant+restore, then the RMSNorm of the restored x after its cast
+    to ``out_dtype``.  Returns (x, h)."""
+    x = butterfly_dequant_restore_ref(codes, scales, w_restore, out_dtype)
+    return x, rms_norm_ref(x, norm_w, eps)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -161,6 +161,19 @@ def apply_layer_range(segments: Sequence[Segment], stage_params, x, lo: int,
                        use_kernel=use_kernel, first_h=first_h)
 
 
+def first_layer_norm1(segments: Sequence[Segment], stage_params, lo: int = 0):
+    """The norm1 weight of flat layer ``lo`` of a stacked stage: what the
+    fused dequant+restore+norm kernel needs to compute that layer's input
+    norm at the butterfly boundary."""
+    for span in _range_spans(segments, lo, lo + 1):
+        if span[0] == "peel":
+            _, si, rep, pos = span
+            return stage_params[si][pos]["norm1"][rep]
+        _, si, r0, _ = span
+        return stage_params[si][0]["norm1"][r0]
+    raise ValueError(f"layer {lo} out of range")
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ from repro_torch.core.quantization import pack_int4, unpack_int4
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed, rms_norm, unembed
+from repro_torch.serving import pipeline as spl
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.tree import tree_map
 
@@ -382,6 +383,53 @@ class SplitRunner:
         ``length`` (zeros past the prompt)."""
         return tfm.pad_to_template(
             cache, self.bank._cache_template(stage, self.split, 1, length))
+
+    # ------------------------------------------------------ pipelined decode
+    def decode_pipeline(self, pods, num_microbatches: int, prompt_len: int,
+                        microbatch: int, new_tokens: int, *,
+                        pipelined: bool = True, use_kernel: bool = False,
+                        overlap_psum: bool = False):
+        """Multi-token greedy decode over two pods through this split:
+        ``serving.pipeline.make_decode_pipeline``'s microbatch rotation (or
+        its serial reference with ``pipelined=False``) running views of the
+        bank's shared backbone.  ``pods`` is a pair of devices, edge then
+        cloud; None puts both on the bank's device (two streams of one
+        card).  Returns ``run(tokens, timings=None) ->
+        (num_microbatches * microbatch, new_tokens)`` greedy ids.  The built
+        function and its split-view params are kept in the bank's function
+        cache under the wire signature, and each run counts its key as the
+        JAX bank's jit cache would."""
+        bank = self.bank
+        if bank.wire_mode not in ("int8", "int4", "entropy"):
+            raise ValueError("the decode pipeline wires quantized codes "
+                             "(int8/int4/entropy)")
+        pods = (bank.device, bank.device) if pods is None else tuple(pods)
+        key = ("decode_pipeline", self.split, tuple(map(str, pods)),
+               num_microbatches, prompt_len, microbatch, new_tokens,
+               bool(pipelined), bool(use_kernel), bool(overlap_psum)) \
+            + bank._wire_sig
+        if key not in bank._fns:
+            segs = list(self.built.stages[0])
+            N = bank.base_cfg.num_layers
+            s0, p0 = tfm.slice_stage_params(segs, self.params["stages"][0],
+                                            0, self.split)
+            s1, p1 = tfm.slice_stage_params(segs, self.params["stages"][0],
+                                            self.split, N)
+            params = dict(self.params)
+            params["stages"] = [p0, p1]
+            built = M.BuiltModel(cfg=self.cfg, stages=(tuple(s0), tuple(s1)))
+            fn = spl.make_decode_pipeline(
+                built, pods, num_microbatches, prompt_len, microbatch,
+                new_tokens, wire_mode=bank.wire_mode, pipelined=pipelined,
+                use_kernel=use_kernel, overlap_psum=overlap_psum)
+            bank._fns[key] = (fn, params)
+        fn, params = bank._fns[key]
+
+        def run(tokens, timings: Optional[dict] = None):
+            bank.note_key(key)
+            return fn(params, tokens, timings)
+
+        return run
 
     # ------------------------------------------------------------- engine glue
     def _engine_prefill(self, params, toks):

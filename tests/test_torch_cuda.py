@@ -1,6 +1,7 @@
 """The port on the card: each kernel against its plain PyTorch version on
-the same inputs, the split path launching both butterfly kernels, and the
-windowed model's kernel prefill launching the flash kernel.
+the same inputs, the split path launching both butterfly kernels, the
+windowed model's kernel prefill launching the flash kernel, and the
+two-pod decode pipeline on two streams of one card.
 
 These tests import no JAX, so a GPU machine with PyTorch alone runs them,
 without the JAX package's conftest:
@@ -15,17 +16,29 @@ sums run in another order than the plain product's; scales within rtol
 version, within the f32 summation bound of an f64 product.  Flash attention
 within rtol/atol 2e-5 in f32 (f32 sums in another order) and one bf16 ulp
 (rtol 2**-7, atol 1e-3) in bf16: both compute in f32 and round once.
+The fused restore+norm kernel's x equals the restore kernel's and its h the
+RMSNorm kernel's on that x, bit for bit (one shared row routine); x against
+the plain restore as above (in f32 both within the summation bound of an
+f64 product), h and the RMSNorm kernel against the plain norm
+of the same x within rtol 1e-5 (atol 1e-6) in f32 (the mean of squares sums
+in another order) and one bf16 ulp in bf16.
 """
 import dataclasses
 import math
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import butterfly_kernel, flash_attention as fa, ops, ref
+from repro_torch.kernels import rmsnorm as rmsnorm_kernel
 
 pytestmark = pytest.mark.cuda
+
+# cuBLAS is deterministic across streams only with a fixed workspace; it
+# reads this when its first handle is made, after this module is imported
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture
@@ -103,6 +116,106 @@ def test_kernel_wrappers_refuse_bad_input(cuda):
                                          torch.bfloat16)
     with pytest.raises(ValueError):                              # wider than int8
         ops.butterfly_reduce_quant(x, w, bits=16)
+
+
+def _restore_inputs(T, d, d_r, dtype, seed):
+    rng = np.random.default_rng(seed)
+    codes = torch.from_numpy(rng.integers(-127, 128, (T, d_r)).astype(np.int8))
+    scales = torch.from_numpy(rng.uniform(0.01, 0.1, (T, 1)).astype(np.float32))
+    wr = torch.from_numpy((rng.standard_normal((d_r, d)) / math.sqrt(d_r))
+                          .astype(np.float32)).to(dtype)
+    nw = torch.from_numpy((0.1 * rng.standard_normal(d)).astype(np.float32)).to(dtype)
+    return codes, scales, wr, nw
+
+
+def _near_restore(out, codes, scales, wr, dtype):
+    """The restore against its plain version: within one bf16 ulp in bf16;
+    in f32 each of the two within the f32 summation bound of an f64
+    product, |err| <= n*u*sum|a_k b_k| (n = d_r, u = 2**-24): the inputs'
+    codes span [-127, 127], so a sum can cancel to near zero, where a
+    relative tolerance says nothing."""
+    d_r = codes.shape[1]
+    plain = ref.butterfly_dequant_restore_ref(codes, scales, wr, dtype)
+    if dtype == torch.float32:
+        r64 = (codes.float() * scales).double()
+        exact = r64 @ wr.double()
+        bound = 1.01 * d_r * 2 ** -24 * (r64.abs() @ wr.double().abs())
+        for o in (out, plain):
+            assert bool(((o.double() - exact).abs() <= bound).all())
+        return
+    torch.testing.assert_close(out, plain, rtol=2 ** -7, atol=1e-3)
+
+
+def _norm_tol(dtype):
+    return dict(rtol=2 ** -7, atol=1e-3) if dtype == torch.bfloat16 else \
+        dict(rtol=1e-5, atol=1e-6)
+
+
+# d_r 16-1024 (shared memory past 48 KB at 1024), d 4096 and 3840 (the two
+# models) and ragged widths, 1 to 1,025 rows (one or many 16-row blocks)
+@pytest.mark.parametrize("T", [1, 4, 16, 37, 512, 1025])
+@pytest.mark.parametrize("d,d_r,dtype", [(4096, 64, torch.bfloat16),
+                                         (3840, 60, torch.bfloat16),
+                                         (4096, 64, torch.float32),
+                                         (256, 16, torch.float32),
+                                         (200, 48, torch.bfloat16),
+                                         (384, 1024, torch.float32),
+                                         (256, 1024, torch.bfloat16)])
+def test_restore_norm_matches_plain_and_its_parts(cuda, T, d, d_r, dtype):
+    codes, scales, wr, nw = (t.to(cuda) for t in _restore_inputs(T, d, d_r,
+                                                                  dtype, seed=T))
+    n0 = butterfly_kernel.dequant_restore_norm.launches
+    x, h = ops.butterfly_restore_norm(codes, scales, wr, nw, eps=1e-6,
+                                      out_dtype=dtype)
+    assert butterfly_kernel.dequant_restore_norm.launches == n0 + 1
+    assert x.dtype == h.dtype == dtype and x.shape == h.shape == (T, d)
+    assert torch.equal(x, ops.butterfly_dequant_restore(codes, scales, wr,
+                                                        out_dtype=dtype))
+    n0 = rmsnorm_kernel.rmsnorm.launches
+    assert torch.equal(h, ops.rmsnorm(x, nw, eps=1e-6))
+    assert rmsnorm_kernel.rmsnorm.launches == n0 + 1
+    _near_restore(x, codes, scales, wr, dtype)
+    torch.testing.assert_close(h, ref.rms_norm_ref(x, nw, 1e-6), **_norm_tol(dtype))
+
+
+@pytest.mark.parametrize("T", [1, 4, 9, 512, 4096])
+@pytest.mark.parametrize("d,dtype", [(4096, torch.bfloat16), (3840, torch.bfloat16),
+                                     (4096, torch.float32), (33, torch.float32),
+                                     (1000, torch.bfloat16)])
+def test_rmsnorm_matches_plain(cuda, T, d, dtype):
+    rng = np.random.default_rng(T + d)
+    x = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda, dtype)
+    n0 = rmsnorm_kernel.rmsnorm.launches
+    out = ops.rmsnorm(x.reshape(T, 1, d), w, eps=1e-5)
+    assert rmsnorm_kernel.rmsnorm.launches == n0 + 1
+    assert out.dtype == dtype and out.shape == (T, 1, d)
+    torch.testing.assert_close(out.reshape(T, d), ref.rms_norm_ref(x, w, 1e-5),
+                               **_norm_tol(dtype))
+
+
+def test_norm_wrappers_refuse_bad_input(cuda):
+    codes, scales, wr, nw = (t.to(cuda) for t in _restore_inputs(
+        8, 64, 16, torch.float32, seed=0))
+    with pytest.raises(TypeError):                               # norm_w dtype
+        butterfly_kernel.dequant_restore_norm(codes, scales, wr,
+                                              nw.to(torch.bfloat16))
+    with pytest.raises(TypeError):                               # out != w dtype
+        butterfly_kernel.dequant_restore_norm(codes, scales, wr, nw,
+                                              out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                              # norm_w width
+        butterfly_kernel.dequant_restore_norm(codes, scales, wr, nw[:32])
+    with pytest.raises(ValueError, match="CUDA"):
+        butterfly_kernel.dequant_restore_norm(codes.cpu(), scales, wr, nw)
+    x = torch.zeros((8, 64), device=cuda)
+    with pytest.raises(TypeError):
+        rmsnorm_kernel.rmsnorm(x, nw.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        rmsnorm_kernel.rmsnorm(x.to(torch.float16), nw)
+    with pytest.raises(ValueError):
+        rmsnorm_kernel.rmsnorm(x.t(), nw)                         # not contiguous
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_kernel.rmsnorm(x.cpu(), nw.cpu())
 
 
 def test_split_path_launches_both_kernels(cuda):
@@ -215,3 +328,44 @@ def test_windowed_model_kernel_prefill_and_ring_decode(cuda):
         near(logits, ref_logits)
         tok = ref_logits[:, -1].argmax(-1, keepdim=True)
     assert butterfly_kernel.reduce_quant.launches == n[1] + 1 + steps
+
+
+def test_two_stream_pipeline_matches_serial(cuda):
+    """Reduced qwen3 (3 layers, bf16, d_r=32 after layer 2) with both pods
+    on the card, each on its own stream: the pipelined and serial
+    schedules give the same greedy ids, bit for bit, for the int8 and int4
+    wires with the kernels and for the plain int8 wire.  A kernel run
+    launches reduce_quant and restore_norm once per prefill microbatch and
+    once per decode tick (Mmb + Mmb*(T-1)), dequant_restore and flash
+    never; a plain run launches none of them."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.split_exec import SplitModelBank
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), num_layers=3,
+                              dtype="bfloat16")
+    bank8 = SplitModelBank(cfg, 32, seed=0, device=cuda)
+    bank4 = SplitModelBank(cfg, 32, wire_mode="int4", device=cuda,
+                           params=bank8.params,
+                           butterfly={2: bank8.butterfly_params(2)})
+    Mmb, mb, S, T = 3, 4, 16, 6
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (Mmb * mb, S))).to(cuda)
+
+    def counts():
+        return (butterfly_kernel.reduce_quant.launches,
+                butterfly_kernel.dequant_restore_norm.launches,
+                butterfly_kernel.dequant_restore.launches,
+                fa.flash_attention.launches)
+
+    for bank, use_kernel in ((bank8, True), (bank4, True), (bank8, False)):
+        ids = []
+        for pipelined in (True, False):
+            run = bank.runner(2).decode_pipeline(None, Mmb, S, mb, T,
+                                                 pipelined=pipelined,
+                                                 use_kernel=use_kernel)
+            n0 = counts()
+            ids.append(run(toks))
+            torch.cuda.synchronize()
+            n = Mmb * T if use_kernel else 0
+            assert tuple(b - a for a, b in zip(n0, counts())) == (n, n, 0, 0)
+        assert ids[0].shape == (Mmb * mb, T) and ids[0].device.type == "cuda"
+        assert torch.equal(ids[0], ids[1]), (bank.wire_mode, use_kernel)
