@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-On one H100 80GB HBM3 it takes about two minutes, the kernels' build
+On one H100 80GB HBM3 it takes about three minutes, the kernels' build
 included.
 
 Phases, each fatal on failure (the script exits non-zero and prints no
@@ -41,7 +41,18 @@ result line):
                yardstick); then the two-pod decode pipeline with both pods
                on this card, each on its own stream (see phase_pipeline),
                and the RMSNorm kernel through its ops.rmsnorm entry point;
-  6. kernel prefill - after the qwen3-8b model is freed, full-width
+  8. runtime - on the same qwen3-8b bank: the bincount kernel (reduce+quantize
+               plus the codes' per-channel symbol histogram) against
+               reduce_quant, bit for bit, and its plain version (bits 8 and
+               4, f32 and bf16, d_r 16-1024, 1 to 4,096 rows) and its times;
+               then the port's runtime simulator with numerics on this card
+               at full width (4 devices on 3g, split 4, d_r 64, the entropy
+               wire on cache handoff, streamed and progressive, the int8 wire
+               on cache handoff; see phase_runtime); the bincount entry point
+               on the full-width boundary activations of its prompts, whose
+               size estimate must fall within 5% of the real encoder; and the
+               runtime_sim launcher as a subprocess on the default device.
+  6. kernel prefill - once the qwen3-8b model is freed, full-width
                gemma3-12b (48 layers, 40 with a 1024-token window, d_model
                3840, head_dim 256, bf16, random weights from seed 0) with a
                d_r=60 butterfly after layer 6: prompts of 100 and 2,048 byte
@@ -56,14 +67,14 @@ result line):
                decode step must stay within 5% of a kernel prefill of the
                whole sequence, and the peak must fit the 80 GB card.
 With ``--profile [DIR]`` it profiles one qwen3-8b prefill and 8 decode steps
-and a short pipelined and serial decode pipeline after phase 7, and
+and a short pipelined and serial decode pipeline after phase 8, and
 gemma3-12b's kernel and plain prefills of the 2,048-token prompt and 8
 decode steps after phase 6 (torch.profiler: wall time, device-busy share,
 top kernels; the operator tables go to DIR when one is given).  It then
 prints the kernels' JSON line (launches by path; the times of flash
-attention and of the two norm kernels per launch, averaged over their
-path's launches, and each path shape's under "by_shape") and, last, the
-result line.
+attention and of the norm and bincount kernels per launch, averaged over
+their path's launches, and each path shape's under "by_shape") and, last,
+the result line.
 """
 from __future__ import annotations
 
@@ -379,7 +390,8 @@ def _wrappers():
             "butterfly_dequant_restore": bk.dequant_restore,
             "flash_attention": fa.flash_attention,
             "butterfly_dequant_restore_norm": bk.dequant_restore_norm,
-            "rmsnorm": rn.rmsnorm}
+            "rmsnorm": rn.rmsnorm,
+            "butterfly_reduce_quant_bincount": bk.reduce_quant_bincount}
 
 
 def _counts():
@@ -1005,6 +1017,310 @@ def phase_rmsnorm_entry():
     return launches
 
 
+# ------------------------------------------------------------------------- 8
+# the bincount kernel: every compiled channel width of reduce_quant (d_r 16,
+# 60 at gemma3's d, 64, 1024), both sides of its 1-row/16-row switch, both
+# code widths, f32 and bf16; timed at d=4096, d_r=64, bf16
+BINCOUNT_D_R = {16: 4096, 60: 3840, 64: 4096, 1024: 4096}
+BINCOUNT_ROWS = (1, 4, 100, 1024, 1025, 4096)
+BINCOUNT_TIME_ROWS = (1, 128, 1024, 4096)
+# phase 8's cells: 8 requests of 128 tokens from 4 devices on 3g
+RUNTIME = dict(S=128, requests=8, devices=4, handoff_tokens=16,
+               streamed_requests=4, streamed_tokens=8)
+# the bincount entry point's calls: one per phase-8 prompt, then all eight
+BINCOUNT_ENTRY_ROWS = {RUNTIME["S"]: RUNTIME["requests"],
+                       RUNTIME["S"] * RUNTIME["requests"]: 1}
+
+
+def phase_bincount_kernels():
+    """butterfly_reduce_quant_bincount against butterfly_reduce_quant and
+    its plain version: codes and scales bit for bit reduce_quant's; counts
+    exactly the plain histogram of those codes (ref.symbol_counts), summing
+    to T*d_r; against the whole plain version (whose codes may differ by 1
+    on 0.1% of entries, f32 sums in another order) within 2 counts per
+    differing code.  Returns the largest count difference from the whole
+    plain version."""
+    import torch
+    from repro_torch.kernels import butterfly_kernel as bk, ref
+    n = same = worst = 0
+    for bits in (8, 4):
+        for dtype in (torch.bfloat16, torch.float32):
+            for d_r, d in BINCOUNT_D_R.items():
+                for T in BINCOUNT_ROWS:
+                    x, w, _ = _inputs(T, d, d_r, dtype, seed=T + d_r + bits)
+                    codes, scales, counts = bk.reduce_quant_bincount(x, w, bits)
+                    codes_q, scales_q = bk.reduce_quant(x, w, bits)
+                    label = f"bincount T={T} d={d} d_r={d_r} {dtype} bits={bits}"
+                    if not (torch.equal(codes, codes_q) and torch.equal(scales, scales_q)):
+                        fail(f"{label}: codes or scales differ from reduce_quant's")
+                    if counts.shape != (d_r, 1 << bits) or counts.dtype != torch.int32:
+                        fail(f"{label}: counts {tuple(counts.shape)} {counts.dtype}")
+                    if not torch.equal(counts, ref.symbol_counts(codes, bits)):
+                        fail(f"{label}: counts differ from the histogram of the codes")
+                    if int(counts.sum()) != T * d_r:
+                        fail(f"{label}: counts sum to {int(counts.sum())}, not {T * d_r}")
+                    codes_p, _, counts_p = ref.butterfly_reduce_quant_bincount_ref(
+                        x, w, bits)
+                    n_diff = int((codes != codes_p).sum())
+                    off = int((counts - counts_p).abs().sum())
+                    if off > 2 * n_diff or n_diff > math.ceil(1e-3 * codes.numel()):
+                        fail(f"{label}: counts {off} from the plain version's with "
+                             f"{n_diff} codes differing")
+                    worst = max(worst, off)
+                    same += off == 0
+                    n += 1
+            print(f"bincount: bits {bits} {str(dtype)[6:]:8s} d_r {list(BINCOUNT_D_R)} "
+                  f"rows {BINCOUNT_ROWS}: codes/scales == reduce_quant, counts == "
+                  f"histogram of the codes")
+    torch.cuda.synchronize()
+    print(f"bincount: {n} checks passed; counts equal the whole plain version's "
+          f"in {same}/{n}, at most {worst} apart")
+    return worst
+
+
+def phase_bincount_times(rates):
+    """The bincount kernel, its plain version and, for the atomics' cost,
+    reduce_quant at d=4096, d_r=64, bf16; bound: the bytes of x, w, codes,
+    scales and counts over the memory rate (the 2*T*d*d_r multiply-adds at
+    the bf16 tensor-core rate are below it)."""
+    import torch
+    from repro_torch.kernels import butterfly_kernel as bk, ref
+    bw, bf16_ops = rates
+    out = {}
+    for T in BINCOUNT_TIME_ROWS:
+        x, w, _ = _inputs(T, D, D_R, torch.bfloat16, seed=T)
+        ms = _device_ms(lambda: bk.reduce_quant_bincount(x, w, 8))
+        plain_ms = _device_ms(lambda: ref.butterfly_reduce_quant_bincount_ref(x, w, 8))
+        rq_ms = _device_ms(lambda: bk.reduce_quant(x, w, 8))
+        nbytes = T * D * 2 + D * D_R * 2 + T * D_R + T * 4 + D_R * 256 * 4
+        tb, to = nbytes / bw * 1e3, 2 * T * D * D_R / bf16_ops * 1e3
+        bound_ms, bound_by = (tb, "bytes") if tb >= to else (to, "operations")
+        out[T] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                      bound_by=bound_by, reduce_quant_ms=rq_ms)
+        print(f"times: butterfly_reduce_quant_bincount T={T:5d} kernel {ms:.4f} ms  "
+              f"plain {plain_ms:.4f} ms  reduce_quant {rq_ms:.4f} ms (counting "
+              f"adds {ms - rq_ms:+.4f} ms)  bound {bound_ms:.6f} ms ({bound_by})")
+    return out
+
+
+def _sim_ids(sim):
+    return [[int(t) for t in r.engine_req.generated] for r in sim.requests]
+
+
+def _run_sim(cfg, arrivals, wire, transport, new_tokens, record=None):
+    """One phase-8 simulation on the card; returns (telemetry, ids, host
+    wall ms).  Its bank is built from seed 0, as phase 5's was."""
+    import torch
+    from repro_torch.runtime.simulator import SimConfig, Simulation
+    sim = Simulation(SimConfig(
+        cfg=cfg, wire_mode=wire, transport=transport, network="3g",
+        num_devices=RUNTIME["devices"], num_requests=len(arrivals),
+        prompt_len=RUNTIME["S"], max_new_tokens=new_tokens, d_r=D_R,
+        initial_split=cfg.num_layers // 8, seed=0, arrivals=arrivals,
+        device="cuda"))
+    if record is not None:
+        sim.record_trace(str(record))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tel = sim.run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    ids = _sim_ids(sim)
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tel, ids, wall_ms
+
+
+def phase_runtime(runner):
+    """Phase 8: the port's runtime simulator with numerics on the card, at
+    full width (qwen3-8b as phase 5: 36 layers, bf16, seed 0, split 4, d_r
+    64), 4 devices on 3g, the entropy wire: cache handoff (8 requests of 128
+    tokens, 16 new tokens each), streamed and progressive (one request per
+    device, 8 new tokens), and the int8 wire's cache handoff on the same
+    arrivals; the streamed run is recorded and replayed.  Checks: ids equal
+    between the entropy and int8 wires and equal to what phase 5's bank
+    serves for the same prompts (alone, through the same halves and an
+    engine of the simulator's shape); each entropy request's coded_bytes is
+    min(len(encode(codes, default prior)) + 4*S, S*d_r + 4*S) of phase 5's
+    edge codes; the replay's telemetry JSON is byte-identical.  Returns the
+    path's launches and the prompts."""
+    import tempfile
+    import torch
+    from repro_torch.core import wire_codec
+    from repro_torch.runtime.simulator import poisson_arrivals, trace_arrivals
+    cfg, split = runner.bank.base_cfg, runner.split
+    S, T, Ts = RUNTIME["S"], RUNTIME["handoff_tokens"], RUNTIME["streamed_tokens"]
+    arrivals = poisson_arrivals(num_devices=RUNTIME["devices"],
+                                num_requests=RUNTIME["requests"], arrival_rate=20.0,
+                                prompt_len=S, vocab_size=cfg.vocab_size, seed=0)
+    firsts = {}                      # each device's first request
+    for i, a in enumerate(arrivals):
+        firsts.setdefault(a.device, i)
+    streamed_idx = list(firsts.values())[:RUNTIME["streamed_requests"]]
+    streamed = [arrivals[i] for i in streamed_idx]
+    prompts = [a.tokens for a in arrivals]
+
+    # what phase 5's bank serves for these prompts, one at a time
+    params = runner.params
+    want_handoff, want_streamed, want_coded, raw_coded = [], [], [], []
+    prior = wire_codec.WirePrior.default(D_R, 8)
+    eng = runner.make_engine(max_batch=8, max_len=S + T + 2, seed=0)
+    for p in prompts:
+        payload, scales, c0 = runner.edge_half(params, p[None])
+        codes = payload[0].cpu().numpy()
+        raw_coded.append(len(wire_codec.encode(codes, prior)) + 4 * S)
+        want_coded.append(min(raw_coded[-1], S * D_R + 4 * S))
+        logits, c1 = runner.cloud_half(params, payload, scales)
+        req = eng.submit_prefilled(S, [c0, c1], logits[0], max_new_tokens=T)
+        eng.run()
+        want_handoff.append(req.generated)
+    eng = runner.make_engine(max_batch=8, max_len=S + Ts + 2, seed=0)
+    for a in streamed:
+        req, _ = _serve_streamed(runner, eng, a.tokens, Ts, S + Ts + 2)
+        want_streamed.append(req.generated)
+    torch.cuda.synchronize()
+
+    _zero_counts()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "streamed.jsonl"
+        for key, arr, wire, transport, n_new, record in (
+                ("entropy cache_handoff", arrivals, "entropy", "cache_handoff", T, None),
+                ("int8 cache_handoff", arrivals, "int8", "cache_handoff", T, None),
+                ("entropy streamed", streamed, "entropy", "streamed", Ts, trace),
+                ("entropy progressive", streamed, "entropy", "progressive", Ts, None),
+                ("entropy streamed, replayed", None, "entropy", "streamed", Ts, None)):
+            if arr is None:
+                arr = trace_arrivals(str(trace))
+            runs[key] = _run_sim(cfg, arr, wire, transport, n_new, record)
+    launches = _counts()
+
+    for key, (tel, ids, wall_ms) in runs.items():
+        s = tel.summary()
+        c = tel.counters
+        print(f"runtime: {key:28s} host wall {wall_ms:9.1f} ms; engine decode steps "
+              f"{c['engine_decode_steps']:.0f}, bank cache entries "
+              f"{c['bank_jit_cache_entries']:.0f} (hits {c['bank_jit_cache_hits']:.0f}, "
+              f"misses {c['bank_jit_cache_misses']:.0f}); simulated (virtual clock, "
+              f"Jetson TX2 edge / GTX 1080Ti cloud cost model): latency p50 "
+              f"{s['latency_p50_ms']:.1f} ms, ttft p50 {s['ttft_p50_ms']:.1f} ms, "
+              f"mean mobile energy {s['mean_mobile_energy_mj']:.1f} mJ, mean wire "
+              f"{s['mean_wire_kb']:.2f} kB")
+        if s["n_done"] != len(ids) or any(
+                len(g) != (T if "handoff" in key else Ts) for g in ids):
+            fail(f"runtime {key}: not every request finished with its tokens")
+    if runs["entropy cache_handoff"][1] != runs["int8 cache_handoff"][1]:
+        fail("runtime: the entropy wire's ids differ from the int8 wire's")
+    if runs["entropy cache_handoff"][1] != want_handoff:
+        fail(f"runtime: cache-handoff ids {runs['entropy cache_handoff'][1]} differ "
+             f"from phase 5's bank's {want_handoff}")
+    for key in ("entropy streamed", "entropy progressive"):
+        if runs[key][1] != want_streamed:
+            fail(f"runtime: {key} ids {runs[key][1]} differ from phase 5's bank's "
+                 f"streamed ids {want_streamed}")
+    coded_streamed = [want_coded[i] for i in streamed_idx]
+    for key, want in (("entropy cache_handoff", want_coded),
+                      ("entropy streamed", coded_streamed),
+                      ("entropy progressive", coded_streamed)):
+        got = [t.coded_bytes for t in sorted(runs[key][0].traces, key=lambda t: t.uid)]
+        if got != want:
+            fail(f"runtime {key}: coded_bytes {got}, the encoder gives {want}")
+    if runs["entropy streamed"][0].to_json() != \
+            runs["entropy streamed, replayed"][0].to_json():
+        fail("runtime: the replayed run's telemetry differs from the recorded run's")
+    if min(launches["butterfly_reduce_quant"], launches["butterfly_dequant_restore"]) <= 0:
+        fail(f"runtime: a butterfly kernel was not launched: {launches}")
+    print(f"runtime: ids entropy == int8 == phase 5's bank (cache handoff), streamed "
+          f"and progressive == phase 5's streamed serving; coded_bytes == encoder "
+          f"(uncapped {raw_coded} B vs raw int8 {S * D_R + 4 * S} B a request); "
+          f"replay byte-identical")
+    print(f"runtime: launches on the path {launches}")
+    print(f"runtime: tokens {runs['entropy cache_handoff'][1]}")
+    return launches, prompts
+
+
+def phase_bincount_entry(runner, prompts):
+    """The bincount kernel's entry point, ops.butterfly_reduce_quant_bincount,
+    on the full-width split-4 boundary activations of phase 8's prompts
+    (each prompt's 128 rows, then all 1,024 rows, d=4096, bf16): a prior
+    from its counts (WirePrior.from_counts) and estimate_coded_bytes within
+    5% of the real encoder under that prior (the bound of
+    tests/test_wire_codec.py)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import wire_codec
+    from repro_torch.kernels import ops, ref
+    bank, params = runner.bank, runner.params
+    toks = torch.tensor(np.stack(prompts), dtype=torch.int64, device="cuda")
+    # the edge half's layers, as edge_half runs them, up to the boundary
+    x, _ = bank._layers(params, bank._embed(params, toks), 0, runner.split,
+                        "prefill", None, None)
+    w = params["butterfly"]["w_reduce"]
+    batches = [x[i:i + 1] for i in range(len(prompts))] + [x]
+    torch.cuda.synchronize()
+    _zero_counts()
+    outs = [ops.butterfly_reduce_quant_bincount(xb, w, bits=8) for xb in batches]
+    torch.cuda.synchronize()
+    launches = _counts()
+    if launches["butterfly_reduce_quant_bincount"] != len(batches) or \
+            sum(launches.values()) != len(batches):
+        fail(f"bincount entry point launched {launches}, expected {len(batches)}")
+    worst = 0.0
+    for xb, (codes, scales, counts) in zip(batches, outs):
+        codes_q, scales_q = ops.butterfly_reduce_quant(xb, w, bits=8)
+        if not (torch.equal(codes, codes_q) and torch.equal(scales, scales_q)):
+            fail("bincount entry point: codes or scales differ from reduce_quant's")
+        flat = codes.reshape(-1, D_R)
+        if not torch.equal(counts, ref.symbol_counts(flat, 8)):
+            fail("bincount entry point: counts differ from the codes' histogram")
+        counts_h, codes_h = counts.cpu().numpy(), flat.cpu().numpy()
+        prior = wire_codec.WirePrior.from_counts(counts_h, 8)
+        est = wire_codec.estimate_coded_bytes(counts_h, prior)
+        actual = len(wire_codec.encode(codes_h, prior))
+        rel = abs(est - actual) / actual
+        worst = max(worst, rel)
+        if rel >= 0.05:
+            fail(f"bincount entry point: estimate {est} B vs encoder {actual} B "
+                 f"({rel:.2%}) at T={flat.shape[0]}")
+        if xb is x:
+            bits = wire_codec.expected_bits_per_symbol(counts_h, prior)
+            print(f"bincount entry point: T={flat.shape[0]} d={D} d_r={D_R} bf16: "
+                  f"estimate {est} B, encoder {actual} B ({rel:.3%}), "
+                  f"{bits:.3f} bits a symbol under its own prior; raw int8 "
+                  f"{codes_h.size} B; default prior "
+                  f"{wire_codec.coded_nbytes(codes_h)} B")
+    print(f"bincount entry point: {len(batches)} calls, estimate within "
+          f"{worst:.3%} of the encoder (limit 5%); launches {launches}")
+    return launches
+
+
+def phase_runtime_cli():
+    """The launcher as a user runs it, on the default device (the card):
+    the reduced model, the entropy wire, the progressive transport, 8
+    requests, --json.  It must exit 0 and write 8 requests' telemetry."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "runtime.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.runtime_sim",
+               "--wire-mode", "entropy", "--transport", "progressive",
+               "--requests", "8", "--json", str(out)]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            fail(f"runtime_sim exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        doc = json.loads(out.read_text())
+    n = doc["summary"]["n_requests"]
+    if n != 8 or doc["summary"]["n_done"] != 8:
+        fail(f"runtime_sim served {n} requests, {doc['summary']['n_done']} done")
+    head = proc.stdout.splitlines()[0]
+    print(f"runtime cli: {' '.join(cmd[1:4])} ... exited 0 in {wall:.1f} s "
+          f"(process start and build check included): {head}")
+
+
 # --------------------------------------------------------------------- profile
 def _profiled(label: str, fn, out_dir: Optional[Path]):
     """Run ``fn`` twice: once bare for its host wall time, once under
@@ -1106,6 +1422,11 @@ def main():
     norm_times = phase_norm_times(rates)
     paths["qwen3-8b decode pipeline"] = phase_pipeline(runner)
     paths["ops.rmsnorm entry point"] = phase_rmsnorm_entry()
+    worst["butterfly_reduce_quant_bincount"] = phase_bincount_kernels()
+    bincount_times = phase_bincount_times(rates)
+    paths["qwen3-8b runtime simulator"], prompts = phase_runtime(runner)
+    paths["bincount entry point"] = phase_bincount_entry(runner, prompts)
+    phase_runtime_cli()
     profile_dir = Path(args.profile) if args.profile else None
     if args.profile is not None:
         phase_profile(runner, profile_dir)
@@ -1117,7 +1438,8 @@ def main():
         args.profile is not None, profile_dir)
 
     # flash over the 2,048-token gemma3-12b prefill's 48 launches, the norm
-    # kernels over their path's launches; every timed shape under by_shape
+    # and bincount kernels over their path's launches; every timed shape
+    # under by_shape
     flash = dict(_launch_mean(flash_times, FLASH_JSON), by_shape=flash_times)
     norms = {}
     for kname, weights in (("butterfly_dequant_restore_norm", PIPE_ROWS),
@@ -1125,6 +1447,8 @@ def main():
         by_rows = {T: norm_times[(kname, T)] for T in NORM_ROWS}
         norms[kname] = dict(_launch_mean(by_rows, weights), by_shape={
             f"T={T}": t for T, t in by_rows.items()})
+    bincount = dict(_launch_mean(bincount_times, BINCOUNT_ENTRY_ROWS), by_shape={
+        f"T={T}": t for T, t in bincount_times.items()})
     rows = [("butterfly_reduce_quant", "src/repro_torch/csrc/butterfly.cu",
              "src/repro/kernels/butterfly_kernel.py:38",
              times[("butterfly_reduce_quant", JSON_ROWS)]),
@@ -1137,7 +1461,9 @@ def main():
              "src/repro/kernels/butterfly_kernel.py:146",
              norms["butterfly_dequant_restore_norm"]),
             ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm.py:25", norms["rmsnorm"])]
+             "src/repro/kernels/rmsnorm.py:25", norms["rmsnorm"]),
+            ("butterfly_reduce_quant_bincount", "src/repro_torch/csrc/butterfly.cu",
+             "src/repro/kernels/butterfly_kernel.py:93", bincount)]
     kernels = []
     for kname, source, replaces, t in rows:
         by_path = {path: counts[kname] for path, counts in paths.items()}

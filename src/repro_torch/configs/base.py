@@ -3,7 +3,9 @@
 The port keeps its own copy (it imports nothing of ``repro``): every
 architecture is a frozen dataclass registered under its ``--arch`` id.
 Only the families this port runs are registered (``qwen3_8b``,
-``gemma3_12b``); the other families arrive with their slices.
+``gemma3_12b``), and ``resnet50``, whose config the cost model reads (the
+ResNet model itself is not ported yet); the other families arrive with
+their slices.
 """
 from __future__ import annotations
 
@@ -205,6 +207,7 @@ def _import_archs():
     # the per-arch modules are imported lazily so `register` runs
     import repro_torch.configs.gemma3_12b  # noqa: F401
     import repro_torch.configs.qwen3_8b  # noqa: F401
+    import repro_torch.configs.resnet50  # noqa: F401
 
 
 def get_config(name: str) -> ModelConfig:

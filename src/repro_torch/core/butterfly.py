@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ButterflyConfig
-from repro_torch.core.quantization import dequantize, quantize
+from repro_torch.core.quantization import dequantize, quantize, wire_bytes
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import dense_init
 
@@ -59,3 +59,7 @@ def apply_butterfly(params, x: torch.Tensor, *, wire_bits: int = 8,
         return restore_unit(params, codes, scales, x.dtype, use_kernel=True)
     codes, scales = quantize(x @ params["w_reduce"], wire_bits)
     return dequantize(codes, scales, x.dtype) @ params["w_restore"]
+
+
+def butterfly_wire_bytes(batch: int, seq: int, d_r: int, wire_bits: int = 8) -> int:
+    return wire_bytes((batch, seq, d_r), wire_bits)

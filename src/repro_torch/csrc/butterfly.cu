@@ -1,5 +1,6 @@
 // Hopper (sm_90a) kernels for the butterfly wire: the fused reduce+quantize
-// on the edge, the fused dequantize+restore on the cloud, and the fused
+// on the edge (and its variant that also counts the codes' symbols), the
+// fused dequantize+restore on the cloud, and the fused
 // dequantize+restore+RMSNorm that feeds the first cloud layer.
 //
 // Built by repro_torch/kernels/build.py with
@@ -8,7 +9,7 @@
 // build with --use_fast_math: it turns the IEEE divide `r / scale` into an
 // approximate one, and the codes must round exactly as the reference does.
 //
-// Both kernels launch on the caller's stream, allocate nothing, and return
+// Every kernel launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 //
 // ---------------------------------------------------------------------------
@@ -36,6 +37,26 @@
 //   (round half to even; roundf would round half away from zero) and a
 //   clamp.  Rows past T load as zero and are never stored: the ragged edge
 //   is masked here, so every row count goes through the kernel unpadded.
+// ---------------------------------------------------------------------------
+// butterfly_reduce_quant_bincount
+//   replaces src/repro/kernels/butterfly_kernel.py:_reduce_quant_bincount_kernel
+//   (butterfly_reduce_quant_bincount_kernel, pl.pallas_call at :104).
+//   butterfly_reduce_quant, plus counts[c][code + qmax + 1] += 1 for every
+//   code it emits: the per-channel symbol histogram (d_r x 2**bits int32)
+//   that the entropy wire's prior and size estimate read.
+//
+//   Bound on the card: memory, as butterfly_reduce_quant; the histogram adds
+//   d_r * 2**bits * 4 bytes (64 KB at d_r=64, 8 bits) to write.
+//
+//   Design: the same kernel with kCount set at compile time, so the codes
+//   and scales come out of the same instructions, bit for bit.  Where the
+//   epilogue stores a code (rows < T, channels < d_r) it adds one to the
+//   code's bin with a global atomicAdd; integer adds give the same counts
+//   in any order.  Rows past T are never counted, so the TPU wrapper's
+//   correction for its zero pad rows has no counterpart.  The TPU kernel
+//   carries the histogram in VMEM across its sequential grid; here blocks
+//   run in parallel, and the bins near code 0 take most of the atomics.  A
+//   histogram in shared memory per block, flushed once, is later work.
 // ---------------------------------------------------------------------------
 // butterfly_dequant_restore
 //   replaces src/repro/kernels/butterfly_kernel.py:_dequant_restore_kernel
@@ -120,11 +141,13 @@ __host__ __device__ constexpr int padded_width(int d_r) {
 
 // RQ rows per block; CJ channels per lane (DRP = 32 * CJ).  RQ * CJ <= 32
 // keeps the partial sums of all warps within kStageFloats.
-template <typename T, int RQ, int CJ>
+// With kCount, counts (d_r x 2 * (qmax + 1) int32, zeroed by the caller)
+// gains one in the bin of every code stored.
+template <typename T, int RQ, int CJ, bool kCount>
 __global__ void __launch_bounds__(kThreads)
 reduce_quant_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     int8_t* __restrict__ codes, float* __restrict__ scales,
-                    int n_rows, int d, int d_r, int qmax) {
+                    int* __restrict__ counts, int n_rows, int d, int d_r, int qmax) {
   constexpr int DRP = 32 * CJ;                      // w_reduce row stride
   constexpr int KC = kStageFloats / DRP < 128 ? kStageFloats / DRP : 128;
   constexpr int KW = KC / kWarps;                   // k per warp per chunk
@@ -238,6 +261,8 @@ reduce_quant_kernel(const T* __restrict__ x, const T* __restrict__ w,
         if (c < d_r) {
           const float q = fminf(fmaxf(rintf(v[j] / scale), -fq - 1.f), fq);
           codes[(size_t)row * d_r + c] = (int8_t)q;
+          if constexpr (kCount)
+            atomicAdd(&counts[c * (2 * (qmax + 1)) + (int)q + qmax + 1], 1);
         }
       }
       if (lane == 0) scales[row] = scale;
@@ -245,31 +270,48 @@ reduce_quant_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T, int RQ, int CJ>
+template <typename T, int RQ, int CJ, bool kCount>
 cudaError_t launch_reduce(const void* x, const void* w, void* codes, void* scales,
-                          int n_rows, int d, int d_r, int qmax, cudaStream_t s) {
+                          int* counts, int n_rows, int d, int d_r, int qmax,
+                          cudaStream_t s) {
   const dim3 grid((n_rows + RQ - 1) / RQ);
-  reduce_quant_kernel<T, RQ, CJ><<<grid, kThreads, 0, s>>>(
+  reduce_quant_kernel<T, RQ, CJ, kCount><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<int8_t*>(codes), static_cast<float*>(scales), n_rows, d, d_r, qmax);
+      static_cast<int8_t*>(codes), static_cast<float*>(scales), counts, n_rows, d,
+      d_r, qmax);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kCount>
 cudaError_t dispatch_reduce(const void* x, const void* w, void* codes, void* scales,
-                            int n_rows, int d, int d_r, int qmax, cudaStream_t s) {
+                            int* counts, int n_rows, int d, int d_r, int qmax,
+                            cudaStream_t s) {
   // 16-row blocks where they still fill the card's 132 SMs, else one row a block
   const bool tall = n_rows > 1024;
-  if (d_r <= 32)
-    return tall ? launch_reduce<T, 16, 1>(x, w, codes, scales, n_rows, d, d_r, qmax, s)
-                : launch_reduce<T, 1, 1>(x, w, codes, scales, n_rows, d, d_r, qmax, s);
-  if (d_r <= 64)
-    return tall ? launch_reduce<T, 16, 2>(x, w, codes, scales, n_rows, d, d_r, qmax, s)
-                : launch_reduce<T, 1, 2>(x, w, codes, scales, n_rows, d, d_r, qmax, s);
-  if (d_r <= 128) return launch_reduce<T, 1, 4>(x, w, codes, scales, n_rows, d, d_r, qmax, s);
-  if (d_r <= 256) return launch_reduce<T, 1, 8>(x, w, codes, scales, n_rows, d, d_r, qmax, s);
-  if (d_r <= 512) return launch_reduce<T, 1, 16>(x, w, codes, scales, n_rows, d, d_r, qmax, s);
-  return launch_reduce<T, 1, 32>(x, w, codes, scales, n_rows, d, d_r, qmax, s);
+#define REDUCE(RQ, CJ) \
+  launch_reduce<T, RQ, CJ, kCount>(x, w, codes, scales, counts, n_rows, d, d_r, qmax, s)
+  if (d_r <= 32) return tall ? REDUCE(16, 1) : REDUCE(1, 1);
+  if (d_r <= 64) return tall ? REDUCE(16, 2) : REDUCE(1, 2);
+  if (d_r <= 128) return REDUCE(1, 4);
+  if (d_r <= 256) return REDUCE(1, 8);
+  if (d_r <= 512) return REDUCE(1, 16);
+  return REDUCE(1, 32);
+#undef REDUCE
+}
+
+template <bool kCount>
+int reduce_entry(const void* x, const void* w, void* codes, void* scales, int* counts,
+                 int n_rows, int d, int d_r, int qmax, int dtype, void* stream) {
+  if (n_rows <= 0 || d <= 0 || d_r <= 0 || d_r > kMaxDr || qmax < 0 || qmax > 127)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)dispatch_reduce<float, kCount>(x, w, codes, scales, counts, n_rows, d,
+                                               d_r, qmax, s);
+  if (dtype == 1)
+    return (int)dispatch_reduce<__nv_bfloat16, kCount>(x, w, codes, scales, counts,
+                                                       n_rows, d, d_r, qmax, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // codes * scale of rows [row0, row0 + RD) as f32 in shared memory, k-major
@@ -408,12 +450,18 @@ extern "C" int butterfly_reduce_width(int d_r) { return padded_width(d_r); }
 extern "C" int butterfly_reduce_quant(const void* x, const void* w, void* codes,
                                       void* scales, int n_rows, int d, int d_r,
                                       int qmax, int dtype, void* stream) {
-  if (n_rows <= 0 || d <= 0 || d_r <= 0 || d_r > kMaxDr) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_reduce<float>(x, w, codes, scales, n_rows, d, d_r, qmax, s);
-  if (dtype == 1)
-    return (int)dispatch_reduce<__nv_bfloat16>(x, w, codes, scales, n_rows, d, d_r, qmax, s);
-  return (int)cudaErrorInvalidValue;
+  return reduce_entry<false>(x, w, codes, scales, nullptr, n_rows, d, d_r, qmax, dtype,
+                             stream);
+}
+
+// As butterfly_reduce_quant, and counts (d_r x 2 * (qmax + 1) int32, zeroed by
+// the caller) gains each stored code's symbol code + qmax + 1.
+extern "C" int butterfly_reduce_quant_bincount(const void* x, const void* w,
+                                               void* codes, void* scales, void* counts,
+                                               int n_rows, int d, int d_r, int qmax,
+                                               int dtype, void* stream) {
+  return reduce_entry<true>(x, w, codes, scales, static_cast<int*>(counts), n_rows, d,
+                            d_r, qmax, dtype, stream);
 }
 
 // out has the dtype of w.

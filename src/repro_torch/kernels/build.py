@@ -33,6 +33,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "butterfly": {
         "butterfly_reduce_quant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "butterfly_reduce_quant_bincount": [_P] * 5 + [_I] * 5 + [_P],
         "butterfly_dequant_restore": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "butterfly_dequant_restore_norm": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
         "butterfly_reduce_width": [_I],

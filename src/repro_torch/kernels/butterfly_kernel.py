@@ -6,6 +6,7 @@ raises if the launch was refused.  ``launches`` on each wrapper counts the
 kernel launches (and nothing else), so a run can show that its path went
 through the kernel.  The TPU kernels these replace are
 ``repro/kernels/butterfly_kernel.py:butterfly_reduce_quant_kernel``,
+``:butterfly_reduce_quant_bincount_kernel``,
 ``:butterfly_dequant_restore_kernel`` and
 ``:butterfly_dequant_restore_norm_kernel``; the source notes in the ``.cu``
 file give each kernel's bound and design.
@@ -41,9 +42,9 @@ def _raise_on(err: int, kernel: str):
                            f"({torch.cuda.get_device_name()})")
 
 
-def reduce_quant(x: torch.Tensor, w_reduce: torch.Tensor, bits: int = 8):
-    """x (T, d) f32|bf16, w_reduce (d, d_r) of the same dtype ->
-    (codes (T, d_r) int8, scales (T, 1) f32)."""
+def _reduce_args(x: torch.Tensor, w_reduce: torch.Tensor, bits: int):
+    """Check the reduce kernels' inputs; returns (library, w_reduce as the
+    kernel reads it, codes, scales)."""
     _check(x, "x", _DTYPE_CODE)
     _check(w_reduce, "w_reduce", (x.dtype,))
     if not 1 <= bits <= 8:
@@ -56,7 +57,7 @@ def reduce_quant(x: torch.Tensor, w_reduce: torch.Tensor, bits: int = 8):
     codes = torch.empty((T, d_r), dtype=torch.int8, device=x.device)
     scales = torch.empty((T, 1), dtype=torch.float32, device=x.device)
     if T == 0:
-        return codes, scales
+        return None, w_reduce, codes, scales
     lib = build.load("butterfly")
     # the kernel reads w_reduce in 16-byte pieces at a padded channel width;
     # the zero columns give zero sums, which it computes and drops
@@ -65,15 +66,50 @@ def reduce_quant(x: torch.Tensor, w_reduce: torch.Tensor, bits: int = 8):
         w_reduce = F.pad(w_reduce, (0, width - d_r))
     if w_reduce.data_ptr() % 16:
         w_reduce = w_reduce.clone()
+    return lib, w_reduce, codes, scales
+
+
+def reduce_quant(x: torch.Tensor, w_reduce: torch.Tensor, bits: int = 8):
+    """x (T, d) f32|bf16, w_reduce (d, d_r) of the same dtype ->
+    (codes (T, d_r) int8, scales (T, 1) f32)."""
+    lib, w, codes, scales = _reduce_args(x, w_reduce, bits)
+    if lib is None:
+        return codes, scales
+    T, d = x.shape
     err = lib.butterfly_reduce_quant(
-        x.data_ptr(), w_reduce.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        T, d, d_r, 2 ** (bits - 1) - 1, _DTYPE_CODE[x.dtype], _stream(x))
+        x.data_ptr(), w.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+        T, d, codes.shape[1], 2 ** (bits - 1) - 1, _DTYPE_CODE[x.dtype],
+        _stream(x))
     _raise_on(err, "butterfly_reduce_quant")
     reduce_quant.launches += 1
     return codes, scales
 
 
 reduce_quant.launches = 0
+
+
+def reduce_quant_bincount(x: torch.Tensor, w_reduce: torch.Tensor,
+                          bits: int = 8):
+    """:func:`reduce_quant` plus the per-channel histogram of the codes'
+    symbols (``code + 2**(bits-1)``): (codes (T, d_r) int8, scales (T, 1)
+    f32, counts (d_r, 2**bits) int32).  Codes and scales are bit for bit
+    those of :func:`reduce_quant`."""
+    lib, w, codes, scales = _reduce_args(x, w_reduce, bits)
+    counts = torch.zeros((codes.shape[1], 1 << bits), dtype=torch.int32,
+                         device=x.device)
+    if lib is None:
+        return codes, scales, counts
+    T, d = x.shape
+    err = lib.butterfly_reduce_quant_bincount(
+        x.data_ptr(), w.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+        counts.data_ptr(), T, d, codes.shape[1], 2 ** (bits - 1) - 1,
+        _DTYPE_CODE[x.dtype], _stream(x))
+    _raise_on(err, "butterfly_reduce_quant_bincount")
+    reduce_quant_bincount.launches += 1
+    return codes, scales, counts
+
+
+reduce_quant_bincount.launches = 0
 
 
 def dequant_restore(codes: torch.Tensor, scales: torch.Tensor,

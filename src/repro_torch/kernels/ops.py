@@ -6,7 +6,8 @@ tensor launches the hand-written Hopper kernel (``kernels/butterfly_kernel``)
 or raises.  There is no fallback from one to the other.
 
 The JAX wrappers route rows <= 8 to a jnp fast path and pad the row count
-to the Pallas block; both exist only because of Pallas dispatch and TPU
+to the Pallas block (the bincount wrapper then takes the pad rows' counts
+back out); all of it exists only because of Pallas dispatch and TPU
 tiling.  On the card every row count goes through the kernel, which masks
 the ragged edge itself, so neither is kept here.  For the same reason the
 flash kernel takes any S and T, where the Pallas kernel asserts that its
@@ -44,6 +45,29 @@ def butterfly_reduce_quant(x: torch.Tensor, w_reduce: torch.Tensor, *,
         codes, scales = butterfly_kernel.reduce_quant(
             xf.contiguous(), w_reduce.contiguous(), bits)
     return codes.reshape(*shape[:-1], d_r), scales.reshape(*shape[:-1], 1)
+
+
+def butterfly_reduce_quant_bincount(x: torch.Tensor, w_reduce: torch.Tensor,
+                                    *, bits: int = 8):
+    """Fused reduce+quant+histogram: x (..., d) -> (codes (..., d_r) int8,
+    scales (..., 1) f32, counts (d_r, 2**bits) int32).  ``counts`` is the
+    per-channel histogram of the codes' symbols (``code + 2**(bits-1)``),
+    what ``core/wire_codec.WirePrior.from_counts`` and
+    ``estimate_coded_bytes`` read; codes and scales are those of
+    :func:`butterfly_reduce_quant`."""
+    if bits > 8:
+        raise ValueError(f"the fused codec emits int8 codes: bits={bits} > 8")
+    shape = x.shape
+    d_r = w_reduce.shape[1]
+    xf = x.reshape(-1, shape[-1])
+    if _on_cpu(x):
+        codes, scales, counts = ref.butterfly_reduce_quant_bincount_ref(
+            xf, w_reduce, bits)
+    else:
+        codes, scales, counts = butterfly_kernel.reduce_quant_bincount(
+            xf.contiguous(), w_reduce.contiguous(), bits)
+    return (codes.reshape(*shape[:-1], d_r), scales.reshape(*shape[:-1], 1),
+            counts)
 
 
 def butterfly_dequant_restore(codes: torch.Tensor, scales: torch.Tensor,

@@ -23,6 +23,25 @@ def butterfly_reduce_quant_ref(x: torch.Tensor, w_reduce: torch.Tensor,
     return codes, scale
 
 
+def symbol_counts(codes: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """(T, d_r) int8 codes -> (d_r, 2**bits) int32 per-channel histogram of
+    the symbols ``code + 2**(bits-1)``."""
+    nsym = 1 << bits
+    d_r = codes.shape[1]
+    sym = codes.long() + nsym // 2
+    flat = (torch.arange(d_r, device=codes.device) * nsym + sym).reshape(-1)
+    counts = torch.bincount(flat, minlength=d_r * nsym)
+    return counts.reshape(d_r, nsym).to(torch.int32)
+
+
+def butterfly_reduce_quant_bincount_ref(x: torch.Tensor,
+                                        w_reduce: torch.Tensor, bits: int = 8):
+    """:func:`butterfly_reduce_quant_ref` plus :func:`symbol_counts` of its
+    codes."""
+    codes, scale = butterfly_reduce_quant_ref(x, w_reduce, bits)
+    return codes, scale, symbol_counts(codes, bits)
+
+
 def butterfly_dequant_restore_ref(codes: torch.Tensor, scales: torch.Tensor,
                                   w_restore: torch.Tensor,
                                   out_dtype=torch.float32) -> torch.Tensor:

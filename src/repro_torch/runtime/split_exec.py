@@ -1,6 +1,11 @@
-"""Split execution over one shared backbone (port of the numerics half of
-``repro/runtime/split_exec.py``: ``SplitModelBank`` and ``SplitRunner`` at
-model-axis degree 1).
+"""Split execution over one shared backbone, and the runtime's analytic
+timing (port of ``repro/runtime/split_exec.py``: ``CostModel``, and
+``SplitModelBank`` and ``SplitRunner`` at model-axis degree 1; a degree
+above 1 raises ``NotImplementedError``).
+
+Numerics and time are decoupled on purpose: the bank computes the real
+logits, tokens and caches, while the simulator's durations come from
+:class:`CostModel` on the deterministic virtual clock.
 
 :class:`SplitModelBank` holds ONE backbone param tree; every candidate
 split's edge/cloud halves run views of its stacked layer params
@@ -18,6 +23,7 @@ runtime's ``bank_jit_cache_*`` counters read the same from either package.
 from __future__ import annotations
 
 import dataclasses
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -26,6 +32,9 @@ import torch.nn.functional as F
 from repro_torch import device as dev_lib
 from repro_torch.configs.base import ButterflyConfig
 from repro_torch.core import butterfly as bf_lib
+from repro_torch.core import costs
+from repro_torch.core.planner import wire_mode_bytes
+from repro_torch.core.profiler import HardwareProfile
 from repro_torch.core.quantization import pack_int4, unpack_int4
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tfm
@@ -41,6 +50,161 @@ from repro_torch.tree import tree_map
 ROW_BLOCK = 8
 
 
+def act_bytes(cfg) -> int:
+    return 2 if cfg.dtype == "bfloat16" else 4
+
+
+def input_bytes(cfg, seq: int) -> float:
+    """Cloud-only offload ships the frontend's feature output (the paper
+    ships the raw 224x224x3 image) — one d_model-wide row per position."""
+    return float(seq * cfg.d_model * act_bytes(cfg))
+
+
+# ---------------------------------------------------------------------------
+# analytic timing (virtual-clock durations)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CostModel:
+    """``edge_mp``/``cloud_mp`` — model-axis degree each half's stage is
+    sharded over (DESIGN.md section 11): per-stage estimates divide by the
+    degree via :func:`costs.model_parallel_share` (heterogeneous fleets run
+    edge_mp=1 against a wide cloud)."""
+    cfg: object
+    edge: HardwareProfile
+    cloud: HardwareProfile
+    edge_mp: int = 1
+    cloud_mp: int = 1
+
+    def _where(self, where: str):
+        if where == "edge":
+            return self.edge, self.edge_mp
+        return self.cloud, self.cloud_mp
+
+    def _roofline(self, hw: HardwareProfile, flops: float,
+                  load: float = 0.0, mp: int = 1) -> float:
+        nbytes = flops / max(self.cfg.d_model, 1)      # planner's bytes proxy
+        flops, nbytes = costs.model_parallel_share((flops, nbytes), mp)
+        return hw.latency_s(flops, nbytes) / max(1e-9, 1.0 - load)
+
+    def edge_prefill_s(self, split: int, seq: int, d_r: int) -> float:
+        f = costs.stack_flops(self.cfg, seq, 0, split)
+        f += 2 * seq * self.cfg.d_model * d_r          # reduction unit
+        return self._roofline(self.edge, f, mp=self.edge_mp)
+
+    def cloud_prefill_s(self, split: int, seq: int, d_r: int,
+                        load: float = 0.0) -> float:
+        f = costs.stack_flops(self.cfg, seq, split, self.cfg.num_layers)
+        f += 2 * seq * d_r * self.cfg.d_model          # restoration unit
+        f += costs.embed_flops(self.cfg, seq)
+        return self._roofline(self.cloud, f, load, mp=self.cloud_mp)
+
+    def full_prefill_s(self, seq: int, *, where: str,
+                       load: float = 0.0) -> float:
+        f = costs.stack_flops(self.cfg, seq, 0, self.cfg.num_layers)
+        f += costs.embed_flops(self.cfg, seq)
+        hw, mp = self._where(where)
+        return self._roofline(hw, f, load, mp=mp)
+
+    def decode_step_s(self, batch: int, *, where: str,
+                      load: float = 0.0) -> float:
+        # decode is weight-bound: every step streams the full parameter set
+        hw, mp = self._where(where)
+        f, nbytes = costs.model_parallel_share(
+            costs.full_decode_step_cost(self.cfg, batch), mp)
+        return hw.latency_s(f, nbytes) / max(1e-9, 1.0 - load)
+
+    def edge_energy_mj(self, seconds: float) -> float:
+        return seconds * self.edge.compute_power_w * 1e3
+
+    def edge_decode_step_s(self, split: int, d_r: int) -> float:
+        """One streamed-decode edge step: embed + layers [0, split) +
+        reduce/quantize for a single token."""
+        f, b = costs.model_parallel_share(
+            costs.edge_decode_step_cost(self.cfg, split, d_r), self.edge_mp)
+        return self.edge.latency_s(f, b)
+
+    def cloud_decode_step_s(self, split: int, d_r: int, batch: int = 1,
+                            load: float = 0.0) -> float:
+        """One streamed-decode cloud turn: restore + layers [split, N) +
+        unembed for ``batch`` arrived rows."""
+        f, b = costs.model_parallel_share(
+            costs.cloud_decode_step_cost(self.cfg, split, d_r, batch),
+            self.cloud_mp)
+        return self.cloud.latency_s(f, b) / max(1e-9, 1.0 - load)
+
+    def stream_row_bytes(self, wire_mode: str, d_r: int) -> float:
+        """Per-token uplink bytes of the streamed transport: one boundary
+        row in the wire format (int8 codes + f32 scale for the paper's
+        mode; "int4" nibble-packs two codes per byte, halving the code
+        bytes)."""
+        return wire_mode_bytes(self.cfg, 1, d_r, wire_mode)
+
+    def serial_decode_tick_s(self, split: int, d_r: int, *,
+                             wire_mode: str = "int8",
+                             link_bps: Optional[float] = None,
+                             batch: int = 1, load: float = 0.0) -> float:
+        """Per-token latency of serial ping-pong decode: the edge step, the
+        wire row and the cloud step run strictly in sequence, so one pod
+        always idles."""
+        t = self.edge_decode_step_s(split, d_r) + \
+            self.cloud_decode_step_s(split, d_r, batch, load)
+        if link_bps:
+            t += self.stream_row_bytes(wire_mode, d_r) * 8.0 / link_bps
+        return t
+
+    def pipelined_decode_tick_s(self, split: int, d_r: int, *,
+                                wire_mode: str = "int8",
+                                link_bps: Optional[float] = None,
+                                batch: int = 1, load: float = 0.0) -> float:
+        """Steady-state per-token cadence of pipelined decode (>= 2
+        in-flight microbatches rotating through the 2-pod mesh): the edge
+        step for microbatch k+1, the wire row and the cloud step for
+        microbatch k all overlap, so the tick is the slowest part instead
+        of the sum."""
+        parts = [self.edge_decode_step_s(split, d_r),
+                 self.cloud_decode_step_s(split, d_r, batch, load)]
+        if link_bps:
+            parts.append(self.stream_row_bytes(wire_mode, d_r) * 8.0
+                         / link_bps)
+        return max(parts)
+
+    def payload_bytes(self, mode: str, wire_mode: str, seq: int,
+                      d_r: int, split: int, new_tokens: int = 1,
+                      transport: str = "cache_handoff") -> float:
+        """Prefill uplink bytes per request.  Split requests generating more
+        than one token additionally ship the edge stage-0 KV cache under the
+        ``cache_handoff`` decode transport (counted honestly); the
+        ``streamed`` transport keeps that cache on the edge and pays one
+        ``stream_row_bytes`` row per later token instead."""
+        if mode == "cloud":
+            return input_bytes(self.cfg, seq)
+        if mode == "edge":
+            return 0.0
+        b = wire_mode_bytes(self.cfg, seq, d_r, wire_mode)
+        if new_tokens > 1 and transport == "cache_handoff":
+            b += self.stage0_cache_bytes(seq, split)
+        return b
+
+    def stage0_cache_bytes(self, seq: int, split: int) -> float:
+        """KV bytes of the edge stage's ``split`` layers (the cache-handoff
+        uplink term) — the arch formula lives in :func:`costs.kv_cache_bytes`."""
+        return costs.kv_cache_bytes(self.cfg, seq, split)
+
+
+# ---------------------------------------------------------------------------
+# real numerics: one shared backbone, per-split views
+# ---------------------------------------------------------------------------
+
+
+def _check_degree(**degrees) -> None:
+    for name, mp in degrees.items():
+        if int(mp) != 1:
+            raise NotImplementedError(
+                f"{name}={mp}: the model axis is not ported; degree 1 only")
+
+
 def _next_bucket(n: int, lo: int = 8) -> int:
     b = lo
     while b < n:
@@ -54,11 +218,15 @@ class SplitModelBank:
     ``params``/``butterfly`` take ready trees (``butterfly`` maps split ->
     {"w_reduce", "w_restore"}), which is how ``repro_torch.bridge`` feeds
     JAX weights in; otherwise the bank initialises on ``device`` from
-    ``seed``."""
+    ``seed``.  ``edge_mp``/``cloud_mp`` must be 1.  ``profiler`` (a
+    ``runtime.metrics.JitProfiler``) times every keyed dispatch of the bank
+    and of its engines."""
 
     def __init__(self, base_cfg, d_r: int, *, wire_mode: str = "int8",
                  seed: int = 0, device="cuda", params: Optional[dict] = None,
-                 butterfly: Optional[Dict[int, dict]] = None):
+                 butterfly: Optional[Dict[int, dict]] = None,
+                 edge_mp: int = 1, cloud_mp: int = 1, profiler=None):
+        _check_degree(edge_mp=edge_mp, cloud_mp=cloud_mp)
         self.device = dev_lib.resolve(device)
         # Matmuls run at full precision: no TF32 for f32 products, and bf16
         # products reduce in f32, as XLA does in the reference.
@@ -103,6 +271,7 @@ class SplitModelBank:
         self._fns: Dict[Tuple, object] = {}
         self._cache_templates: Dict[Tuple[int, int, int, int], object] = {}
         self.jit_cache_keys: set = set()
+        self.profiler = profiler
         self.cache_hits = 0
         self.cache_misses = 0
 
@@ -111,15 +280,29 @@ class SplitModelBank:
     def candidates(self) -> Tuple[int, ...]:
         return tuple(range(1, self.base_cfg.num_layers))
 
+    @property
+    def jit_cache_entries(self) -> int:
+        return len(self.jit_cache_keys)
+
+    @property
+    def batch_numerics_ok(self) -> bool:
+        """Whether independent requests may be stacked into one batch
+        without changing any request's numerics (False for MoE, whose
+        expert-capacity pool couples the batch)."""
+        return self._batch_bucket_ok
+
     def cache_key(self, kind: str, split: int, mp: int, B: int, S: int) -> Tuple:
         """The JAX bank's compile-cache key: padded shape bucket plus the
         wire signature (mode, effective bits, decode-row block)."""
         return (kind, split, mp, B, S) + self._wire_sig
 
-    def keyed_call(self, key: Tuple, fn, *args):
-        """Count ``key`` as the JAX bank's jit cache would, then call."""
+    def timed_call(self, key: Tuple, fn, *args):
+        """Count ``key`` as the JAX bank's jit cache would, then call —
+        through the profiler when one is attached."""
         self.note_key(key)
-        return fn(*args)
+        if self.profiler is None:
+            return fn(*args)
+        return self.profiler.timed(key, fn, *args)
 
     def note_key(self, key: Tuple) -> None:
         if key in self.jit_cache_keys:
@@ -128,7 +311,12 @@ class SplitModelBank:
             self.cache_misses += 1
             self.jit_cache_keys.add(key)
 
-    def runner(self, split: int) -> "SplitRunner":
+    def runner(self, split: int, *, edge_mp: Optional[int] = None,
+               cloud_mp: Optional[int] = None) -> "SplitRunner":
+        """Facade for one candidate split; ``edge_mp``/``cloud_mp`` must be
+        1 (or None) in the port."""
+        _check_degree(edge_mp=1 if edge_mp is None else edge_mp,
+                      cloud_mp=1 if cloud_mp is None else cloud_mp)
         if split not in self._runners:
             if not 0 < split < self.base_cfg.num_layers:
                 raise ValueError(f"split {split} outside (0, "
@@ -315,6 +503,9 @@ class SplitRunner:
     """Facade for one candidate split.  ``runner.params`` shares every
     backbone leaf with ``bank.params``; only the butterfly is per split."""
 
+    edge_mp = 1
+    cloud_mp = 1
+
     def __init__(self, bank: SplitModelBank, split: int):
         self.bank = bank
         self.split = split
@@ -337,7 +528,7 @@ class SplitRunner:
         toks = self._tensor(toks)
         B, S = toks.shape
         Bb, Sb = bank._buckets(B, S)
-        payload, scales, cache0 = bank.keyed_call(
+        payload, scales, cache0 = bank.timed_call(
             bank.cache_key("edge", self.split, 1, Bb, Sb),
             bank._fn("edge", self.split), params, bank._pad_toks(toks, Bb, Sb))
         return (payload[:B, :S], scales[:B, :S],
@@ -353,7 +544,7 @@ class SplitRunner:
         if (Bb, Sb) != (B, S):
             pad = (0, 0, 0, Sb - S, 0, Bb - B)
             payload, scales = F.pad(payload, pad), F.pad(scales, pad)
-        logits, cache1 = bank.keyed_call(
+        logits, cache1 = bank.timed_call(
             bank.cache_key("cloud", self.split, 1, Bb, Sb),
             bank._fn("cloud", self.split), params, payload, scales, S)
         return logits[:B], bank._slice_cache(cache1, 1, self.split, B, S)
@@ -366,7 +557,7 @@ class SplitRunner:
         ``(payload, scales, cache0)``."""
         bank = self.bank
         tok = self._tensor(tok, torch.int64)
-        return bank.keyed_call(
+        return bank.timed_call(
             bank.cache_key("edge_step", self.split, 1, tok.shape[0], 1),
             bank._fn("edge_step", self.split), params, tok, cache0,
             self._tensor(pos, torch.int64))
@@ -437,22 +628,28 @@ class SplitRunner:
         toks = self._tensor(toks)
         B, S = toks.shape
         Bb, Sb = bank._buckets(B, S)
-        logits, caches = bank.keyed_call(
+        logits, caches = bank.timed_call(
             bank.cache_key("prefill", self.split, 1, Bb, Sb),
             bank._fn("prefill", self.split), params,
             bank._pad_toks(toks, Bb, Sb), S)
         return logits[:B], [bank._slice_cache(caches[0], 0, self.split, B, S),
                             bank._slice_cache(caches[1], 1, self.split, B, S)]
 
-    def make_engine(self, *, max_batch: int, max_len: int,
-                    seed: int = 0) -> ServingEngine:
+    def make_engine(self, *, max_batch: int, max_len: int, seed: int = 0,
+                    mp: Optional[int] = None) -> ServingEngine:
+        """``mp`` — model-axis degree of the engine's steps; 1 (or None)
+        in the port."""
+        mp = 1 if mp is None else int(mp)
+        _check_degree(mp=mp)
         return ServingEngine(self.params, self.built, max_batch=max_batch,
                              max_len=max_len, seed=seed,
                              stages=self.bank.engine_stages(self.split),
                              prefill_fn=self._engine_prefill,
                              decode_fn=self.bank._fn("decode", self.split),
                              stream_fn=self.bank._fn("cloud_step", self.split),
-                             device=self.bank.device)
+                             device=self.bank.device,
+                             profiler=self.bank.profiler,
+                             profile_key=(self.split, mp))
 
     # --------------------------------------------------------------- reference
     def reference_prefill(self, toks):

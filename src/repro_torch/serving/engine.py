@@ -73,7 +73,8 @@ class ServingEngine:
                  max_len: int = 512, seed: int = 0, stages=None,
                  prefill_fn: Optional[Callable] = None,
                  decode_fn: Optional[Callable] = None,
-                 stream_fn: Optional[Callable] = None, device="cuda"):
+                 stream_fn: Optional[Callable] = None, device="cuda",
+                 profiler=None, profile_key: tuple = ()):
         self.device = dev_lib.resolve(device)
         self.params = params
         self.built = built
@@ -96,6 +97,11 @@ class ServingEngine:
         self._temps = np.zeros((max_batch,), np.float32)
         self._uid = 0
         self.decode_steps = 0
+        # opt-in wall-clock attribution of the sampled steps
+        # (runtime.metrics.JitProfiler); profile_key tells apart engines that
+        # share the bank's step functions (the bank's (split, mp))
+        self._profiler = profiler
+        self._profile_key = tuple(profile_key)
 
     # ------------------------------------------------------------------ api
     def submit(self, prompt, max_new_tokens: int = 32, temperature: float = 0.0,
@@ -154,14 +160,21 @@ class ServingEngine:
         ``(token, cache)``."""
         if self._stream is None:
             raise RuntimeError("engine built without stream_fn")
-        logits, cache = self._stream(
-            self.params, dev_lib.as_tensor(payload, self.device),
+
+        def sampled_step(payload, scales, cache, pos):
+            logits, cache = self._stream(self.params, payload, scales, cache,
+                                         pos)
+            row = logits[:, 0].float()
+            temps = torch.tensor([req.temperature], dtype=torch.float32,
+                                 device=self.device)
+            gen = self.gen if req.temperature > 0 else None
+            return _sample_rows(row, temps, gen), row, cache
+
+        toks, row, cache = self._dispatch(
+            "engine_stream_step", sampled_step,
+            dev_lib.as_tensor(payload, self.device),
             dev_lib.as_tensor(scales, self.device), cache,
             torch.tensor([pos], dtype=torch.int64, device=self.device))
-        row = logits[:, 0].float()
-        temps = torch.tensor([req.temperature], dtype=torch.float32,
-                             device=self.device)
-        toks = _sample_rows(row, temps, self.gen if req.temperature > 0 else None)
         tok = int(toks.cpu()[0])                            # the one host sync
         if req.record_logits:
             req.logits_history.append(row[0].cpu().numpy())
@@ -232,6 +245,19 @@ class ServingEngine:
             req.done = True
             self.active[slot] = None
 
+    def _dispatch(self, kind: str, fn, *args):
+        """Run a sampled step, through the wall-clock profiler if one is
+        attached."""
+        if self._profiler is None:
+            return fn(*args)
+        return self._profiler.timed((kind,) + self._profile_key, fn, *args)
+
+    def _sampled_decode(self, tokens, caches, pos, temps):
+        logits, caches = self._decode(self.params, tokens, caches, pos)
+        row = logits[:, 0].float()                          # (B, V)
+        gen = self.gen if bool((self._temps > 0).any()) else None
+        return _sample_rows(row, temps, gen), row, caches
+
     def _sample(self, logits, req: Request) -> int:
         row = logits.reshape(1, -1).float()
         temps = torch.tensor([req.temperature], dtype=torch.float32,
@@ -244,13 +270,11 @@ class ServingEngine:
         sampling on the device and a single host sync for the tokens."""
         if not any(r is not None for r in self.active):
             return
-        pos = torch.tensor(self.positions, device=self.device)
-        tokens = torch.tensor(self._last, device=self.device)
-        logits, self.cache = self._decode(self.params, tokens, self.cache, pos)
-        row = logits[:, 0].float()                          # (B, V)
-        temps = torch.tensor(self._temps, device=self.device)
-        toks = _sample_rows(row, temps,
-                            self.gen if (self._temps > 0).any() else None)
+        toks, row, self.cache = self._dispatch(
+            "engine_step", self._sampled_decode,
+            torch.tensor(self._last, device=self.device), self.cache,
+            torch.tensor(self.positions, device=self.device),
+            torch.tensor(self._temps, device=self.device))
         toks_host = toks.cpu().numpy()                      # the one host sync
         logits_host = None
         self.decode_steps += 1

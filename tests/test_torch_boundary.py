@@ -3,7 +3,8 @@
 Every module of ``src/repro_torch`` and ``chip_smoke.py`` imports neither
 ``jax`` nor anything of ``repro``; the port imports and runs with JAX
 unimportable; an entry point asked for the default device raises when
-CUDA is absent; ``chip_smoke.py`` fails, printing no result, without a GPU
+CUDA is absent (the simulator's numerics too, while its timing-only runs
+need no device); ``chip_smoke.py`` fails, printing no result, without a GPU
 or away from the repository."""
 import ast
 import os
@@ -77,6 +78,40 @@ print("ok")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_simulation_needs_a_gpu_for_numerics_only():
+    """The runtime simulator's numerics default to the card and raise
+    without one; a timing-only run touches no device; the launcher refuses
+    the model axis."""
+    code = BLOCKED + """
+import dataclasses
+from repro_torch.configs import get_config
+from repro_torch.runtime.simulator import SimConfig, Simulation
+cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), num_layers=2)
+try:
+    Simulation(SimConfig(cfg=cfg, num_requests=2))
+except RuntimeError as e:
+    assert "CUDA" in str(e), e
+else:
+    raise SystemExit("Simulation(numerics=True) without a GPU did not raise")
+sim = Simulation(SimConfig(cfg=cfg, num_requests=2, numerics=False))
+assert sim.bank is None
+assert len(sim.run().traces) == 2
+print("ok")
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+    for extra, err in (([], "CUDA"), (["--no-numerics", "--edge-mp", "2"],
+                                      "NotImplementedError")):
+        argv = ["runtime_sim", "--requests", "2"] + extra
+        proc = _run(BLOCKED + f"""
+import runpy
+sys.argv = {argv!r}
+runpy.run_module("repro_torch.launch.runtime_sim", run_name="__main__")
+""")
+        assert proc.returncode != 0 and err in proc.stderr, proc.stderr
 
 
 @pytest.mark.parametrize("isolated", [False, True],

@@ -1,7 +1,8 @@
 """The port on the card: each kernel against its plain PyTorch version on
 the same inputs, the split path launching both butterfly kernels, the
-windowed model's kernel prefill launching the flash kernel, and the
-two-pod decode pipeline on two streams of one card.
+windowed model's kernel prefill launching the flash kernel, the two-pod
+decode pipeline on two streams of one card, and the runtime simulator's
+numerics on the card.
 
 These tests import no JAX, so a GPU machine with PyTorch alone runs them,
 without the JAX package's conftest:
@@ -21,7 +22,9 @@ RMSNorm kernel's on that x, bit for bit (one shared row routine); x against
 the plain restore as above (in f32 both within the summation bound of an
 f64 product), h and the RMSNorm kernel against the plain norm
 of the same x within rtol 1e-5 (atol 1e-6) in f32 (the mean of squares sums
-in another order) and one bf16 ulp in bf16.
+in another order) and one bf16 ulp in bf16.  The bincount kernel's codes
+and scales equal reduce_quant's bit for bit and its counts the histogram of
+those codes exactly.
 """
 import dataclasses
 import math
@@ -102,6 +105,41 @@ def test_kernels_match_plain(cuda, T, d, d_r, dtype):
     torch.testing.assert_close(out, out_p, **tol)
 
 
+# the bincount variant of every compiled reduce_quant variant (each channel
+# width in f32 and bf16, 1-row and 16-row blocks), at both widths of the
+# code alphabet: codes and scales bit for bit reduce_quant's, counts exactly
+# the plain histogram of those codes, and within 2 per differing code of the
+# whole plain version's (its codes may differ by 1 on 0.1% of entries)
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("T", [1, 4, 37, 512, 1025])
+@pytest.mark.parametrize("d,d_r,dtype", [(256, 16, torch.float32),
+                                         (256, 16, torch.bfloat16),
+                                         (4096, 64, torch.bfloat16),
+                                         (3840, 60, torch.float32),
+                                         (512, 128, torch.float32),
+                                         (512, 128, torch.bfloat16),
+                                         (384, 256, torch.float32),
+                                         (384, 256, torch.bfloat16),
+                                         (384, 512, torch.float32),
+                                         (384, 512, torch.bfloat16),
+                                         (256, 1024, torch.float32),
+                                         (256, 1024, torch.bfloat16)])
+def test_bincount_kernel_matches_reduce_quant_and_plain(cuda, d, d_r, dtype, T,
+                                                        bits):
+    x, w = (t.to(cuda) for t in _inputs(T, d, d_r, dtype, seed=T + bits))
+    n0 = butterfly_kernel.reduce_quant_bincount.launches
+    codes, scales, counts = ops.butterfly_reduce_quant_bincount(x, w, bits=bits)
+    assert butterfly_kernel.reduce_quant_bincount.launches == n0 + 1
+    codes_q, scales_q = ops.butterfly_reduce_quant(x, w, bits=bits)
+    assert torch.equal(codes, codes_q) and torch.equal(scales, scales_q)
+    assert counts.dtype == torch.int32 and counts.shape == (d_r, 1 << bits)
+    assert torch.equal(counts, ref.symbol_counts(codes, bits))
+    assert int(counts.sum()) == T * d_r
+    codes_p, _, counts_p = ref.butterfly_reduce_quant_bincount_ref(x, w, bits)
+    n_diff = int((codes != codes_p).sum())
+    assert int((counts - counts_p).abs().sum()) <= 2 * n_diff
+
+
 def test_kernel_wrappers_refuse_bad_input(cuda):
     x, w = (t.to(cuda) for t in _inputs(8, 64, 16, torch.float32, seed=0))
     with pytest.raises(TypeError):
@@ -116,6 +154,10 @@ def test_kernel_wrappers_refuse_bad_input(cuda):
                                          torch.bfloat16)
     with pytest.raises(ValueError):                              # wider than int8
         ops.butterfly_reduce_quant(x, w, bits=16)
+    with pytest.raises(ValueError):
+        ops.butterfly_reduce_quant_bincount(x, w, bits=16)
+    with pytest.raises(TypeError):
+        butterfly_kernel.reduce_quant_bincount(x, w.to(torch.bfloat16))
 
 
 def _restore_inputs(T, d, d_r, dtype, seed):
@@ -369,3 +411,29 @@ def test_two_stream_pipeline_matches_serial(cuda):
             assert tuple(b - a for a, b in zip(n0, counts())) == (n, n, 0, 0)
         assert ids[0].shape == (Mmb * mb, T) and ids[0].device.type == "cuda"
         assert torch.equal(ids[0], ids[1]), (bank.wire_mode, use_kernel)
+
+
+def test_simulation_entropy_wire_serves_the_int8_ids(cuda):
+    """The runtime simulator with numerics on the card (reduced qwen3, 4
+    layers): the entropy wire is numerically the int8 wire, so each request
+    gets the same greedy ids on every transport, through both butterfly
+    kernels; the entropy run's uplink bytes are the coded ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.simulator import SimConfig, Simulation
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), num_layers=4)
+    ids = {}
+    for transport in ("cache_handoff", "streamed", "progressive"):
+        for wire in ("int8", "entropy"):
+            n0 = (butterfly_kernel.reduce_quant.launches,
+                  butterfly_kernel.dequant_restore.launches)
+            sim = Simulation(SimConfig(cfg=cfg, wire_mode=wire,
+                                       transport=transport, num_requests=4,
+                                       seed=0, device="cuda"))
+            tel = sim.run()
+            assert butterfly_kernel.reduce_quant.launches > n0[0]
+            assert butterfly_kernel.dequant_restore.launches > n0[1]
+            ids[wire] = [list(r.engine_req.generated) for r in sim.requests]
+            assert all(len(g) == 4 for g in ids[wire])
+            coded = [t.coded_bytes for t in tel.traces]
+            assert all(c > 0 for c in coded) == (wire == "entropy")
+        assert ids["entropy"] == ids["int8"], transport
