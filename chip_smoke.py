@@ -16,14 +16,17 @@ result line):
   3. kernels - holds each kernel against its plain PyTorch version on the
                card: the butterfly kernels at both models' widths (d=4096,
                d_r=64 and d=3840, d_r=60, bf16) and a small f32 shape; flash
-               attention at every head dim (32-256) in f32 and bf16, causal,
-               windowed and not, with S < T, S > T and ragged S and T, and at
-               the main paths' shapes;
+               attention at every head dim (32-256) in f32 (the CUDA-core
+               kernel) and bf16 (the tensor-core kernel, whose bf16 weights
+               give it its own bound: see _flash_excess), causal, windowed and
+               not, with S < T, S > T and ragged S and T, and at the main
+               paths' shapes;
   4. times   - median CUDA-event time of each kernel, of its plain version
                and, for flash attention, of one scaled_dot_product_attention
                call (a yardstick the port never calls), inputs cold in L2,
                beside the least time the card could take (bytes or
-               operations over its data-sheet rates);
+               operations over its data-sheet rates); for flash also its
+               TFLOP/s and the host time of encoding its TMA tensor maps;
   5. serving - full-width qwen3-8b (36 layers, d_model 4096, bf16, random
                weights from seed 0) split after layer 4 with a d_r=64 int8
                butterfly: four requests prefill through edge_half -> host
@@ -222,13 +225,28 @@ def _qkv(B, S, T, N, K, hd, dtype, seed):
             for shape in ((B, S, N, hd), (B, T, K, hd), (B, T, K, hd))]
 
 
+def _flash_excess(out, q, k, v, causal, window) -> float:
+    """The largest |error| over its tolerance (pass: <= 1).  f32: against
+    the plain version within rtol/atol 2e-5 (f32 sums in another order).
+    bf16: against the plain version's f32 result o within 2**-7 |o| + 2**-7
+    sum_t w_t |v_t - o|, w the plain softmax weights of the row: the
+    tensor-core kernel rounds each weight to bf16 and normalises by the sum
+    of the rounded weights (ref.flash_attention_bf16_bound derives it)."""
+    import torch
+    from repro_torch.kernels import ref
+    if out.dtype == torch.float32:
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return float(((out - want).abs() / (2e-5 + 2e-5 * want.abs())).max())
+    o, bound = ref.flash_attention_bf16_bound(q, k, v, causal=causal, window=window)
+    return float(((out.float() - o).abs() / bound).max())
+
+
 def phase_flash_checks():
     """Flash kernel vs its plain version: every head dim in f32 and bf16,
     causal, windowed, not causal and not causal with a window, on S < T,
     S > T (rows that see no key) and ragged S and T; then the paths' shapes
-    in bf16.  f32 within rtol/atol 2e-5 (f32 sums in another order), bf16
-    within one bf16 ulp (rtol 2**-7, atol 1e-3): both compute in f32 and
-    round once.  Returns the largest |error| at the paths' shapes."""
+    in bf16 (see _flash_excess for the tolerances).  Returns the largest
+    |error| at the paths' shapes."""
     import torch
     from repro_torch.kernels import flash_attention as fa, ops, ref
     shapes = [(2, 128, 128, 4, 2), (1, 37, 53, 4, 2), (1, 130, 65, 2, 2),
@@ -237,30 +255,36 @@ def phase_flash_checks():
     n = 0
     for hd in fa.HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
-            tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else \
-                dict(rtol=2 ** -7, atol=1e-3)
-            worst = 0.0
+            worst, worst_x = 0.0, 0.0
             for B, S, T, N, K in shapes:
                 q, k, v = _qkv(B, S, T, N, K, hd, dtype, seed=S * T + hd)
                 for causal, window in masks:
                     out = ops.flash_attention(q, k, v, causal=causal, window=window)
                     want = ref.flash_attention_ref(q, k, v, causal=causal,
                                                    window=window)
-                    torch.testing.assert_close(out, want, **tol)
+                    excess = _flash_excess(out, q, k, v, causal, window)
+                    if excess > 1:
+                        fail(f"flash hd={hd} {dtype} B,S,T,N,K={B, S, T, N, K} "
+                             f"causal={causal} window={window}: out of tolerance")
                     worst = max(worst, float((out.float() - want.float()).abs().max()))
+                    worst_x = max(worst_x, excess)
                     n += 1
             print(f"flash: hd={hd:3d} {str(dtype)[6:]:8s} {len(shapes)} shapes x "
-                  f"{len(masks)} masks, max |err| {worst:.3g}")
+                  f"{len(masks)} masks, max |err| {worst:.3g}, max |err| / "
+                  f"tolerance {worst_x:.4f}")
     worst = 0.0
     for label, (B, S, N, K, hd, window) in FLASH_PATH.items():
         q, k, v = _qkv(B, S, S, N, K, hd, torch.bfloat16, seed=S + hd)
         out = ops.flash_attention(q, k, v, causal=True, window=window)
         want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
-        torch.testing.assert_close(out, want, rtol=2 ** -7, atol=1e-3)
+        excess = _flash_excess(out, q, k, v, True, window)
+        if excess > 1:
+            fail(f"flash {label} bf16: out of tolerance")
         err = float((out.float() - want.float()).abs().max())
         worst = max(worst, err)
         n += 1
-        print(f"flash: {label:22s} bf16 max |err| {err:.3g}")
+        print(f"flash: {label:22s} bf16 max |err| {err:.3g}, max |err| / "
+              f"bound {excess:.4f}")
     torch.cuda.synchronize()
     print(f"flash: {n} checks against the plain version passed")
     return worst
@@ -317,10 +341,12 @@ def phase_flash_times(rates):
     """Kernel, plain version and one scaled_dot_product_attention call at
     the paths' shapes, bf16, against the bound: the larger of FLOPs (4 * hd
     per visible pair and query head) over the bf16 tensor-core rate and the
-    bytes of q, k, v and the output over the memory rate."""
+    bytes of q, k, v and the output over the memory rate.  Also the kernel's
+    TFLOP/s and the host time a call spends encoding its four TMA tensor
+    maps (mean of 1,000 encodings)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention as fa, ops, ref
     bw, bf16_ops = rates
     out = {}
     for label, (B, S, N, K, hd, window) in FLASH_PATH.items():
@@ -346,12 +372,16 @@ def phase_flash_times(rates):
         nbytes = 2 * (2 * B * S * N * hd + 2 * B * S * K * hd)
         tb, to = nbytes / bw * 1e3, flops / bf16_ops * 1e3
         bound_ms, bound_by = (tb, "bytes") if tb >= to else (to, "operations")
+        encode_us = fa.encode_ns(q, k, v, torch.empty_like(q)) / 1e3
         out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          tflops=flops / ms / 1e9, encode_us=encode_us)
         print(f"times: flash_attention {label:22s} kernel {ms:.4f} ms  plain "
               f"{plain_ms:.4f} ms  sdpa {library_ms:.4f} ms (max |err| vs plain "
               f"{lib_err:.3g})  bound {bound_ms:.4f} ms ({bound_by}; bytes "
-              f"{tb:.4f} ms)  {flops / ms / 1e9:.1f} TFLOP/s")
+              f"{tb:.4f} ms)  {flops / ms / 1e9:.1f} TFLOP/s  (sdpa "
+              f"{flops / library_ms / 1e9:.1f})  tensor maps {encode_us:.2f} us "
+              f"of host time a call")
     return out
 
 

@@ -369,7 +369,9 @@ dequant_restore_kernel(const int8_t* __restrict__ codes,
 }
 
 // x is written and then read back by the same block, so it is a plain
-// pointer (see row_norm.cuh)
+// pointer (see row_norm.cuh).  The norm reads w as it writes h: holding w
+// too, as rmsnorm does, costs this kernel its second block an SM; the sums
+// run in the same order either way.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dequant_restore_norm_kernel(const int8_t* __restrict__ codes,
@@ -396,7 +398,8 @@ dequant_restore_norm_kernel(const int8_t* __restrict__ codes,
   for (int r = threadIdx.x / 32; r < RD; r += kWarps) {
     const int row = row0 + r;
     if (row < n_rows)
-      row_norm::warp_row_norm(x + (size_t)row * d, norm_w, h + (size_t)row * d, d, eps);
+      row_norm::warp_row_norm<T, false>(x + (size_t)row * d, norm_w,
+                                        h + (size_t)row * d, d, eps);
   }
 }
 

@@ -17,12 +17,16 @@
 //   Bound on the card: memory.  It must read x (T*d*bytes) and w once and
 //   write T*d*bytes; it does about four f32 operations an element.
 //
-//   Design: one warp a row, eight rows a 256-thread block, through
+//   Design: one warp a row, four rows a 128-thread block, through
 //   row_norm.cuh's warp_row_norm: the routine the fused dequant+restore+norm
 //   kernel (csrc/butterfly.cu) runs on its rows, so the two agree bit for bit
-//   on the same x.  The second sweep re-reads the row from L1.  Rows past T
-//   are masked; any d goes through.  Loads are scalar (64 bytes a warp at
-//   bf16): a simple kernel first.
+//   on the same x.  A lane issues all of its 16-byte loads of the row before
+//   the first FMA and keeps them in registers (d = 4096 bf16: 16 loads, 64
+//   registers), so the row is read once and a few rows cost one memory
+//   round trip, not a chain of them; four rows a block spread a 4-row call
+//   over as many warps as rows, and a 4,096-row call over 1,024 blocks.
+//   Rows past T are masked; any d goes through (a d that is not a multiple
+//   of 16 bytes takes the routine's scalar branch).
 // ---------------------------------------------------------------------------
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -31,7 +35,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
 template <typename T>

@@ -40,6 +40,7 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+        "flash_attention_encode_ns": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     },
     "rmsnorm": {
         "rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],

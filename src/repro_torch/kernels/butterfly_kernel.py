@@ -17,36 +17,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels._launch import DTYPE_CODE, aligned, check, raise_on, \
+    stream
 
 MAX_D_R = 1024
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _check(t: torch.Tensor, name: str, dtypes, ndim: int = 2):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} dtype {t.dtype} not in {dtypes}")
-    if t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {ndim}-D tensor, got "
-                         f"shape {tuple(t.shape)}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(err: int, kernel: str):
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err} "
-                           f"({torch.cuda.get_device_name()})")
 
 
 def _reduce_args(x: torch.Tensor, w_reduce: torch.Tensor, bits: int):
     """Check the reduce kernels' inputs; returns (library, w_reduce as the
     kernel reads it, codes, scales)."""
-    _check(x, "x", _DTYPE_CODE)
-    _check(w_reduce, "w_reduce", (x.dtype,))
+    check(x, "x", DTYPE_CODE)
+    check(w_reduce, "w_reduce", (x.dtype,))
     if not 1 <= bits <= 8:
         raise ValueError(f"the fused codec emits int8 codes; bits={bits}")
     T, d = x.shape
@@ -78,9 +59,9 @@ def reduce_quant(x: torch.Tensor, w_reduce: torch.Tensor, bits: int = 8):
     T, d = x.shape
     err = lib.butterfly_reduce_quant(
         x.data_ptr(), w.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        T, d, codes.shape[1], 2 ** (bits - 1) - 1, _DTYPE_CODE[x.dtype],
-        _stream(x))
-    _raise_on(err, "butterfly_reduce_quant")
+        T, d, codes.shape[1], 2 ** (bits - 1) - 1, DTYPE_CODE[x.dtype],
+        stream(x))
+    raise_on(err, "butterfly_reduce_quant")
     reduce_quant.launches += 1
     return codes, scales
 
@@ -103,8 +84,8 @@ def reduce_quant_bincount(x: torch.Tensor, w_reduce: torch.Tensor,
     err = lib.butterfly_reduce_quant_bincount(
         x.data_ptr(), w.data_ptr(), codes.data_ptr(), scales.data_ptr(),
         counts.data_ptr(), T, d, codes.shape[1], 2 ** (bits - 1) - 1,
-        _DTYPE_CODE[x.dtype], _stream(x))
-    _raise_on(err, "butterfly_reduce_quant_bincount")
+        DTYPE_CODE[x.dtype], stream(x))
+    raise_on(err, "butterfly_reduce_quant_bincount")
     reduce_quant_bincount.launches += 1
     return codes, scales, counts
 
@@ -116,9 +97,9 @@ def dequant_restore(codes: torch.Tensor, scales: torch.Tensor,
                     w_restore: torch.Tensor, out_dtype=torch.float32):
     """codes (T, d_r) int8, scales (T, 1) f32, w_restore (d_r, d) f32|bf16 ->
     (T, d) in ``out_dtype``, which must be the dtype of ``w_restore``."""
-    _check(codes, "codes", (torch.int8,))
-    _check(scales, "scales", (torch.float32,))
-    _check(w_restore, "w_restore", _DTYPE_CODE)
+    check(codes, "codes", (torch.int8,))
+    check(scales, "scales", (torch.float32,))
+    check(w_restore, "w_restore", DTYPE_CODE)
     if out_dtype != w_restore.dtype:
         raise TypeError(f"out_dtype {out_dtype} must be the dtype of w_restore "
                         f"({w_restore.dtype})")
@@ -134,8 +115,8 @@ def dequant_restore(codes: torch.Tensor, scales: torch.Tensor,
         return out
     err = build.load("butterfly").butterfly_dequant_restore(
         codes.data_ptr(), scales.data_ptr(), w_restore.data_ptr(),
-        out.data_ptr(), T, d_r, d, _DTYPE_CODE[out_dtype], _stream(codes))
-    _raise_on(err, "butterfly_dequant_restore")
+        out.data_ptr(), T, d_r, d, DTYPE_CODE[out_dtype], stream(codes))
+    raise_on(err, "butterfly_dequant_restore")
     dequant_restore.launches += 1
     return out
 
@@ -151,10 +132,10 @@ def dequant_restore_norm(codes: torch.Tensor, scales: torch.Tensor,
     which must be the dtype of ``w_restore``: x as :func:`dequant_restore`
     gives it, bit for bit, and h the RMSNorm of the rounded x, bit for bit
     what ``kernels/rmsnorm.rmsnorm(x, norm_w, eps)`` gives."""
-    _check(codes, "codes", (torch.int8,))
-    _check(scales, "scales", (torch.float32,))
-    _check(w_restore, "w_restore", _DTYPE_CODE)
-    _check(norm_w, "norm_w", (w_restore.dtype,), ndim=1)
+    check(codes, "codes", (torch.int8,))
+    check(scales, "scales", (torch.float32,))
+    check(w_restore, "w_restore", DTYPE_CODE)
+    check(norm_w, "norm_w", (w_restore.dtype,), ndim=1)
     if out_dtype != w_restore.dtype:
         raise TypeError(f"out_dtype {out_dtype} must be the dtype of w_restore "
                         f"({w_restore.dtype})")
@@ -170,11 +151,12 @@ def dequant_restore_norm(codes: torch.Tensor, scales: torch.Tensor,
     h = torch.empty_like(x)
     if T == 0:
         return x, h
+    norm_w = aligned(norm_w)
     err = build.load("butterfly").butterfly_dequant_restore_norm(
         codes.data_ptr(), scales.data_ptr(), w_restore.data_ptr(),
         norm_w.data_ptr(), x.data_ptr(), h.data_ptr(), T, d_r, d, float(eps),
-        _DTYPE_CODE[out_dtype], _stream(codes))
-    _raise_on(err, "butterfly_dequant_restore_norm")
+        DTYPE_CODE[out_dtype], stream(codes))
+    raise_on(err, "butterfly_dequant_restore_norm")
     dequant_restore_norm.launches += 1
     return x, h
 

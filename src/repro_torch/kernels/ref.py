@@ -71,12 +71,10 @@ def butterfly_restore_norm_ref(codes: torch.Tensor, scales: torch.Tensor,
     return x, rms_norm_ref(x, norm_w, eps)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
-    """q: (B,S,N,hd), k/v: (B,T,K,hd) with N % K == 0 -> (B,S,N,hd) in
-    q's dtype, f32 math.  Query i sits at position i + T - S (the ends
-    align); a masked score is -1e30, so a row that sees no key averages v."""
+def _attention_weights(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                       window: Optional[int]) -> torch.Tensor:
+    """The softmax weights of :func:`flash_attention_ref`, (B, K, N/K, S, T)
+    f32."""
     B, S, N, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     qg = q.reshape(B, S, K, N // K, hd).float()
@@ -88,7 +86,52 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
-    scores = scores.masked_fill(~mask, -1e30)
-    probs = torch.softmax(scores, dim=-1)
+    return torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q: (B,S,N,hd), k/v: (B,T,K,hd) with N % K == 0 -> (B,S,N,hd) in
+    q's dtype, f32 math.  Query i sits at position i + T - S (the ends
+    align); a masked score is -1e30, so a row that sees no key averages v."""
+    B, S, N, hd = q.shape
+    probs = _attention_weights(q, k, causal, window)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
     return out.reshape(B, S, N, hd).to(q.dtype)
+
+
+def flash_attention_bf16_bound(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, causal: bool = True,
+                               window: Optional[int] = None):
+    """The f32 result o of :func:`flash_attention_ref` and the bound that
+    the bf16 tensor-core kernel's result is held to, elementwise, both
+    (B,S,N,hd) f32: ``|out - o| <= 2**-7 |o| + 2**-7 sum_t w_t |v_t - o|``,
+    with w the reference's softmax weights of that row.
+
+    Derivation (u = 2**-8, bf16's unit roundoff): the kernel rounds each
+    weight p_t to bf16, p_t (1 + d_t) with |d_t| <= u, and divides by the
+    sum of the rounded weights, so each normalised weight moves by at most
+    w_t 2u / (1 - u).  The moves sum to 0, so the output moves by
+    sum_t (w'_t - w_t)(v_t - o), at most 2u sum_t w_t |v_t - o| = 2**-7
+    sum_t w_t |v_t - o| up to a factor 1 + O(u).  Rounding the output to
+    bf16 adds at most u |o|, half the first term; the other half covers the
+    O(u) factors and the f32 terms (scores summed in another order, exp2
+    for exp, the tensor cores' f32 sums), which are near 2**-20 of the
+    output.  A row that sees one key (weight 1) gets a bound of u |v|."""
+    B, S, N, hd = q.shape
+    K = k.shape[2]
+    probs = _attention_weights(q, k, causal, window)          # (B,K,G,S,T)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]             # (B,K,1,T,hd)
+    o = probs @ vf                                             # (B,K,G,S,hd)
+    spread = torch.empty_like(o)
+    rows = max(1, (1 << 25) // max(1, probs[..., :1, :].numel() * hd))
+    for r in range(0, S, rows):
+        dev = (vf[:, :, :, None] - o[:, :, :, r:r + rows, None]).abs_()
+        spread[:, :, :, r:r + rows] = (probs[:, :, :, r:r + rows, None]
+                                       @ dev).squeeze(-2)
+    bound = 2 ** -7 * (o.abs() + spread)
+
+    def to_bsnh(t):
+        return t.permute(0, 3, 1, 2, 4).reshape(B, S, N, hd)
+    return to_bsnh(o), to_bsnh(bound)

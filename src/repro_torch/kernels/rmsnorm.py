@@ -12,15 +12,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.butterfly_kernel import _DTYPE_CODE, _check, _raise_on, \
-    _stream
+from repro_torch.kernels._launch import DTYPE_CODE, aligned, check, raise_on, \
+    stream
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     """x (T, d) f32|bf16, w (d,) of the same dtype -> (T, d) in x's dtype:
     ``x * rsqrt(mean(x**2) + eps) * (1 + w)`` in f32, rounded once."""
-    _check(x, "x", _DTYPE_CODE)
-    _check(w, "w", (x.dtype,), ndim=1)
+    check(x, "x", DTYPE_CODE)
+    check(w, "w", (x.dtype,), ndim=1)
     T, d = x.shape
     if tuple(w.shape) != (d,) or d == 0:
         raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)} do "
@@ -28,10 +28,11 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     out = torch.empty_like(x)
     if T == 0:
         return out
+    x, w = aligned(x), aligned(w)
     err = build.load("rmsnorm").rmsnorm(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), T, d, float(eps),
-        _DTYPE_CODE[x.dtype], _stream(x))
-    _raise_on(err, "rmsnorm")
+        DTYPE_CODE[x.dtype], stream(x))
+    raise_on(err, "rmsnorm")
     rmsnorm.launches += 1
     return out
 

@@ -15,8 +15,10 @@ sums run in another order than the plain product's; scales within rtol
 1e-5; the restore within one bf16 ulp (rtol 2**-7, atol 1e-3), or rtol
 1e-5 (atol 1e-6) in f32 up to d_r = 64; a wider f32 restore, and its plain
 version, within the f32 summation bound of an f64 product.  Flash attention
-within rtol/atol 2e-5 in f32 (f32 sums in another order) and one bf16 ulp
-(rtol 2**-7, atol 1e-3) in bf16: both compute in f32 and round once.
+within rtol/atol 2e-5 in f32 (f32 sums in another order) and, in bf16, within
+|out - o| <= 2**-7 |o| + 2**-7 sum_t w_t |v_t - o| of the f32 plain result
+o and its softmax weights w, row by row: the tensor-core kernel rounds its
+weights P to bf16 (see _flash_bf16_close).
 The fused restore+norm kernel's x equals the restore kernel's and its h the
 RMSNorm kernel's on that x, bit for bit (one shared row routine); x against
 the plain restore as above (in f32 both within the summation bound of an
@@ -194,7 +196,9 @@ def _norm_tol(dtype):
 
 
 # d_r 16-1024 (shared memory past 48 KB at 1024), d 4096 and 3840 (the two
-# models) and ragged widths, 1 to 1,025 rows (one or many 16-row blocks)
+# models), ragged widths and every width of the rmsnorm test (16-byte rows
+# take the norm routine's vector branch, d 33 and 1001 its scalar one), 1 to
+# 1,025 rows (one or many 16-row blocks)
 @pytest.mark.parametrize("T", [1, 4, 16, 37, 512, 1025])
 @pytest.mark.parametrize("d,d_r,dtype", [(4096, 64, torch.bfloat16),
                                          (3840, 60, torch.bfloat16),
@@ -202,7 +206,11 @@ def _norm_tol(dtype):
                                          (256, 16, torch.float32),
                                          (200, 48, torch.bfloat16),
                                          (384, 1024, torch.float32),
-                                         (256, 1024, torch.bfloat16)])
+                                         (256, 1024, torch.bfloat16),
+                                         # the other widths of the rmsnorm test
+                                         (33, 16, torch.float32),
+                                         (1000, 48, torch.bfloat16),
+                                         (1001, 16, torch.bfloat16)])
 def test_restore_norm_matches_plain_and_its_parts(cuda, T, d, d_r, dtype):
     codes, scales, wr, nw = (t.to(cuda) for t in _restore_inputs(T, d, d_r,
                                                                   dtype, seed=T))
@@ -220,10 +228,10 @@ def test_restore_norm_matches_plain_and_its_parts(cuda, T, d, d_r, dtype):
     torch.testing.assert_close(h, ref.rms_norm_ref(x, nw, 1e-6), **_norm_tol(dtype))
 
 
-@pytest.mark.parametrize("T", [1, 4, 9, 512, 4096])
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 9, 512, 4096])
 @pytest.mark.parametrize("d,dtype", [(4096, torch.bfloat16), (3840, torch.bfloat16),
                                      (4096, torch.float32), (33, torch.float32),
-                                     (1000, torch.bfloat16)])
+                                     (1000, torch.bfloat16), (1001, torch.bfloat16)])
 def test_rmsnorm_matches_plain(cuda, T, d, dtype):
     rng = np.random.default_rng(T + d)
     x = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32)).to(cuda, dtype)
@@ -292,26 +300,80 @@ FLASH_SHAPES = [(2, 128, 128, 4, 2), (1, 37, 53, 4, 2), (1, 1, 77, 8, 2),
                 (1, 130, 65, 2, 2), (2, 200, 200, 8, 1)]
 
 
+def _flash_bf16_close(out, q, k, v, causal, window):
+    """bf16 flash against the f32 plain result o: |out - o| <= 2**-7 |o| +
+    2**-7 sum_t w_t |v_t - o| elementwise, w the plain softmax weights of
+    the row.  The kernel rounds each weight to bf16 (unit roundoff u =
+    2**-8) and divides by the sum of the rounded weights, which moves the
+    output by at most 2u sum_t w_t |v_t - o|; rounding the output adds
+    u |o|.  ``ref.flash_attention_bf16_bound`` states the derivation."""
+    o, bound = ref.flash_attention_bf16_bound(q, k, v, causal=causal, window=window)
+    excess = (out.float() - o).abs() / bound
+    assert bool((excess <= 1).all()), float(excess.max())
+
+
+def _flash_case(cuda, B, S, T, N, K, hd, dtype, causal, window, rng):
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(device=cuda, dtype=dtype)
+               for shape in ((B, S, N, hd), (B, T, K, hd), (B, T, K, hd)))
+    n0 = fa.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.flash_attention.launches == n0 + 1
+    assert out.dtype == dtype and out.shape == (B, S, N, hd)
+    if dtype == torch.float32:
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    else:
+        _flash_bf16_close(out, q, k, v, causal, window)
+
+
 @pytest.mark.parametrize("mask", ["causal", "window", "full", "full+window"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_flash_attention_matches_plain(cuda, hd, dtype, mask):
     causal = mask in ("causal", "window")
     window = 16 if "window" in mask else None
-    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else \
-        dict(rtol=2 ** -7, atol=1e-3)
     rng = np.random.default_rng(hd)
     for B, S, T, N, K in FLASH_SHAPES:
-        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-                   .to(device=cuda, dtype=dtype)
-                   for shape in ((B, S, N, hd), (B, T, K, hd), (B, T, K, hd)))
-        n0 = fa.flash_attention.launches
-        out = ops.flash_attention(q, k, v, causal=causal, window=window)
-        assert fa.flash_attention.launches == n0 + 1
-        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-        assert out.dtype == dtype and out.shape == (B, S, N, hd)
-        torch.testing.assert_close(out, want, **tol)
+        _flash_case(cuda, B, S, T, N, K, hd, dtype, causal, window, rng)
     torch.cuda.synchronize()
+
+
+# the main paths' shapes (chip_smoke.py's FLASH_PATH: gemma3-12b's global
+# and windowed layers on 2,048- and 100-token prompts, qwen3-8b on 128),
+# and B*N = 512 blocks a query tile, several waves over 132 SMs
+@pytest.mark.parametrize("B,S,N,K,hd,window", [(1, 2048, 16, 8, 256, None),
+                                               (1, 2048, 16, 8, 256, 1024),
+                                               (1, 100, 16, 8, 256, None),
+                                               (1, 128, 32, 8, 128, None),
+                                               (16, 130, 32, 8, 128, 64),
+                                               (8, 200, 64, 8, 64, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_path_shapes_and_waves(cuda, B, S, N, K, hd, window, dtype):
+    _flash_case(cuda, B, S, S, N, K, hd, dtype, True, window,
+                np.random.default_rng(S + hd))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_flash_bf16_runs_on_the_tensor_cores(cuda, hd):
+    """A bf16 call launches the tensor-core kernel (wgmma, TMA) and an f32
+    call the CUDA-core one, each once, by the profiler's kernel names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, 64, 4, hd), device=cuda).to(dtype)
+        k = torch.randn((1, 64, 2, hd), device=cuda).to(dtype)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.flash_attention(q, k, k)
+            torch.cuda.synchronize()
+        names[dtype] = [e.name for e in prof.events()
+                        if e.device_type == DeviceType.CUDA and "flash_attention" in e.name]
+    assert len(names[torch.bfloat16]) == 1 and \
+        "flash_attention_tc_kernel" in names[torch.bfloat16][0]
+    assert len(names[torch.float32]) == 1 and \
+        "flash_attention_tc_kernel" not in names[torch.float32][0]
 
 
 def test_flash_wrapper_refuses_bad_input(cuda):

@@ -10,7 +10,18 @@ in f32 and 2e-2 in bf16.  The Pallas kernel needs its blocks to divide S
 and T, so ragged shapes are held against the JAX reference instead.  The
 model's ``use_kernel=True`` forward matches JAX's.  Kernel-vs-plain cases
 on the card are in ``test_torch_cuda.py``.
+
+The bf16 kernel on the card runs on the tensor cores and rounds its
+softmax weights to bf16; ``_emulate_tensor_core_kernel`` repeats its
+numerics here, so the bf16 tolerance the card tests use
+(``kernels/ref.flash_attention_bf16_bound``: ``|Δ| <= 2**-7 |o| + 2**-7
+sum_t w_t |v_t - o|`` per row, against the f32 reference o and its softmax
+weights w) is held on the CPU, with a margin of two, at gemma3-12b's head
+dim and prompt length, against both the port's and the JAX reference; and
+the same bound rejects the emulation with a planted defect.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +33,7 @@ from repro.kernels import ops as jops, ref as jref
 from repro.models import model as JM
 from repro_torch import bridge
 from repro_torch.configs import get_config as tget_config
-from repro_torch.kernels import flash_attention as fa, ops
+from repro_torch.kernels import flash_attention as fa, ops, ref
 from repro_torch.models import model as TM
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -112,3 +123,94 @@ def test_forward_train_use_kernel_matches_jax():
                                 {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(tl.numpy(), plain.numpy(), rtol=2e-4, atol=2e-4)
 
+
+
+def _emulate_tensor_core_kernel(q, k, v, causal, window, bk, fault=None):
+    """The bf16 tensor-core kernel's numerics in plain PyTorch: f32 scores of
+    the bf16 inputs in the log2 domain; per tile of ``bk`` keys the running
+    max m, then P = exp2(s - m) rounded to bf16, the denominator summed from
+    the rounded P and ``acc = alpha * acc + P @ v`` in f32; the output is
+    ``acc / max(l, 1e-30)`` rounded to bf16.  It walks every key tile: a
+    tile the kernel skips holds only masked keys, whose weights vanish
+    (alpha = 0) once a visible key is seen.
+
+    ``fault`` plants a defect the bound must catch: "skip_tile" has each row
+    of the later half drop the first key tile it sees, "scale" makes the
+    scores 3% too large."""
+    B, S, N, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, S, K, N // K, hd)
+    scale = math.log2(math.e) / math.sqrt(hd) * (1.03 if fault == "scale" else 1)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * scale
+    qpos = torch.arange(S)[:, None] + (T - S)
+    kpos = torch.arange(T)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    if fault == "skip_tile":
+        first = (qpos - window + 1).clamp(min=0) if window else 0 * qpos
+        first = first // bk * bk
+        mask &= ~((torch.arange(S)[:, None] >= S // 2) & (kpos >= first)
+                  & (kpos < first + bk))
+    s = s.masked_fill(~mask, -1e30)
+    m = torch.full(s.shape[:-1], -1e30)
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros(s.shape[:-1] + (hd,))
+    vf = v.float()
+    for k0 in range(0, T, bk):
+        st = s[..., k0:k0 + bk]
+        m_new = torch.maximum(m, st.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(st - m_new[..., None]).to(torch.bfloat16).float()
+        l = alpha * l + p.sum(dim=-1)
+        acc = alpha[..., None] * acc + torch.einsum(
+            "bkgst,btkh->bkgsh", p, vf[:, k0:k0 + bk])
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, N, hd).to(torch.bfloat16)
+
+
+_BOUNDS = {}
+
+
+def _bound(S, T, window):
+    """Inputs at gemma3-12b's head dim (seeded by S and T), the f32
+    reference o, its bf16 bound (``ref.flash_attention_bf16_bound``) and
+    the JAX reference's f32 result; computed once a shape."""
+    if (S, T, window) not in _BOUNDS:
+        (qj, kj, vj), qkv = _qkv(1, S, T, 2, 1, 256, "bfloat16", seed=S + T)
+        o, bound = ref.flash_attention_bf16_bound(*qkv, causal=True, window=window)
+        o_jax = torch.from_numpy(np.array(jref.flash_attention_ref(
+            *(a.astype(jnp.float32) for a in (qj, kj, vj)), causal=True,
+            window=window)))
+        _BOUNDS[S, T, window] = qkv, o, bound, o_jax
+    return _BOUNDS[S, T, window]
+
+
+# gemma3-12b's head dim and a 2,048-token prompt (global and its 1,024
+# window), and more queries than keys (rows that see no key), at both key
+# tile widths the kernel uses (64 at hd 256, 128 below)
+@pytest.mark.parametrize("bk", [64, 128])
+@pytest.mark.parametrize("S,T,window", [(2048, 2048, None), (2048, 2048, 1024),
+                                        (256, 192, None)])
+def test_tensor_core_numerics_within_half_the_bf16_bound(S, T, window, bk):
+    (q, k, v), o, bound, o_jax = _bound(S, T, window)
+    got = _emulate_tensor_core_kernel(q, k, v, True, window, bk).float()
+    assert float(((got - o).abs() / bound).max()) <= 0.5
+    assert float(((got - o_jax).abs() / bound).max()) <= 0.5
+    if S == T:
+        # row 0 sees key 0 alone: its weight rounds to exactly 1
+        assert torch.equal(got[:, 0], v[:, 0].float().repeat_interleave(2, dim=1))
+
+
+@pytest.mark.parametrize("fault", ["skip_tile", "scale"])
+@pytest.mark.parametrize("window", [None, 1024])
+def test_bf16_bound_rejects_planted_faults(window, fault):
+    """The bound is tight enough to see each planted defect at the
+    2,048-token shapes, on the later half of the rows alone (each sees
+    1,024 keys or more, where |o| is smallest beside the spread of v)."""
+    (q, k, v), o, bound, _ = _bound(2048, 2048, window)
+    got = _emulate_tensor_core_kernel(q, k, v, True, window, 64, fault).float()
+    assert float(((got - o).abs() / bound)[:, 1024:].max()) > 1
