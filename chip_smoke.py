@@ -15,7 +15,9 @@ result line):
                report;
   3. kernels - holds each kernel against its plain PyTorch version on the
                card: the butterfly kernels at both models' widths (d=4096,
-               d_r=64 and d=3840, d_r=60, bf16) and a small f32 shape; flash
+               d_r=64 at 1 to 4,096 rows, both sides of reduce_quant's
+               row-tile switch, and d=3840, d_r=60, bf16) and a small f32
+               shape, with reduce_quant's worst share of differing codes; flash
                attention at every head dim (32-256) in f32 (the CUDA-core
                kernel) and bf16 (the tensor-core kernel, whose bf16 weights
                give it its own bound: see _flash_excess), causal, windowed and
@@ -23,7 +25,9 @@ result line):
                paths' shapes;
   4. times   - median CUDA-event time of each kernel, of its plain version
                and, for flash attention, of one scaled_dot_product_attention
-               call (a yardstick the port never calls), inputs cold in L2,
+               call (a yardstick the port never calls), inputs cold in L2:
+               the butterfly kernels at 1, 4, 128-1,024, 1,025 and 4,096 rows
+               (d=4096) and at gemma3-12b's 100 and 2,048 (d=3840),
                beside the least time the card could take (bytes or
                operations over its data-sheet rates); for flash also its
                TFLOP/s and the host time of encoding its TMA tensor maps;
@@ -76,8 +80,8 @@ decode steps after phase 6 (torch.profiler: wall time, device-busy share,
 top kernels; the operator tables go to DIR when one is given).  It then
 prints the kernels' JSON line (launches by path; the times of flash
 attention and of the norm and bincount kernels per launch, averaged over
-their path's launches, and each path shape's under "by_shape") and, last,
-the result line.
+their path's launches; the two butterfly kernels' at 128 rows; every timed
+shape under "by_shape") and, last, the result line.
 """
 from __future__ import annotations
 
@@ -107,12 +111,17 @@ H100_RATES = (3.35e12, 989e12)
 H100_F32 = 67e12
 
 D, D_R = 4096, 64
-CHECK_ROWS = (1, 4, 8, 37, 64, 128, 512, 1024, 1025, 4096)
+# reduce_quant's bf16 row tile is 16 rows up to 1,024 and 64 above
+CHECK_ROWS = (1, 4, 8, 32, 33, 37, 64, 128, 256, 512, 768, 1024, 1025, 4096)
 # gemma3-12b's butterfly: d_r = d_model // 64 = 60, padded to 64 channels
 GEMMA_D, GEMMA_D_R = 3840, 60
 GEMMA_ROWS = (1, 100, 2048, 2049)
-# reduce_quant runs 1-row blocks up to 1,024 rows and 16-row blocks above
-TIME_ROWS = (1, 128, 1024, 1025, 4096)
+# the butterfly kernels' timed rows at d=4096, d_r=64: a decode step and a
+# pipeline tick (1, 4), prompts and prefill microbatches (128-1,024), and
+# 1,025 beside 1,024, where the first reduce_quant design changed its tile
+TIME_ROWS = (1, 4, 128, 256, 512, 768, 1024, 1025, 4096)
+# and at gemma3-12b's d=3840, d_r=60: its 100- and 2,048-token prompts
+GEMMA_TIME_ROWS = (100, 2048)
 JSON_ROWS = 128          # a 128-token prompt's edge/cloud call on the main path
 
 
@@ -151,7 +160,9 @@ def phase_build():
         build.load(name)
         print(f"build: {lib.name} in {secs:.1f} s (nvcc, sm_90a)")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                print(f"  ptxas: entry {line.split(chr(39))[1][:100]}")
+            elif "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
     print(f"build: {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc per source, in parallel)")
@@ -176,6 +187,7 @@ def phase_kernels():
     import torch
     from repro_torch.kernels import butterfly_kernel as bk, ref
     worst = {"butterfly_reduce_quant": 0.0, "butterfly_dequant_restore": 0.0}
+    worst_frac = (0.0, None)            # the largest share of codes that differ
     cases = [(T, D, D_R, torch.bfloat16) for T in CHECK_ROWS] + \
         [(T, GEMMA_D, GEMMA_D_R, torch.bfloat16) for T in GEMMA_ROWS] + \
         [(T, 256, 16, torch.float32) for T in (1, 37, 512)]
@@ -196,12 +208,17 @@ def phase_kernels():
             dict(rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(out, out_p, **tol)
         err = float((out.float() - out_p.float()).abs().max())
+        if n_diff / diff.numel() > worst_frac[0]:
+            worst_frac = (n_diff / diff.numel(), (T, d, d_r, str(dtype)[6:]))
         worst["butterfly_reduce_quant"] = max(worst["butterfly_reduce_quant"], max_diff)
         worst["butterfly_dequant_restore"] = max(worst["butterfly_dequant_restore"], err)
         print(f"kernels: T={T:5d} d={d} d_r={d_r} {str(dtype)[6:]:8s} codes "
               f"differ {n_diff}/{diff.numel()} (max {max_diff}), restore max "
               f"|err| {err:.3g}")
     torch.cuda.synchronize()
+    print(f"kernels: reduce_quant's worst share of codes differing from the "
+          f"plain version {worst_frac[0]:.5%} at (T, d, d_r, dtype) "
+          f"{worst_frac[1]} (limit 0.1%)")
     return worst
 
 
@@ -386,11 +403,16 @@ def phase_flash_times(rates):
 
 
 def phase_times(rates):
+    """reduce_quant and dequant_restore, and their plain versions, at
+    TIME_ROWS (d=4096, d_r=64) and GEMMA_TIME_ROWS (d=3840, d_r=60), bf16,
+    against the bound (_bounds).  Returns {(name, T, d): times}."""
     import torch
     from repro_torch.kernels import butterfly_kernel as bk, ref
     out = {}
-    for T in TIME_ROWS:
-        x, w, wr = _inputs(T, D, D_R, torch.bfloat16, seed=T)
+    shapes = [(T, D, D_R) for T in TIME_ROWS] + \
+        [(T, GEMMA_D, GEMMA_D_R) for T in GEMMA_TIME_ROWS]
+    for T, d, d_r in shapes:
+        x, w, wr = _inputs(T, d, d_r, torch.bfloat16, seed=T)
         codes, scales = ref.butterfly_reduce_quant_ref(x, w)
         rows = {
             "butterfly_reduce_quant": (
@@ -401,14 +423,14 @@ def phase_times(rates):
                 lambda: ref.butterfly_dequant_restore_ref(codes, scales, wr,
                                                           torch.bfloat16)),
         }
-        bounds = dict(zip(rows, _bounds(rates, T, D, D_R)))
+        bounds = dict(zip(rows, _bounds(rates, T, d, d_r)))
         for name, (kern, plain) in rows.items():
             ms, plain_ms = _device_ms(kern), _device_ms(plain)
             bound_ms, bound_by = bounds[name]
-            out[(name, T)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by)
-            print(f"times: {name:26s} T={T:5d} kernel {ms:.4f} ms  plain "
-                  f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+            out[(name, T, d)] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                     bound_ms=bound_ms, bound_by=bound_by)
+            print(f"times: {name:26s} T={T:5d} d={d} d_r={d_r} kernel {ms:.4f} ms"
+                  f"  plain {plain_ms:.4f} ms  bound {bound_ms:.6f} ms ({bound_by})")
     return out
 
 
@@ -853,7 +875,10 @@ def phase_norm_kernels():
             print(f"norm kernels: rmsnorm d={d} {str(dtype)[6:]:8s} rows "
                   f"{NORM_ROWS}: max |err| vs plain so far {worst['rmsnorm']:.3g}")
     torch.cuda.synchronize()
-    print(f"norm kernels: {n} checks against the plain versions passed")
+    print(f"norm kernels: {n} checks against the plain versions passed; "
+          f"restore_norm runs {bk.restore_norm_wave(D_R)} clusters of 8 blocks "
+          f"in one wave at d_r={D_R} (one 16-row tile a cluster up to "
+          f"{16 * bk.restore_norm_wave(D_R)} rows)")
     return worst
 
 
@@ -1048,11 +1073,11 @@ def phase_rmsnorm_entry():
 
 
 # ------------------------------------------------------------------------- 8
-# the bincount kernel: every compiled channel width of reduce_quant (d_r 16,
-# 60 at gemma3's d, 64, 1024), both sides of its 1-row/16-row switch, both
-# code widths, f32 and bf16; timed at d=4096, d_r=64, bf16
+# the bincount kernel: channel widths of reduce_quant (d_r 16, 60 at gemma3's
+# d, 64, 1024), both sides of its bf16 16-row/64-row tile switch, both code
+# widths, f32 and bf16; timed at d=4096, d_r=64, bf16
 BINCOUNT_D_R = {16: 4096, 60: 3840, 64: 4096, 1024: 4096}
-BINCOUNT_ROWS = (1, 4, 100, 1024, 1025, 4096)
+BINCOUNT_ROWS = (1, 4, 32, 33, 100, 1024, 1025, 4096)
 BINCOUNT_TIME_ROWS = (1, 128, 1024, 4096)
 # phase 8's cells: 8 requests of 128 tokens from 4 devices on 3g
 RUNTIME = dict(S=128, requests=8, devices=4, handoff_tokens=16,
@@ -1479,12 +1504,19 @@ def main():
             f"T={T}": t for T, t in by_rows.items()})
     bincount = dict(_launch_mean(bincount_times, BINCOUNT_ENTRY_ROWS), by_shape={
         f"T={T}": t for T, t in bincount_times.items()})
+    # the two butterfly kernels: ms at T=128 (comparable across PRs), every
+    # timed shape under by_shape
+    wire = {}
+    for kname in ("butterfly_reduce_quant", "butterfly_dequant_restore"):
+        wire[kname] = dict(times[(kname, JSON_ROWS, D)], by_shape={
+            f"T={T}" + ("" if d == D else f" d={d}"): t
+            for (k, T, d), t in times.items() if k == kname})
     rows = [("butterfly_reduce_quant", "src/repro_torch/csrc/butterfly.cu",
              "src/repro/kernels/butterfly_kernel.py:38",
-             times[("butterfly_reduce_quant", JSON_ROWS)]),
+             wire["butterfly_reduce_quant"]),
             ("butterfly_dequant_restore", "src/repro_torch/csrc/butterfly.cu",
              "src/repro/kernels/butterfly_kernel.py:188",
-             times[("butterfly_dequant_restore", JSON_ROWS)]),
+             wire["butterfly_dequant_restore"]),
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:75", flash),
             ("butterfly_dequant_restore_norm", "src/repro_torch/csrc/butterfly.cu",

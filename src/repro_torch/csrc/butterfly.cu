@@ -22,21 +22,48 @@
 //   Bound on the card: memory.  It must read x once (T*d*bytes(x)) plus
 //   w_reduce (d*d_r*bytes, 512 KB at d=4096, d_r=64 in bf16) and write
 //   T*d_r int8 codes and T f32 scales; at d_r=64 it does 128 multiply-adds
-//   per bf16 element of x, far below the card's ratio of compute to bytes.
+//   per bf16 element of x: below the tensor cores' ratio of operations to
+//   bytes (about 295 a byte), though above what f32 FMA on the CUDA cores
+//   keeps up with.
 //
-//   Design: one block owns RQ rows (16, or 1 when there are too few rows to
-//   fill the card) and all d_r channels.  It walks d in chunks of KC,
-//   staging the x tile (k-major, so one 16-byte load gives a lane four rows)
-//   and the w_reduce chunk (channels padded with zeros to whole warps) in
-//   shared memory as f32, converting bf16 with __bfloat162float.  The eight
-//   warps split each chunk's k range; a lane holds CJ channels of RQ rows in
-//   f32 registers.  The eight partial sums are then added in a fixed warp
-//   order, so the result does not depend on scheduling.  One warp owns a
-//   row's epilogue: a warp-shuffle max gives the absmax, and the arithmetic
-//   is IEEE: fmaxf, a true divide for the scale and for r / scale, rintf
-//   (round half to even; roundf would round half away from zero) and a
-//   clamp.  Rows past T load as zero and are never stored: the ragged edge
-//   is masked here, so every row count goes through the kernel unpadded.
+//   Design: a block owns a tile of RQ rows and one k slice of d, so the
+//   grid (tiles x splits) fills the card at every row count.  plan_reduce
+//   picks the tile (bf16: 16 rows up to kShortRows = 1,024 rows, 64 above,
+//   16 at d_r > 128; f32: 16 rows, fewer at d_r > 64) and then as many k
+//   slices, each whole chunks of KC, as bring the grid to about two waves
+//   of the 132 SMs (kTargetBlocks), but at most 8 once a tile is full
+//   (kMaxCombine): at d=4096, d_r=64, T=1 runs 64 slices of one chunk of
+//   64 k rows (8 KB of w_reduce each), T=128 8 tiles x 8 slices of 512 k rows,
+//   T=4096 64 tiles x 5 slices of 832.  With one slice (d <= KC, or
+//   >= kTargetBlocks tiles) a block quantizes its own sums.  Otherwise
+//   each block stores its valid rows' f32 partials to scratch (tiles x
+//   splits x RQ x DRP f32 from the wrapper: 256 KB at T=1 and T=128, 5 MB
+//   at T=4096 for d_r=64) and takes a ticket (one uint32 a tile); the last
+//   block of a tile sums the partials in slice order (combine_partials)
+//   and quantizes.
+//   No float atomics: codes are the same on every call and every stream.
+//   The tickets return to zero, so the wrapper keeps one buffer per device
+//   and stream.
+//   bf16 (MmaBody): tensor cores, mma.sync.m16n8k16 (bf16 in, f32
+//   accumulators: the products are exact, only the order of the f32 sums
+//   moves).  cp.async brings x (RQ x KC) and w (KC x DRP) chunks, 16 bytes
+//   a thread, into a ring of 3 stages (rows padded by 16 bytes, so ldmatrix
+//   meets no bank conflict; KC = 64 up to DRP 256, 16384 / DRP above:
+//   22-106 KB of shared memory, 54 KB at d_r=64 with 64-row tiles, 34 KB
+//   with 16).  min(8, DRP/8) warps split the channels, each covering all
+//   RQ rows, so no sum crosses warps; the sums then go through shared
+//   memory (RQ x DRP f32) to the epilogue.  An x whose rows are not whole
+//   16-byte pieces, or whose base is not 16-byte aligned, is loaded an
+//   element at a time.
+//   f32 (FmaBody): a CUDA-core walk over the slice (never TF32, which
+//   would break the codes' tolerance): x k-major and w as f32 in shared
+//   memory, eight warps splitting each chunk's k range, their partial sums
+//   added in a fixed warp order.
+//   Epilogue (quantize_rows): one warp a row; a warp-shuffle max gives the
+//   absmax, and the arithmetic is IEEE: fmaxf, a true divide for the scale
+//   and for r / scale, rintf (round half to even) and a clamp.  Rows past T
+//   load as zero and are never stored: every row count goes through the
+//   kernel unpadded.
 // ---------------------------------------------------------------------------
 // butterfly_reduce_quant_bincount
 //   replaces src/repro/kernels/butterfly_kernel.py:_reduce_quant_bincount_kernel
@@ -48,8 +75,8 @@
 //   Bound on the card: memory, as butterfly_reduce_quant; the histogram adds
 //   d_r * 2**bits * 4 bytes (64 KB at d_r=64, 8 bits) to write.
 //
-//   Design: the same kernel with kCount set at compile time, so the codes
-//   and scales come out of the same instructions, bit for bit.  Where the
+//   Design: the same kernel and plan with kCount set at compile time, so
+//   the codes and scales come out of the same instructions, bit for bit.  Where the
 //   epilogue stores a code (rows < T, channels < d_r) it adds one to the
 //   code's bin with a global atomicAdd; integer adds give the same counts
 //   in any order.  Rows past T are never counted, so the TPU wrapper's
@@ -87,16 +114,25 @@
 //   Bound on the card: memory.  It reads what dequant_restore reads plus
 //   norm_w (d*bytes) and writes two (T, d) outputs instead of one.
 //
-//   Design: the norm needs whole rows, so one block owns RD rows and ALL d
-//   columns: it walks the column slabs of DD that dequant_restore spreads
-//   over blocks, with the same helpers (stage_dequant, restore_column), so x
-//   equals dequant_restore's output bit for bit.  Once every column of x is
-//   written, __syncthreads() makes the block's stores visible to the block
-//   and each warp normalises one row at a time with row_norm.cuh's
-//   warp_row_norm, re-reading the rounded x from L1/L2 (2 bytes an element
-//   at bf16; shared memory would need 16 KB a row in f32).  rmsnorm uses the
-//   same routine, so its output equals h bit for bit.  Few rows fill few of
-//   the 132 SMs (a 4-row decode tick runs one block): a simple kernel first.
+//   Design: the norm needs whole rows, and one SM walking every column of
+//   a 4-row tick left the card idle, so a thread-block cluster of kCluster
+//   = 8 blocks (the portable size; __cluster_dims__) owns RD-row tiles:
+//   each block stages codes * scale (RD x d_r f32, 4 KB at d_r=64) and
+//   restores its own slabs of DDN = 512 columns, one column a thread, with
+//   dequant_restore's helpers (stage_dequant, restore_column), so x equals
+//   dequant_restore's output bit for bit.  Then a cluster barrier (arrive
+//   .release, wait .acquire, after a __threadfence) makes every block's x
+//   stores visible across the cluster, and row r of the cluster's rows goes
+//   to warp (r / 8) % 16 of block r % 8, which normalises it with
+//   row_norm.cuh's warp_row_norm, reading the rounded x back through L2
+//   with plain loads.  rmsnorm uses the same routine, so its output equals
+//   h bit for bit.  A cluster owns one tile while the clusters fit one
+//   wave of the card (as many as cudaOccupancyMaxActiveClusters gives: a
+//   block of 512 threads of 98 registers holds an SM), and ceil(tiles /
+//   wave) tiles beyond, so the grid stays one wave and its norm keeps more
+//   warps busy.  A 4-row tick runs on 8 SMs; d that 8 * 512 does not
+//   divide leaves columns of the last slab (and at small d whole blocks)
+//   idle in the restore.
 // ---------------------------------------------------------------------------
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -116,19 +152,10 @@ constexpr int kStageFloats = 8192;                // w chunk / partials (32 KB)
 constexpr int RD = 16;            // rows per dequant_restore block
 constexpr int DD = kThreads;      // output columns per dequant_restore block
 
-// 16 raw bytes of w (4 f32 or 8 bf16) stored to shared memory as f32
-__device__ __forceinline__ void store_f32x(float* dst, uint4 v, float) {
+// 16 raw bytes of f32 w stored to shared memory
+__device__ __forceinline__ void store_f32x4(float* dst, uint4 v) {
   *reinterpret_cast<float4*>(dst) = make_float4(__uint_as_float(v.x), __uint_as_float(v.y),
                                                 __uint_as_float(v.z), __uint_as_float(v.w));
-}
-__device__ __forceinline__ float2 bf16x2_to_f32(unsigned int u) {   // exact
-  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
-}
-__device__ __forceinline__ void store_f32x(float* dst, uint4 v, __nv_bfloat16) {
-  const float2 a = bf16x2_to_f32(v.x), b = bf16x2_to_f32(v.y);
-  const float2 c = bf16x2_to_f32(v.z), e = bf16x2_to_f32(v.w);
-  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
-  *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, e.x, e.y);
 }
 
 // Channel widths the reduce kernel computes: d_r rounded up to 32 * CJ with
@@ -139,179 +166,513 @@ __host__ __device__ constexpr int padded_width(int d_r) {
        : d_r <= 512 ? 512 : 1024;
 }
 
-// RQ rows per block; CJ channels per lane (DRP = 32 * CJ).  RQ * CJ <= 32
-// keeps the partial sums of all warps within kStageFloats.
-// With kCount, counts (d_r x 2 * (qmax + 1) int32, zeroed by the caller)
-// gains one in the bin of every code stored.
-template <typename T, int RQ, int CJ, bool kCount>
-__global__ void __launch_bounds__(kThreads)
-reduce_quant_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    int8_t* __restrict__ codes, float* __restrict__ scales,
-                    int* __restrict__ counts, int n_rows, int d, int d_r, int qmax) {
-  constexpr int DRP = 32 * CJ;                      // w_reduce row stride
-  constexpr int KC = kStageFloats / DRP < 128 ? kStageFloats / DRP : 128;
-  constexpr int KW = KC / kWarps;                   // k per warp per chunk
-  constexpr int VE = 16 / sizeof(T);                // w elements per 16 bytes
-  constexpr int XPT = (RQ * KC + kThreads - 1) / kThreads;
-  constexpr int WPT = KC * DRP / VE / kThreads;     // 16-byte w loads per thread
+// ---- reduce_quant: the launch plan ----------------------------------------
+// A block owns a tile of RQ rows and one k slice of d; kernel arguments and
+// the plan the host and the wrapper's scratch sizes share.
+struct ReduceArgs {
+  const void* x;
+  const void* w;
+  int8_t* codes;
+  float* scales;
+  int* counts;              // kCount only
+  float* partials;          // tiles x splits x RQ x DRP f32 (splits > 1)
+  unsigned int* tickets;    // one a tile, zero between launches (splits > 1)
+  int n_rows, d, d_r, qmax;
+  int kslice;               // k rows a slice: a multiple of the body's KC
+  int splits;               // k slices a tile (gridDim.y)
+};
+
+constexpr int kTargetBlocks = 2 * 132;  // two waves of the H100's SMs
+constexpr int kShortRows = 1024;        // bf16 up to here: 16-row tiles
+constexpr int kMaxCombine = 8;          // tiles' worth of partials a combine sums
+
+// bf16 body: k rows a stage (w chunk of KC x DRP bf16, <= 32 KB)
+__host__ __device__ constexpr int mma_kc(int drp) { return drp <= 256 ? 64 : 16384 / drp; }
+// f32 body: RQ * CJ <= 32 (CJ = DRP / 32) and a w chunk of kStageFloats
+__host__ __device__ constexpr int fma_rq(int drp) { return drp <= 64 ? 16 : 1024 / drp; }
+__host__ __device__ constexpr int fma_kc(int drp) {
+  return kStageFloats / drp < 128 ? kStageFloats / drp : 128;
+}
+
+struct ReducePlan {
+  int rq, kc, drp, tiles, splits, kslice;
+};
+
+// Row tile: bf16 16 rows up to kShortRows and 64 above (16 at d_r > 128,
+// where 64 rows would not fit the accumulators); f32 fma_rq.  Split-K: as
+// many k slices (whole chunks of KC) as bring tiles x splits to about
+// kTargetBlocks, but no more than leave the last block of a tile summing
+// kMaxCombine full tiles of partials (splits x valid rows <= kMaxCombine x
+// RQ: 8 slices once a tile is full, 128 at T=1, where each slice holds one
+// row).  On the card (d=4096, d_r=64) fewer, longer slices won from 32 rows
+// up: a block's fixed costs (its ticket, the fences) and the combine grew
+// faster than the shorter walk saved.
+ReducePlan plan_reduce(int n_rows, int d, int d_r, int dtype) {
+  ReducePlan p;
+  p.drp = padded_width(d_r);
+  if (dtype == 1) {
+    p.rq = (p.drp <= 128 && n_rows > kShortRows) ? 64 : 16;
+    p.kc = mma_kc(p.drp);
+  } else {
+    p.rq = fma_rq(p.drp);
+    p.kc = fma_kc(p.drp);
+  }
+  p.tiles = (n_rows + p.rq - 1) / p.rq;
+  const int chunks = (d + p.kc - 1) / p.kc;
+  int want = (kTargetBlocks + p.tiles - 1) / p.tiles;
+  const int cap = kMaxCombine * p.rq / (n_rows < p.rq ? n_rows : p.rq);
+  want = want > cap ? cap : want;
+  want = want < 1 ? 1 : want > chunks ? chunks : want;
+  const int per = (chunks + want - 1) / want;        // chunks a slice
+  p.kslice = per * p.kc;
+  p.splits = (chunks + per - 1) / per;
+  return p;
+}
+
+// ---- reduce_quant: the f32 body (CUDA cores) -------------------------------
+// The block's RQ x DRP sums over k in [kbeg, kend) of x @ w, f32 FMA, into
+// shared memory (sums[r * DRP + c]); returns them after a __syncthreads().
+template <int RQ, int CJ>
+struct FmaBody {
+  static constexpr int kBlock = kThreads;
+  static constexpr int DRP = 32 * CJ;                      // w_reduce row stride
+  static constexpr int KC = fma_kc(DRP);
+  static constexpr int KW = KC / kWarps;                   // k per warp per chunk
+  static constexpr int XPT = (RQ * KC + kThreads - 1) / kThreads;
+  static constexpr int WPT = KC * DRP / 4 / kThreads;      // 16-byte w loads a thread
   static_assert(RQ * CJ <= 32 && KW >= 1 && WPT >= 1, "tile does not fit");
-  __shared__ __align__(16) float xs[KC * RQ];       // x tile, k-major
-  __shared__ __align__(16) float ws[kStageFloats];  // w chunk, then partials
+  static constexpr size_t kSmem = 0;                       // all static
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * RQ;
-  float acc[RQ][CJ];
+  __device__ static float* run(const ReduceArgs& a, int row0, int kbeg, int kend) {
+    __shared__ __align__(16) float xs[KC * RQ];            // x tile, k-major
+    __shared__ __align__(16) float ws[kStageFloats];       // w chunk, then partials
+    __shared__ __align__(16) float sums[RQ * DRP];
+    const float* x = static_cast<const float*>(a.x);
+    const float* w = static_cast<const float*>(a.w);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, d = a.d;
+    float acc[RQ][CJ];
 #pragma unroll
-  for (int r = 0; r < RQ; ++r)
+    for (int r = 0; r < RQ; ++r)
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) acc[r][j] = 0.f;
+      for (int j = 0; j < CJ; ++j) acc[r][j] = 0.f;
 
-  // The next chunk's x and w are fetched into registers (raw, converted
-  // only when stored) while the warps compute on the current one, so the
-  // global-memory latency overlaps the arithmetic.  The w chunk (KC rows of
-  // DRP) is contiguous and read 16 bytes at a time.
-  T xr[XPT];
-  uint4 wr[WPT];
-  auto fetch = [&](int k0) {
-    const int kn = min(KC, d - k0);
+    // The next chunk's x and w are fetched into registers while the warps
+    // compute on the current one, so the global-memory latency overlaps the
+    // arithmetic.  The w chunk (KC rows of DRP) is contiguous and read 16
+    // bytes at a time.
+    float xr[XPT];
+    uint4 wr[WPT];
+    auto fetch = [&](int k0) {
+      const int kn = min(KC, kend - k0);
 #pragma unroll
-    for (int i = 0; i < XPT; ++i) {
-      const int e = tid + i * kThreads, r = e / KC, k = e % KC, row = row0 + r;
-      xr[i] = (e < RQ * KC && row < n_rows && k < kn) ? x[(size_t)row * d + k0 + k]
-                                                       : static_cast<T>(0.f);
-    }
-    const uint4* wc = reinterpret_cast<const uint4*>(w + (size_t)k0 * DRP);
+      for (int i = 0; i < XPT; ++i) {
+        const int e = tid + i * kThreads, r = e / KC, k = e % KC, row = row0 + r;
+        xr[i] = (e < RQ * KC && row < a.n_rows && k < kn) ? x[(size_t)row * d + k0 + k] : 0.f;
+      }
+      const uint4* wc = reinterpret_cast<const uint4*>(w + (size_t)k0 * DRP);
 #pragma unroll
-    for (int i = 0; i < WPT; ++i) {
-      const int v = tid + i * kThreads;
-      wr[i] = v * VE < kn * DRP ? wc[v] : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
+      for (int i = 0; i < WPT; ++i) {
+        const int v = tid + i * kThreads;
+        wr[i] = v * 4 < kn * DRP ? wc[v] : make_uint4(0u, 0u, 0u, 0u);
+      }
+    };
 
-  fetch(0);
-  for (int k0 = 0; k0 < d; k0 += KC) {
+    fetch(kbeg);
+    for (int k0 = kbeg; k0 < kend; k0 += KC) {
 #pragma unroll
-    for (int i = 0; i < XPT; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < RQ * KC) xs[(e % KC) * RQ + e / KC] = to_f32(xr[i]);
-    }
+      for (int i = 0; i < XPT; ++i) {
+        const int e = tid + i * kThreads;
+        if (e < RQ * KC) xs[(e % KC) * RQ + e / KC] = xr[i];
+      }
 #pragma unroll
-    for (int i = 0; i < WPT; ++i) store_f32x(&ws[(tid + i * kThreads) * VE], wr[i], T());
-    __syncthreads();
-    if (k0 + KC < d) fetch(k0 + KC);
+      for (int i = 0; i < WPT; ++i) store_f32x4(&ws[(tid + i * kThreads) * 4], wr[i]);
+      __syncthreads();
+      if (k0 + KC < kend) fetch(k0 + KC);
 #pragma unroll
-    for (int kk = 0; kk < KW; ++kk) {
-      const int k = warp * KW + kk;
-      float wv[CJ];
+      for (int kk = 0; kk < KW; ++kk) {
+        const int k = warp * KW + kk;
+        float wv[CJ];
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) wv[j] = ws[k * DRP + lane + 32 * j];
-      if constexpr (RQ % 4 == 0) {
+        for (int j = 0; j < CJ; ++j) wv[j] = ws[k * DRP + lane + 32 * j];
+        if constexpr (RQ % 4 == 0) {
 #pragma unroll
-        for (int r = 0; r < RQ; r += 4) {
-          const float4 xv = *reinterpret_cast<const float4*>(&xs[k * RQ + r]);
+          for (int r = 0; r < RQ; r += 4) {
+            const float4 xv = *reinterpret_cast<const float4*>(&xs[k * RQ + r]);
 #pragma unroll
-          for (int j = 0; j < CJ; ++j) {
-            acc[r][j] = fmaf(xv.x, wv[j], acc[r][j]);
-            acc[r + 1][j] = fmaf(xv.y, wv[j], acc[r + 1][j]);
-            acc[r + 2][j] = fmaf(xv.z, wv[j], acc[r + 2][j]);
-            acc[r + 3][j] = fmaf(xv.w, wv[j], acc[r + 3][j]);
+            for (int j = 0; j < CJ; ++j) {
+              acc[r][j] = fmaf(xv.x, wv[j], acc[r][j]);
+              acc[r + 1][j] = fmaf(xv.y, wv[j], acc[r + 1][j]);
+              acc[r + 2][j] = fmaf(xv.z, wv[j], acc[r + 2][j]);
+              acc[r + 3][j] = fmaf(xv.w, wv[j], acc[r + 3][j]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < RQ; ++r) {
+            const float xv = xs[k * RQ + r];
+#pragma unroll
+            for (int j = 0; j < CJ; ++j) acc[r][j] = fmaf(xv, wv[j], acc[r][j]);
           }
         }
+      }
+      __syncthreads();
+    }
+
+    // partial sums of every warp, then a fixed-order sum per (row, channel)
+    float* red = ws;
+#pragma unroll
+    for (int r = 0; r < RQ; ++r)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) red[(warp * RQ + r) * DRP + lane + 32 * j] = acc[r][j];
+    __syncthreads();
+    for (int e = tid; e < RQ * DRP; e += kThreads) {
+      const int r = e / DRP, c = e % DRP;
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q) sum += red[(q * RQ + r) * DRP + c];
+      sums[e] = sum;
+    }
+    __syncthreads();
+    return sums;
+  }
+};
+
+// ---- reduce_quant: the bf16 body (tensor cores) ----------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, asynchronously; bytes < 16 fills the rest with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)) : "memory");
+}
+// c += a (16 x 16 bf16, rows) * b (16 x 8 bf16, columns), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// NW warps split the DRP channels (NT tiles of 8 each) and all cover the
+// RQ rows (MT tiles of 16), so no sum crosses warps.  Stages of KC k rows:
+// x (RQ x KC, rows padded by 8) and w (KC x DRP, rows padded by 8: the
+// 16-byte rows ldmatrix reads of 8 consecutive rows fall in distinct banks).
+template <int RQ, int DRP>
+struct MmaBody {
+  static constexpr int NW = DRP / 8 < kWarps ? DRP / 8 : kWarps;
+  static constexpr int kBlock = 32 * NW;
+  static constexpr int NT = DRP / 8 / NW;
+  static constexpr int MT = RQ / 16;
+  static constexpr int KC = mma_kc(DRP);
+  static constexpr int XS = KC + 8, WS = DRP + 8;
+  static constexpr int kStageElems = RQ * XS + KC * WS;
+  static constexpr int kStages = 3;
+  static constexpr size_t kStageBytes = (size_t)kStages * kStageElems * 2;
+  static constexpr size_t kSmem = kStageBytes > (size_t)RQ * DRP * 4 ? kStageBytes
+                                                                      : (size_t)RQ * DRP * 4;
+  static_assert(MT * NT <= 16 && NT >= 1 && KC % 16 == 0, "tile does not fit");
+
+  __device__ static void load(__nv_bfloat16* st, const ReduceArgs& a, int row0, int k0,
+                              int kend, bool xvec) {
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
+    const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
+    __nv_bfloat16* xs = st;
+    __nv_bfloat16* wsm = st + RQ * XS;
+    constexpr int XP = KC / 8, WP = DRP / 8;             // 16-byte pieces a row
+    for (int i = threadIdx.x; i < RQ * XP; i += kBlock) {
+      const int r = i / XP, k = k0 + (i % XP) * 8, row = row0 + r;
+      __nv_bfloat16* dst = xs + r * XS + (i % XP) * 8;
+      if (xvec) {
+        const bool ok = row < a.n_rows && k < kend;
+        cp_async16(dst, ok ? x + (size_t)row * a.d + k : x, ok ? 16 : 0);
       } else {
 #pragma unroll
-        for (int r = 0; r < RQ; ++r) {
-          const float xv = xs[k * RQ + r];
+        for (int e = 0; e < 8; ++e)
+          dst[e] = (row < a.n_rows && k + e < kend) ? x[(size_t)row * a.d + k + e]
+                                                    : __float2bfloat16_rn(0.f);
+      }
+    }
+    for (int i = threadIdx.x; i < KC * WP; i += kBlock) {
+      const int kr = i / WP, k = k0 + kr;
+      const bool ok = k < kend;
+      cp_async16(wsm + kr * WS + (i % WP) * 8, ok ? w + (size_t)k * DRP + (i % WP) * 8 : w,
+                 ok ? 16 : 0);
+    }
+  }
+
+  __device__ static float* run(const ReduceArgs& a, int row0, int kbeg, int kend) {
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n0 = warp * NT * 8;
+    // 16-byte pieces of x need whole pieces inside each row and an aligned base
+    const bool xvec = a.d % 8 == 0 && (reinterpret_cast<uintptr_t>(a.x) & 15) == 0;
+    float acc[MT][NT][4];
 #pragma unroll
-          for (int j = 0; j < CJ; ++j) acc[r][j] = fmaf(xv, wv[j], acc[r][j]);
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+    const int nch = (kend - kbeg + KC - 1) / KC;
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < nch) load(stages + s * kStageElems, a, row0, kbeg + s * KC, kend, xvec);
+      cp_async_commit();
+    }
+    for (int c = 0; c < nch; ++c) {
+      cp_async_wait<kStages - 2>();                      // chunk c has landed
+      __syncthreads();                                   // ... and chunk c-1 is consumed
+      const int nx = c + kStages - 1;
+      if (nx < nch) load(stages + (nx % kStages) * kStageElems, a, row0, kbeg + nx * KC,
+                         kend, xvec);
+      cp_async_commit();
+      const __nv_bfloat16* xs = stages + (c % kStages) * kStageElems;
+      const __nv_bfloat16* wsm = xs + RQ * XS;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          ldmatrix_x4(af[m], xs + (m * 16 + (lane & 15)) * XS + kk + (lane >> 4) * 8);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          uint32_t bf[2];
+          ldmatrix_x2_trans(bf, wsm + (kk + (lane & 15)) * WS + n0 + n * 8);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma_bf16(acc[m][n], af[m], bf);
         }
       }
     }
+    cp_async_wait<0>();
+    __syncthreads();                                     // the stages are free
+
+    float* sums = reinterpret_cast<float*>(smem_raw);
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int r = m * 16 + g, c = n0 + n * 8 + 2 * t;
+        sums[r * DRP + c] = acc[m][n][0];
+        sums[r * DRP + c + 1] = acc[m][n][1];
+        sums[(r + 8) * DRP + c] = acc[m][n][2];
+        sums[(r + 8) * DRP + c + 1] = acc[m][n][3];
+      }
     __syncthreads();
+    return sums;
   }
+};
 
-  // partial sums of every warp, then a fixed-order sum per (row, channel)
-  float* red = ws;
-#pragma unroll
-  for (int r = 0; r < RQ; ++r)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) red[(warp * RQ + r) * DRP + lane + 32 * j] = acc[r][j];
+// ---- reduce_quant: split-K combine and the quantize epilogue ---------------
+// With splits > 1 each block stores its rows' partial sums, then takes a
+// ticket; the block that draws the last one sums the tile's partials in
+// slice order and goes on to the epilogue; the others return.  Release:
+// every thread fences its stores before the block's ticket; acquire: the
+// last block fences after it and reads the partials through L2 (__ldcg),
+// never the non-coherent path.  It resets the ticket for the next launch on
+// the stream.  G threads share four adjacent sums (16-byte loads), each
+// summing a fixed run of the slices in order, then an xor butterfly adds
+// the G runs: a fixed order, so codes never depend on which block finished
+// last.  A thread carries U such groups at once, so U loads a slice are in
+// flight.
+template <int RQ, int DRP>
+__device__ bool combine_partials(const ReduceArgs& a, float* sums, int tile, int slice,
+                                 int row0) {
+  constexpr int U = 4;                         // float4 groups a thread carries at once
+  __shared__ int last;
+  const int nr = min(RQ, a.n_rows - row0);
+  const int E4 = nr * DRP / 4;                 // the tile's valid sums, as float4 groups
+  float4* sums4 = reinterpret_cast<float4*>(sums);
+  float4* part = reinterpret_cast<float4*>(a.partials) + (size_t)tile * a.splits * RQ * DRP / 4;
+  float4* mine = part + (size_t)slice * RQ * DRP / 4;
+  for (int e = threadIdx.x; e < E4; e += blockDim.x) mine[e] = sums4[e];
+  __threadfence();
   __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&a.tickets[tile], 1u) == (unsigned int)(a.splits - 1);
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  int G = 1;
+  while (G < 32 && 2 * G * E4 <= (int)blockDim.x && 2 * G <= a.splits) G *= 2;
+  const int per = (a.splits + G - 1) / G;
+  const int q0 = (threadIdx.x % G) * per, q1 = min(a.splits, q0 + per);
+  const size_t stride = (size_t)RQ * DRP / 4;  // float4 groups a slice
+  for (int base = 0; base < E4 * G; base += blockDim.x * U) {
+    int e[U];
+    float4 s[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      e[u] = (base + u * blockDim.x + threadIdx.x) / G;
+      s[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll 4
+    for (int q = q0; q < q1; ++q)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (e[u] < E4) {
+          const float4 v = __ldcg(part + q * stride + e[u]);
+          s[u].x += v.x;
+          s[u].y += v.y;
+          s[u].z += v.z;
+          s[u].w += v.w;
+        }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      for (int o = G / 2; o > 0; o >>= 1) {
+        s[u].x += __shfl_xor_sync(0xffffffffu, s[u].x, o);
+        s[u].y += __shfl_xor_sync(0xffffffffu, s[u].y, o);
+        s[u].z += __shfl_xor_sync(0xffffffffu, s[u].z, o);
+        s[u].w += __shfl_xor_sync(0xffffffffu, s[u].w, o);
+      }
+      if (e[u] < E4 && threadIdx.x % G == 0) sums4[e[u]] = s[u];
+    }
+  }
+  if (threadIdx.x == 0) a.tickets[tile] = 0u;
+  __syncthreads();
+  return true;
+}
 
-  const float fq = (float)qmax;
-  for (int r = warp; r < RQ; r += kWarps) {
+// One warp a row: a warp-shuffle max gives the absmax, and the arithmetic
+// is IEEE: fmaxf, a true divide for the scale and for r / scale, rintf
+// (round half to even; roundf would round half away from zero) and a clamp.
+// Rows past n_rows are never stored.  With kCount, counts (d_r x 2 *
+// (qmax + 1) int32, zeroed by the caller) gains one in the bin of every
+// code stored.
+template <int RQ, int DRP, bool kCount>
+__device__ void quantize_rows(const ReduceArgs& a, const float* sums, int row0) {
+  constexpr int CJ = DRP / 32;
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const float fq = (float)a.qmax;
+  for (int r = threadIdx.x >> 5; r < RQ; r += nw) {
+    const int row = row0 + r;
+    if (row >= a.n_rows) break;
     float v[CJ];
     float m = 0.f;
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
       const int c = lane + 32 * j;
-      float sum = 0.f;
-#pragma unroll
-      for (int q = 0; q < kWarps; ++q) sum += red[(q * RQ + r) * DRP + c];
-      v[j] = sum;
-      if (c < d_r) m = fmaxf(m, fabsf(sum));
+      v[j] = sums[r * DRP + c];
+      if (c < a.d_r) m = fmaxf(m, fabsf(v[j]));
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    const int row = row0 + r;
-    if (row < n_rows) {
-      const float scale = fmaxf(m, 1e-8f) / fq;
+    const float scale = fmaxf(m, 1e-8f) / fq;
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int c = lane + 32 * j;
-        if (c < d_r) {
-          const float q = fminf(fmaxf(rintf(v[j] / scale), -fq - 1.f), fq);
-          codes[(size_t)row * d_r + c] = (int8_t)q;
-          if constexpr (kCount)
-            atomicAdd(&counts[c * (2 * (qmax + 1)) + (int)q + qmax + 1], 1);
-        }
+    for (int j = 0; j < CJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < a.d_r) {
+        const float q = fminf(fmaxf(rintf(v[j] / scale), -fq - 1.f), fq);
+        a.codes[(size_t)row * a.d_r + c] = (int8_t)q;
+        if constexpr (kCount)
+          atomicAdd(&a.counts[c * (2 * (a.qmax + 1)) + (int)q + a.qmax + 1], 1);
       }
-      if (lane == 0) scales[row] = scale;
     }
+    if (lane == 0) a.scales[row] = scale;
   }
 }
 
-template <typename T, int RQ, int CJ, bool kCount>
-cudaError_t launch_reduce(const void* x, const void* w, void* codes, void* scales,
-                          int* counts, int n_rows, int d, int d_r, int qmax,
-                          cudaStream_t s) {
-  const dim3 grid((n_rows + RQ - 1) / RQ);
-  reduce_quant_kernel<T, RQ, CJ, kCount><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<int8_t*>(codes), static_cast<float*>(scales), counts, n_rows, d,
-      d_r, qmax);
+// grid (tiles, splits): block (tile, slice) sums rows [tile * RQ, + RQ) over
+// k in [slice * kslice, + kslice), then, alone or as the tile's last block,
+// quantizes them.
+template <class Body, int RQ, int DRP, bool kCount>
+__global__ void __launch_bounds__(Body::kBlock)
+reduce_quant_kernel(ReduceArgs a) {
+  const int tile = blockIdx.x, slice = blockIdx.y, row0 = tile * RQ;
+  const int kbeg = slice * a.kslice, kend = min(kbeg + a.kslice, a.d);
+  float* sums = Body::run(a, row0, kbeg, kend);
+  if (a.splits > 1 && !combine_partials<RQ, DRP>(a, sums, tile, slice, row0)) return;
+  quantize_rows<RQ, DRP, kCount>(a, sums, row0);
+}
+
+template <class Body, int RQ, int DRP, bool kCount>
+cudaError_t launch_reduce(const ReduceArgs& a, const ReducePlan& p, cudaStream_t s) {
+  auto kern = reduce_quant_kernel<Body, RQ, DRP, kCount>;
+  if (Body::kSmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Body::kSmem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<dim3(p.tiles, p.splits), Body::kBlock, Body::kSmem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, bool kCount>
-cudaError_t dispatch_reduce(const void* x, const void* w, void* codes, void* scales,
-                            int* counts, int n_rows, int d, int d_r, int qmax,
+template <bool kCount>
+cudaError_t dispatch_reduce(const ReduceArgs& a, const ReducePlan& p, int dtype,
                             cudaStream_t s) {
-  // 16-row blocks where they still fill the card's 132 SMs, else one row a block
-  const bool tall = n_rows > 1024;
-#define REDUCE(RQ, CJ) \
-  launch_reduce<T, RQ, CJ, kCount>(x, w, codes, scales, counts, n_rows, d, d_r, qmax, s)
-  if (d_r <= 32) return tall ? REDUCE(16, 1) : REDUCE(1, 1);
-  if (d_r <= 64) return tall ? REDUCE(16, 2) : REDUCE(1, 2);
-  if (d_r <= 128) return REDUCE(1, 4);
-  if (d_r <= 256) return REDUCE(1, 8);
-  if (d_r <= 512) return REDUCE(1, 16);
-  return REDUCE(1, 32);
-#undef REDUCE
+#define FMA(RQ, CJ) launch_reduce<FmaBody<RQ, CJ>, RQ, 32 * CJ, kCount>(a, p, s)
+#define MMA(RQ, DRP) launch_reduce<MmaBody<RQ, DRP>, RQ, DRP, kCount>(a, p, s)
+  if (dtype == 0) {
+    switch (p.drp) {
+      case 32: return FMA(16, 1);
+      case 64: return FMA(16, 2);
+      case 128: return FMA(8, 4);
+      case 256: return FMA(4, 8);
+      case 512: return FMA(2, 16);
+      default: return FMA(1, 32);
+    }
+  }
+  const bool tall = p.rq == 64;
+  switch (p.drp) {
+    case 32: return tall ? MMA(64, 32) : MMA(16, 32);
+    case 64: return tall ? MMA(64, 64) : MMA(16, 64);
+    case 128: return tall ? MMA(64, 128) : MMA(16, 128);
+    case 256: return MMA(16, 256);
+    case 512: return MMA(16, 512);
+    default: return MMA(16, 1024);
+  }
+#undef FMA
+#undef MMA
+}
+
+bool reduce_args_ok(int n_rows, int d, int d_r, int qmax, int dtype) {
+  return n_rows > 0 && d > 0 && d_r > 0 && d_r <= kMaxDr && qmax >= 0 && qmax <= 127 &&
+         (dtype == 0 || dtype == 1);
 }
 
 template <bool kCount>
 int reduce_entry(const void* x, const void* w, void* codes, void* scales, int* counts,
-                 int n_rows, int d, int d_r, int qmax, int dtype, void* stream) {
-  if (n_rows <= 0 || d <= 0 || d_r <= 0 || d_r > kMaxDr || qmax < 0 || qmax > 127)
+                 void* partials, void* tickets, int n_rows, int d, int d_r, int qmax,
+                 int dtype, void* stream) {
+  if (!reduce_args_ok(n_rows, d, d_r, qmax, dtype)) return (int)cudaErrorInvalidValue;
+  const ReducePlan p = plan_reduce(n_rows, d, d_r, dtype);
+  if (p.splits > 1 && (partials == nullptr || tickets == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_reduce<float, kCount>(x, w, codes, scales, counts, n_rows, d,
-                                               d_r, qmax, s);
-  if (dtype == 1)
-    return (int)dispatch_reduce<__nv_bfloat16, kCount>(x, w, codes, scales, counts,
-                                                       n_rows, d, d_r, qmax, s);
-  return (int)cudaErrorInvalidValue;
+  ReduceArgs a;
+  a.x = x;
+  a.w = w;
+  a.codes = static_cast<int8_t*>(codes);
+  a.scales = static_cast<float*>(scales);
+  a.counts = counts;
+  a.partials = static_cast<float*>(partials);
+  a.tickets = static_cast<unsigned int*>(tickets);
+  a.n_rows = n_rows;
+  a.d = d;
+  a.d_r = d_r;
+  a.qmax = qmax;
+  a.kslice = p.kslice;
+  a.splits = p.splits;
+  return (int)dispatch_reduce<kCount>(a, p, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // codes * scale of rows [row0, row0 + RD) as f32 in shared memory, k-major
@@ -319,7 +680,7 @@ int reduce_entry(const void* x, const void* w, void* codes, void* scales, int* c
 __device__ __forceinline__ void stage_dequant(const int8_t* __restrict__ codes,
                                               const float* __restrict__ scales,
                                               float* rs, int row0, int n_rows, int d_r) {
-  for (int e = threadIdx.x; e < RD * d_r; e += kThreads) {
+  for (int e = threadIdx.x; e < RD * d_r; e += blockDim.x) {
     const int r = e / d_r, k = e % d_r, row = row0 + r;
     rs[k * RD + r] = row < n_rows ? (float)codes[(size_t)row * d_r + k] * scales[row] : 0.f;
   }
@@ -368,34 +729,52 @@ dequant_restore_kernel(const int8_t* __restrict__ codes,
   }
 }
 
-// x is written and then read back by the same block, so it is a plain
-// pointer (see row_norm.cuh).  The norm reads w as it writes h: holding w
-// too, as rmsnorm does, costs this kernel its second block an SM; the sums
-// run in the same order either way.
+// A cluster of kCluster blocks owns `sub` tiles of RD rows: block `rank`
+// restores the column slabs rank, rank + kCluster, ... of DDN columns, one
+// column a thread, for each tile in turn.  After the cluster barrier every
+// column of those rows is in x, and row r of the cluster's rows goes to
+// warp (r / kCluster) % kNormWarps of block r % kCluster.  x is written by
+// other SMs of the cluster and read back here, so it is a plain pointer (see
+// row_norm.cuh), never read through the non-coherent path.  The norm reads
+// w as it writes h (no PREFETCH_W): holding w too, as rmsnorm does, costs
+// registers; the sums run in the same order either way.
+constexpr int kCluster = 8;       // blocks a cluster: the portable maximum
+constexpr int DDN = 512;          // columns (and threads) a restore_norm block
+constexpr int kNormWarps = DDN / 32;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(DDN)
 dequant_restore_norm_kernel(const int8_t* __restrict__ codes,
                             const float* __restrict__ scales,
                             const T* __restrict__ w, const T* __restrict__ norm_w,
                             T* x, T* __restrict__ h, int n_rows, int d_r, int d,
-                            float eps) {
+                            float eps, int sub) {
   extern __shared__ __align__(16) float rs[];   // d_r x RD, codes * scale as f32
-  const int row0 = blockIdx.x * RD;
-  stage_dequant(codes, scales, rs, row0, n_rows, d_r);
-  __syncthreads();
-
-  for (int col = threadIdx.x; col < d; col += DD) {
-    float acc[RD];
-    restore_column(rs, w, col, d_r, d, acc);
+  const int rank = blockIdx.x % kCluster, row0 = blockIdx.x / kCluster * RD * sub;
+  for (int t = 0; t < sub && row0 + t * RD < n_rows; ++t) {
+    const int r0 = row0 + t * RD;
+    if (t) __syncthreads();                     // the last tile's rs is read
+    stage_dequant(codes, scales, rs, r0, n_rows, d_r);
+    __syncthreads();
+    for (int col = rank * DDN + threadIdx.x; col < d; col += kCluster * DDN) {
+      float acc[RD];
+      restore_column(rs, w, col, d_r, d, acc);
 #pragma unroll
-    for (int r = 0; r < RD; ++r) {
-      const int row = row0 + r;
-      if (row < n_rows) from_f32(acc[r], &x[(size_t)row * d + col]);
+      for (int r = 0; r < RD; ++r) {
+        const int row = r0 + r;
+        if (row < n_rows) from_f32(acc[r], &x[(size_t)row * d + col]);
+      }
     }
   }
-  __syncthreads();                  // every column of the block's rows is in x
+  // every block's x stores are visible to every thread of the cluster after
+  // the barrier: each thread fences its own stores, the arrive releases and
+  // the wait acquires
+  __threadfence();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 
-  for (int r = threadIdx.x / 32; r < RD; r += kWarps) {
+  for (int r = rank + kCluster * (threadIdx.x / 32); r < RD * sub;
+       r += kCluster * kNormWarps) {
     const int row = row0 + r;
     if (row < n_rows)
       row_norm::warp_row_norm<T, false>(x + (size_t)row * d, norm_w,
@@ -421,6 +800,37 @@ cudaError_t launch_restore(const int8_t* codes, const float* scales,
   return cudaGetLastError();
 }
 
+// The clusters of restore_norm the current card holds at once
+// (cudaOccupancyMaxActiveClusters), asked once a device and dtype for
+// shared memory up to 48 KB and once past it (a block is held to one an SM
+// by its registers either way); the answer sets only which rows a cluster
+// owns, never a value computed.
+template <typename T>
+cudaError_t restore_norm_wave(size_t smem, int* wave) {
+  static int cached[64][2];                      // [device][smem > 48 KB]
+  auto kern = dequant_restore_norm_kernel<T>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int& slot = cached[dev & 63][smem > 48 * 1024];
+  if (slot <= 0) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster);
+    cfg.blockDim = dim3(DDN);
+    cfg.dynamicSmemBytes = smem;
+    err = cudaOccupancyMaxActiveClusters(&slot, kern, &cfg);
+    if (err != cudaSuccess) return err;
+    if (slot <= 0) return cudaErrorInvalidConfiguration;   // no cluster fits
+  }
+  *wave = slot;
+  return cudaSuccess;
+}
+
 template <typename T>
 cudaError_t launch_restore_norm(const int8_t* codes, const float* scales,
                                 const void* w, const void* norm_w, void* x, void* h,
@@ -428,16 +838,19 @@ cudaError_t launch_restore_norm(const int8_t* codes, const float* scales,
                                 cudaStream_t stream) {
   const size_t smem = (size_t)RD * d_r * sizeof(float);
   auto kern = dequant_restore_norm_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((n_rows + RD - 1) / RD);
-  kern<<<grid, kThreads, smem, stream>>>(codes, scales, static_cast<const T*>(w),
-                                         static_cast<const T*>(norm_w),
-                                         static_cast<T*>(x), static_cast<T*>(h),
-                                         n_rows, d_r, d, eps);
+  // one RD-row tile a cluster while the clusters fit one wave of the card,
+  // then as many tiles a cluster as keep it to one wave; __cluster_dims__
+  // fixes the cluster shape, so a card that cannot place it refuses the
+  // launch (and the occupancy query fails first)
+  const int tiles = (n_rows + RD - 1) / RD;
+  int wave = 0;
+  const cudaError_t err = restore_norm_wave<T>(smem, &wave);
+  if (err != cudaSuccess) return err;
+  const int sub = (tiles + wave - 1) / wave;
+  const dim3 grid((unsigned)kCluster * ((tiles + sub - 1) / sub));
+  kern<<<grid, DDN, smem, stream>>>(codes, scales, static_cast<const T*>(w),
+                                    static_cast<const T*>(norm_w), static_cast<T*>(x),
+                                    static_cast<T*>(h), n_rows, d_r, d, eps, sub);
   return cudaGetLastError();
 }
 
@@ -448,23 +861,39 @@ cudaError_t launch_restore_norm(const int8_t* codes, const float* scales,
 // The column count w_reduce must have for butterfly_reduce_quant.
 extern "C" int butterfly_reduce_width(int d_r) { return padded_width(d_r); }
 
+// The scratch butterfly_reduce_quant(_bincount) needs at this shape:
+// sizes[0] f32 partial sums (0 when the plan does not split k) and
+// sizes[1] tickets (uint32, zero before the first launch; the kernel leaves
+// them zero again, so a buffer serves every later launch on one stream).
+extern "C" int butterfly_reduce_scratch(int n_rows, int d, int d_r, int dtype,
+                                        long long* sizes) {
+  if (!reduce_args_ok(n_rows, d, d_r, 0, dtype)) return (int)cudaErrorInvalidValue;
+  const ReducePlan p = plan_reduce(n_rows, d, d_r, dtype);
+  sizes[0] = p.splits > 1 ? (long long)p.tiles * p.splits * p.rq * p.drp : 0;
+  sizes[1] = p.splits > 1 ? p.tiles : 0;
+  return 0;
+}
+
 // w must hold butterfly_reduce_width(d_r) columns (zeros past d_r) and be
-// 16-byte aligned.
+// 16-byte aligned; partials and tickets as butterfly_reduce_scratch sizes
+// them (may be null where it gives 0).
 extern "C" int butterfly_reduce_quant(const void* x, const void* w, void* codes,
-                                      void* scales, int n_rows, int d, int d_r,
-                                      int qmax, int dtype, void* stream) {
-  return reduce_entry<false>(x, w, codes, scales, nullptr, n_rows, d, d_r, qmax, dtype,
-                             stream);
+                                      void* scales, void* partials, void* tickets,
+                                      int n_rows, int d, int d_r, int qmax, int dtype,
+                                      void* stream) {
+  return reduce_entry<false>(x, w, codes, scales, nullptr, partials, tickets, n_rows, d,
+                             d_r, qmax, dtype, stream);
 }
 
 // As butterfly_reduce_quant, and counts (d_r x 2 * (qmax + 1) int32, zeroed by
 // the caller) gains each stored code's symbol code + qmax + 1.
 extern "C" int butterfly_reduce_quant_bincount(const void* x, const void* w,
                                                void* codes, void* scales, void* counts,
+                                               void* partials, void* tickets,
                                                int n_rows, int d, int d_r, int qmax,
                                                int dtype, void* stream) {
-  return reduce_entry<true>(x, w, codes, scales, static_cast<int*>(counts), n_rows, d,
-                            d_r, qmax, dtype, stream);
+  return reduce_entry<true>(x, w, codes, scales, static_cast<int*>(counts), partials,
+                            tickets, n_rows, d, d_r, qmax, dtype, stream);
 }
 
 // out has the dtype of w.
@@ -477,6 +906,16 @@ extern "C" int butterfly_dequant_restore(const void* codes, const void* scales,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_restore<float>(c, sc, w, out, n_rows, d_r, d, s);
   if (dtype == 1) return (int)launch_restore<__nv_bfloat16>(c, sc, w, out, n_rows, d_r, d, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The restore_norm clusters the current card holds at once at this d_r
+// (a cluster owns one 16-row tile up to 16 * wave rows, more beyond).
+extern "C" int butterfly_restore_norm_wave(int d_r, int dtype, int* wave) {
+  if (d_r <= 0 || d_r > kMaxDr) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)RD * d_r * sizeof(float);
+  if (dtype == 0) return (int)restore_norm_wave<float>(smem, wave);
+  if (dtype == 1) return (int)restore_norm_wave<__nv_bfloat16>(smem, wave);
   return (int)cudaErrorInvalidValue;
 }
 

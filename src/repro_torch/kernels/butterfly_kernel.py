@@ -9,9 +9,12 @@ through the kernel.  The TPU kernels these replace are
 ``:butterfly_reduce_quant_bincount_kernel``,
 ``:butterfly_dequant_restore_kernel`` and
 ``:butterfly_dequant_restore_norm_kernel``; the source notes in the ``.cu``
-file give each kernel's bound and design.
+file give each kernel's bound and design.  The reduce kernels may split d
+over blocks; their wrappers then hand the kernel its scratch (below).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +24,33 @@ from repro_torch.kernels._launch import DTYPE_CODE, aligned, check, raise_on, \
     stream
 
 MAX_D_R = 1024
+
+# reduce_quant's split-K tickets, one buffer per (device, stream): the kernel
+# leaves them zero after every launch, so launches in one stream's order
+# share a buffer, and two streams never do
+_tickets: dict = {}
+
+
+def _reduce_scratch(lib, x: torch.Tensor, d_r: int):
+    """Split-K scratch for a reduce launch on x's stream: (the partials
+    tensor, to hold until the launch is queued; its data pointer; the
+    tickets' data pointer), or (None, 0, 0) where the plan does not split
+    k.  The f32 partial sums come from the caching allocator (ordered on
+    the current stream), the tickets from the per-stream buffer, zeroed
+    once when made or grown."""
+    T, d = x.shape
+    sizes = (ctypes.c_longlong * 2)()
+    raise_on(lib.butterfly_reduce_scratch(T, d, d_r, DTYPE_CODE[x.dtype], sizes),
+             "butterfly_reduce_scratch")
+    if sizes[0] == 0:
+        return None, 0, 0
+    partials = torch.empty(sizes[0], dtype=torch.float32, device=x.device)
+    key = (x.device.index, stream(x))
+    tickets = _tickets.get(key)
+    if tickets is None or tickets.numel() < sizes[1]:
+        tickets = _tickets[key] = torch.zeros(sizes[1], dtype=torch.int32,
+                                              device=x.device)
+    return partials, partials.data_ptr(), tickets.data_ptr()
 
 
 def _reduce_args(x: torch.Tensor, w_reduce: torch.Tensor, bits: int):
@@ -57,10 +87,11 @@ def reduce_quant(x: torch.Tensor, w_reduce: torch.Tensor, bits: int = 8):
     if lib is None:
         return codes, scales
     T, d = x.shape
+    partials, p_ptr, t_ptr = _reduce_scratch(lib, x, codes.shape[1])
     err = lib.butterfly_reduce_quant(
         x.data_ptr(), w.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        T, d, codes.shape[1], 2 ** (bits - 1) - 1, DTYPE_CODE[x.dtype],
-        stream(x))
+        p_ptr, t_ptr, T, d, codes.shape[1], 2 ** (bits - 1) - 1,
+        DTYPE_CODE[x.dtype], stream(x))
     raise_on(err, "butterfly_reduce_quant")
     reduce_quant.launches += 1
     return codes, scales
@@ -81,10 +112,11 @@ def reduce_quant_bincount(x: torch.Tensor, w_reduce: torch.Tensor,
     if lib is None:
         return codes, scales, counts
     T, d = x.shape
+    partials, p_ptr, t_ptr = _reduce_scratch(lib, x, codes.shape[1])
     err = lib.butterfly_reduce_quant_bincount(
         x.data_ptr(), w.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        counts.data_ptr(), T, d, codes.shape[1], 2 ** (bits - 1) - 1,
-        DTYPE_CODE[x.dtype], stream(x))
+        counts.data_ptr(), p_ptr, t_ptr, T, d, codes.shape[1],
+        2 ** (bits - 1) - 1, DTYPE_CODE[x.dtype], stream(x))
     raise_on(err, "butterfly_reduce_quant_bincount")
     reduce_quant_bincount.launches += 1
     return codes, scales, counts
@@ -162,3 +194,13 @@ def dequant_restore_norm(codes: torch.Tensor, scales: torch.Tensor,
 
 
 dequant_restore_norm.launches = 0
+
+
+def restore_norm_wave(d_r: int, dtype=torch.bfloat16) -> int:
+    """The clusters of :func:`dequant_restore_norm` the current card holds
+    at once at this ``d_r``: a cluster owns one 16-row tile up to
+    ``16 * wave`` rows and more beyond (the kernel asks the same)."""
+    wave = ctypes.c_int()
+    raise_on(build.load("butterfly").butterfly_restore_norm_wave(
+        d_r, DTYPE_CODE[dtype], ctypes.byref(wave)), "butterfly_restore_norm_wave")
+    return wave.value

@@ -63,10 +63,14 @@ def _inputs(T, d, d_r, dtype, seed):
     return x.to(dtype), w.to(dtype)
 
 
-# every compiled variant: reduce_quant's channel widths 32..1024 (CJ = 1..32)
-# with 1-row blocks up to 1,024 rows and 16-row blocks above (d_r <= 64);
+# every compiled variant: reduce_quant's channel widths 32..1024 in f32
+# (CUDA cores) and bf16 (tensor cores), bf16 row tiles of 16 up to 1,024
+# rows and of 64 above (d_r <= 128), split-K on (d > one chunk; up to 64
+# slices below 16 rows, at most 8 from 16 rows on) and off (d=64 in bf16
+# and d=128 at d_r <= 64 in f32 are one chunk), bf16 x rows whose width is
+# not a whole number of 16-byte pieces (d=100, 1001: element loads);
 # dequant_restore past 48 KB of shared memory at d_r = 1024
-@pytest.mark.parametrize("T", [1, 4, 8, 37, 512, 1025])
+@pytest.mark.parametrize("T", [1, 4, 8, 16, 32, 33, 37, 512, 1024, 1025, 4096])
 @pytest.mark.parametrize("d,d_r,dtype", [(4096, 64, torch.bfloat16),
                                          (256, 16, torch.float32),
                                          (200, 48, torch.bfloat16),
@@ -75,7 +79,11 @@ def _inputs(T, d, d_r, dtype, seed):
                                          (384, 256, torch.bfloat16),
                                          (384, 512, torch.float32),
                                          (256, 1024, torch.float32),
-                                         (256, 1024, torch.bfloat16)])
+                                         (256, 1024, torch.bfloat16),
+                                         (64, 64, torch.bfloat16),
+                                         (128, 32, torch.float32),
+                                         (100, 16, torch.bfloat16),
+                                         (1001, 48, torch.bfloat16)])
 def test_kernels_match_plain(cuda, T, d, d_r, dtype):
     x, w = (t.to(cuda) for t in _inputs(T, d, d_r, dtype, seed=T))
     n0 = butterfly_kernel.reduce_quant.launches
@@ -108,12 +116,13 @@ def test_kernels_match_plain(cuda, T, d, d_r, dtype):
 
 
 # the bincount variant of every compiled reduce_quant variant (each channel
-# width in f32 and bf16, 1-row and 16-row blocks), at both widths of the
-# code alphabet: codes and scales bit for bit reduce_quant's, counts exactly
-# the plain histogram of those codes, and within 2 per differing code of the
-# whole plain version's (its codes may differ by 1 on 0.1% of entries)
+# width in f32 and bf16, both bf16 row tiles, split-K on and off), at both
+# widths of the code alphabet: codes and scales bit for bit reduce_quant's,
+# counts exactly the plain histogram of those codes, and within 2 per
+# differing code of the whole plain version's (its codes may differ by 1 on
+# 0.1% of entries)
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("T", [1, 4, 37, 512, 1025])
+@pytest.mark.parametrize("T", [1, 4, 16, 32, 33, 37, 512, 1024, 1025])
 @pytest.mark.parametrize("d,d_r,dtype", [(256, 16, torch.float32),
                                          (256, 16, torch.bfloat16),
                                          (4096, 64, torch.bfloat16),
@@ -125,7 +134,8 @@ def test_kernels_match_plain(cuda, T, d, d_r, dtype):
                                          (384, 512, torch.float32),
                                          (384, 512, torch.bfloat16),
                                          (256, 1024, torch.float32),
-                                         (256, 1024, torch.bfloat16)])
+                                         (256, 1024, torch.bfloat16),
+                                         (64, 64, torch.bfloat16)])
 def test_bincount_kernel_matches_reduce_quant_and_plain(cuda, d, d_r, dtype, T,
                                                         bits):
     x, w = (t.to(cuda) for t in _inputs(T, d, d_r, dtype, seed=T + bits))
@@ -196,10 +206,13 @@ def _norm_tol(dtype):
 
 
 # d_r 16-1024 (shared memory past 48 KB at 1024), d 4096 and 3840 (the two
-# models), ragged widths and every width of the rmsnorm test (16-byte rows
-# take the norm routine's vector branch, d 33 and 1001 its scalar one), 1 to
-# 1,025 rows (one or many 16-row blocks)
-@pytest.mark.parametrize("T", [1, 4, 16, 37, 512, 1025])
+# models: every block of a cluster's eight 512-column slabs busy, the last
+# half idle), 5000 (two slabs for some blocks), ragged widths and every width
+# of the rmsnorm test (16-byte rows take the norm routine's vector branch, d
+# 33 and 1001 its scalar one; at small d most blocks restore nothing), 1 to
+# 4,096 rows (one or many 16-row tiles, a ragged last tile; a cluster owns
+# one tile up to one wave of clusters and more beyond, see below)
+@pytest.mark.parametrize("T", [1, 4, 16, 17, 37, 240, 241, 512, 1025, 4096])
 @pytest.mark.parametrize("d,d_r,dtype", [(4096, 64, torch.bfloat16),
                                          (3840, 60, torch.bfloat16),
                                          (4096, 64, torch.float32),
@@ -210,7 +223,8 @@ def _norm_tol(dtype):
                                          # the other widths of the rmsnorm test
                                          (33, 16, torch.float32),
                                          (1000, 48, torch.bfloat16),
-                                         (1001, 16, torch.bfloat16)])
+                                         (1001, 16, torch.bfloat16),
+                                         (5000, 64, torch.bfloat16)])
 def test_restore_norm_matches_plain_and_its_parts(cuda, T, d, d_r, dtype):
     codes, scales, wr, nw = (t.to(cuda) for t in _restore_inputs(T, d, d_r,
                                                                   dtype, seed=T))
@@ -226,6 +240,79 @@ def test_restore_norm_matches_plain_and_its_parts(cuda, T, d, d_r, dtype):
     assert rmsnorm_kernel.rmsnorm.launches == n0 + 1
     _near_restore(x, codes, scales, wr, dtype)
     torch.testing.assert_close(h, ref.rms_norm_ref(x, nw, 1e-6), **_norm_tol(dtype))
+
+
+def test_restore_norm_cluster_tiles_on_both_sides_of_one_wave(cuda):
+    """A restore_norm cluster owns one 16-row tile while the clusters fit
+    one wave of the card and several beyond: both sides of that switch (and
+    a ragged count well past it), at d_r 64 and 1024 (shared memory past
+    48 KB), keep x equal to dequant_restore's and h to rmsnorm's."""
+    for d_r, dtype in ((64, torch.bfloat16), (1024, torch.float32)):
+        wave = butterfly_kernel.restore_norm_wave(d_r, dtype)
+        assert wave >= 1
+        for T in (16 * wave, 16 * wave + 1, 48 * wave + 5):
+            codes, scales, wr, nw = (t.to(cuda) for t in _restore_inputs(
+                T, 512, d_r, dtype, seed=T))
+            x, h = ops.butterfly_restore_norm(codes, scales, wr, nw, eps=1e-6,
+                                              out_dtype=dtype)
+            assert torch.equal(x, ops.butterfly_dequant_restore(
+                codes, scales, wr, out_dtype=dtype))
+            assert torch.equal(h, ops.rmsnorm(x, nw, eps=1e-6))
+            _near_restore(x, codes, scales, wr, dtype)
+
+
+# the wire kernels' blocks share data within a launch (reduce_quant's
+# split-K partials and tickets, restore_norm's x across a cluster): any
+# missing fence, stale read or reused ticket shows as a call that differs
+@pytest.mark.parametrize("T", [1, 4, 128, 4096])
+def test_wire_kernels_repeat_bit_for_bit(cuda, T):
+    x, w = (t.to(cuda) for t in _inputs(T, 4096, 64, torch.bfloat16, seed=T))
+    codes, scales, wr, nw = (t.to(cuda) for t in _restore_inputs(
+        T, 4096, 64, torch.bfloat16, seed=T))
+    first = (ops.butterfly_reduce_quant(x, w),
+             ops.butterfly_restore_norm(codes, scales, wr, nw, eps=1e-6,
+                                        out_dtype=torch.bfloat16))
+    for _ in range(19):
+        again = (ops.butterfly_reduce_quant(x, w),
+                 ops.butterfly_restore_norm(codes, scales, wr, nw, eps=1e-6,
+                                            out_dtype=torch.bfloat16))
+        for a, b in zip(first, again):
+            assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_wire_kernels_on_two_streams_match_serial(cuda):
+    """reduce_quant and restore_norm, 10 calls each on each of two streams
+    at once (their launches interleave on the card), give what serial calls
+    on the default stream give, bit for bit: the two streams' split-K
+    tickets never meet."""
+    shapes = (1, 4, 128)
+    xs = [tuple(t.to(cuda) for t in _inputs(T, 4096, 64, torch.bfloat16, seed=T))
+          for T in shapes]
+    rs = [tuple(t.to(cuda) for t in _restore_inputs(T, 4096, 64, torch.bfloat16,
+                                                     seed=T))
+          for T in shapes]
+
+    def calls():
+        out = []
+        for (x, w), (codes, scales, wr, nw) in zip(xs, rs):
+            out.append(ops.butterfly_reduce_quant(x, w))
+            out.append(ops.butterfly_restore_norm(codes, scales, wr, nw, eps=1e-6,
+                                                  out_dtype=torch.bfloat16))
+        return out
+
+    want = calls()
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    for _ in range(10):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[i].append(calls())
+    torch.cuda.synchronize()
+    for per_stream in got:
+        for outs in per_stream:
+            for a, b in zip(want, outs):
+                assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 @pytest.mark.parametrize("T", [1, 2, 3, 4, 9, 512, 4096])

@@ -263,7 +263,7 @@ def test_runner_refuses_unquantized_wire():
 
 # ----------------------------------------------------------------------- (c)
 PARITY_CODE = r"""
-import os, sys
+import dataclasses, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 import jax, jax.numpy as jnp
 import numpy as np
@@ -280,8 +280,15 @@ from repro_torch.serving.pipeline import make_decode_pipeline as tmake
 
 mesh = Mesh(np.array(jax.devices()).reshape(2, 1, 1), ("pod", "model", "data"))
 PODS = ("cpu", "cpu")
+ARCH = sys.argv[2] if len(sys.argv) > 2 else "qwen3-8b"
 Mmb, mb, S, T, SPLIT, D_R = 2, 2, 8, 4, 1, 32
-jbase, tbase = jget("qwen3-8b").reduced(), tget("qwen3-8b").reduced()
+jbase, tbase = jget(ARCH).reduced(), tget(ARCH).reduced()
+if ARCH == "gemma3-12b":
+    # 4 layers, one global in two, window 4: S + T = 14 positions wrap the
+    # rings of the windowed layers on both pods
+    T = 6
+    jbase, tbase = (dataclasses.replace(c, num_layers=4, global_every=2,
+                                        sliding_window=4) for c in (jbase, tbase))
 toks = np.random.default_rng(1).integers(
     0, jbase.vocab_size, (Mmb * mb, S)).astype(np.int32)
 to_np = lambda t: jax.tree.map(np.asarray, t)
@@ -320,16 +327,29 @@ print("PIPELINE_PARITY_OK")
 """
 
 
+def _parity(*args):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
+    env.pop("XLA_FLAGS", None)
+    res = subprocess.run([sys.executable, "-c", PARITY_CODE, *args], env=env,
+                         capture_output=True, text=True, timeout=500)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "PIPELINE_PARITY_OK" in res.stdout
+
+
 @pytest.mark.subprocess
 @pytest.mark.parametrize("entry", ["make_decode_pipeline", "SplitRunner"])
 def test_pipeline_matches_jax_two_pods(entry):
     """Reduced qwen3-8b in f32, butterfly after layer 1, d_r=32, Mmb=2,
     mb=2, S=8, T=4: greedy ids identical to JAX's for int8 and int4,
     pipelined and serial, with and without ``use_kernel``."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
-    env.pop("XLA_FLAGS", None)
-    res = subprocess.run([sys.executable, "-c", PARITY_CODE, entry], env=env,
-                         capture_output=True, text=True, timeout=500)
-    assert res.returncode == 0, res.stderr[-3000:]
-    assert "PIPELINE_PARITY_OK" in res.stdout
+    _parity(entry)
+
+
+@pytest.mark.subprocess
+@pytest.mark.parametrize("entry", ["make_decode_pipeline", "SplitRunner"])
+def test_windowed_pipeline_matches_jax_two_pods(entry):
+    """The same on reduced gemma3 (4 layers, one global in two, window 4,
+    butterfly after layer 1), S=8, T=6, so the windowed layers' ring caches
+    wrap on both pods: greedy ids identical to JAX's for every setting."""
+    _parity(entry, "gemma3-12b")
