@@ -12,12 +12,14 @@ result line):
   2. build   - compiles the butterfly, flash-attention and RMSNorm kernels
                from src/repro_torch/csrc with nvcc for sm_90a, one nvcc per
                source, all at once, and prints the build seconds and ptxas
-               report;
+               report, and the restore kernels' launch plans (rows a block,
+               blocks, dynamic shared memory) at the timed shapes;
   3. kernels - holds each kernel against its plain PyTorch version on the
                card: the butterfly kernels at both models' widths (d=4096,
-               d_r=64 at 1 to 4,096 rows, both sides of reduce_quant's
-               row-tile switch, and d=3840, d_r=60, bf16) and a small f32
-               shape, with reduce_quant's worst share of differing codes; flash
+               d_r=64 at 1 to 4,096 rows, both sides of reduce_quant's and
+               dequant_restore's row-tile switches, and d=3840, d_r=60,
+               bf16) and a small f32 shape, with reduce_quant's worst share
+               of differing codes; flash
                attention at every head dim (32-256) in f32 (the CUDA-core
                kernel) and bf16 (the tensor-core kernel, whose bf16 weights
                give it its own bound: see _flash_excess), causal, windowed and
@@ -25,7 +27,8 @@ result line):
                paths' shapes;
   4. times   - median CUDA-event time of each kernel, of its plain version
                and, for flash attention, of one scaled_dot_product_attention
-               call (a yardstick the port never calls), inputs cold in L2:
+               call (a yardstick the port never calls; for the restore, three
+               calls: (codes.to(bf16) @ w_restore) * scales), inputs cold in L2:
                the butterfly kernels at 1, 4, 128-1,024, 1,025 and 4,096 rows
                (d=4096) and at gemma3-12b's 100 and 2,048 (d=3840),
                beside the least time the card could take (bytes or
@@ -111,8 +114,10 @@ H100_RATES = (3.35e12, 989e12)
 H100_F32 = 67e12
 
 D, D_R = 4096, 64
-# reduce_quant's bf16 row tile is 16 rows up to 1,024 and 64 above
-CHECK_ROWS = (1, 4, 8, 32, 33, 37, 64, 128, 256, 512, 768, 1024, 1025, 4096)
+# reduce_quant's bf16 row tile is 16 rows up to 1,024 and 64 above;
+# dequant_restore's 16 up to 128, 32 up to 256, 64 up to 512, 128 above
+CHECK_ROWS = (1, 4, 8, 32, 33, 37, 64, 128, 129, 256, 257, 512, 513, 768, 1024,
+              1025, 4096)
 # gemma3-12b's butterfly: d_r = d_model // 64 = 60, padded to 64 channels
 GEMMA_D, GEMMA_D_R = 3840, 60
 GEMMA_ROWS = (1, 100, 2048, 2049)
@@ -153,6 +158,7 @@ def phase_device():
 
 # --------------------------------------------------------------------------- 2
 def phase_build():
+    import torch
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     built = build.compile_libraries()
@@ -166,6 +172,17 @@ def phase_build():
                 print(f"  ptxas: {line.strip()}")
     print(f"build: {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc per source, in parallel)")
+    from repro_torch.kernels import butterfly_kernel as bk
+    for T, d, d_r in [(T, D, D_R) for T in TIME_ROWS] + \
+            [(T, GEMMA_D, GEMMA_D_R) for T in GEMMA_TIME_ROWS]:
+        plan = bk.restore_plan(T, d, d_r)
+        print(f"build: dequant_restore bf16 T={T:5d} d={d} d_r={d_r}: "
+              f"{plan['rows']}-row tiles, {plan['blocks']} blocks of 128 threads, "
+              f"{plan['smem']} B dynamic shared memory a block")
+    for d_r in (16, 60, 64, 1024):
+        print(f"build: dequant_restore_norm d_r={d_r}: dynamic shared memory "
+              f"{bk.restore_plan(1, D, d_r)['norm_smem']} B a block (bf16), "
+              f"{bk.restore_plan(1, D, d_r, torch.float32)['norm_smem']} B (f32)")
 
 
 # --------------------------------------------------------------------------- 3
@@ -405,7 +422,10 @@ def phase_flash_times(rates):
 def phase_times(rates):
     """reduce_quant and dequant_restore, and their plain versions, at
     TIME_ROWS (d=4096, d_r=64) and GEMMA_TIME_ROWS (d=3840, d_r=60), bf16,
-    against the bound (_bounds).  Returns {(name, T, d): times}."""
+    against the bound (_bounds); for dequant_restore also three PyTorch
+    calls, ``(codes.to(bf16) @ w_restore) * scales`` (a yardstick the port
+    never calls: no one call computes the function, so its library_ms stays
+    None).  Returns {(name, T, d): times}."""
     import torch
     from repro_torch.kernels import butterfly_kernel as bk, ref
     out = {}
@@ -429,8 +449,14 @@ def phase_times(rates):
             bound_ms, bound_by = bounds[name]
             out[(name, T, d)] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                                      bound_ms=bound_ms, bound_by=bound_by)
+            three = ""
+            if name == "butterfly_dequant_restore":
+                three_ms = _device_ms(lambda: (codes.to(torch.bfloat16) @ wr) * scales)
+                out[(name, T, d)]["three_calls_ms"] = three_ms
+                three = f"  three calls {three_ms:.4f} ms"
             print(f"times: {name:26s} T={T:5d} d={d} d_r={d_r} kernel {ms:.4f} ms"
-                  f"  plain {plain_ms:.4f} ms  bound {bound_ms:.6f} ms ({bound_by})")
+                  f"  plain {plain_ms:.4f} ms{three}  bound {bound_ms:.6f} ms "
+                  f"({bound_by})")
     return out
 
 

@@ -92,16 +92,50 @@
 //   w_restore (f32 or bf16; the wrapper refuses any other output dtype).
 //
 //   Bound on the card: memory, chiefly writing T*d*bytes(out); it reads
-//   T*d_r int8 codes, T f32 scales and w_restore (d_r*d*bytes).
+//   T*d_r int8 codes, T f32 scales and w_restore (d_r*d*bytes, 512 KB at
+//   d=4096, d_r=64 in bf16).  At d_r=64 it does 128 multiply-adds per
+//   output element: far below the tensor cores' ratio, far above what f32
+//   FMA on the CUDA cores does at the byte bound.
 //
-//   Design: one block owns RD rows x a slab of DD output columns, one column
-//   per thread.  It stages codes*scale as f32 in shared memory, k-major so
-//   one 16-byte load gives a thread four rows (multiply first, then
-//   accumulate, as the TPU kernel does).  Each thread reads its own
-//   w_restore column element once per channel straight into a register and
-//   uses it for all RD rows: no other thread needs that element, so a
-//   shared-memory copy would buy nothing.  bf16 output rounds with
-//   __float2bfloat16_rn.  Rows past T and columns past d are masked.
+//   bf16 design (RestoreTile, tensor cores): out = scale * sum_k code_k * w_k.
+//   An int8 code is exact in bf16, so mma.sync.m16n8k16 (bf16 in, f32
+//   accumulators) forms every product code * w exactly; the row's f32 scale
+//   multiplies the f32 sum once, in the epilogue, and the result rounds once
+//   to bf16 (__floats2bfloat162_rn).  The plain version multiplies first,
+//   (code * scale) @ w: the two differ by f32 rounding, far inside one bf16
+//   ulp.  Feeding code * scale rounded to bf16 into the MMA instead would
+//   round the input to 8 bits.  A tile is BM rows x kRestoreBN = 64
+//   columns, for a block of 4 warps.  cp.async brings the tile's codes (16
+//   or 4 bytes at a time where d_r allows, else plain loads) and scales
+//   with the w_restore slab in 16-byte pieces (k-chunks of 64 rows, all at
+//   once up to 3 chunks, else a ring of 3 stages; rows padded by 16 bytes
+//   so ldmatrix meets no bank conflict; d that is not a multiple of 8, or
+//   an unaligned w, loads an element at a time), zeros past d_r up to kp =
+//   d_r rounded up to 16 (gemma3's d_r = 60 needs no pad in the wrapper).
+//   Each warp turns its rows' codes into bf16 A fragments as it reads them
+//   from shared memory (an exact f32 magic-number conversion, no I2F).  The
+//   epilogue writes the bf16 tile to shared memory (over the codes) and
+//   stores it in 16-byte pieces.  A block walks row tiles of one column
+//   slab: w_restore is loaded once for the walk (up to 3 chunks), and the
+//   next tile's codes and scales arrive in a second buffer while the tile
+//   before computes and stores.  plan_restore picks the tile: the tallest
+//   of 16, 32, 64 and 128 rows that still gives kTargetBlocks tiles (and
+//   whose codes fit 16 KB), so few rows spread over many narrow column
+//   slabs (T=1 at d=4096: 64 blocks, each reading 8 KB of w_restore) and
+//   many rows share each staged slab (T=4096: 128-row tiles, 4 a block, so
+//   4 MB of w_restore pass through L2 where one 16-row tile a block read
+//   128 MB).  At d=4096 or 3840, d_r=64 or 60: 16 rows up to T=128, 32 up
+//   to 256, 64 up to 512, 128 above.  On the card (tune sweep at d=4096)
+//   8 warps a block, 64-row tiles from T=1,024, or twice the blocks did no
+//   better.  No float atomics and no split of k: every call gives the same
+//   bits.
+//   f32 design (CUDA cores; TF32 would break f32's rtol 1e-5): one block
+//   owns RD rows x a slab of DD output columns, one column per thread.  It
+//   stages codes*scale as f32 in shared memory, k-major so one 16-byte load
+//   gives a thread four rows (multiply first, then accumulate, as the TPU
+//   kernel does); each thread reads its own w_restore column element once
+//   per channel straight into a register and uses it for all RD rows.
+//   Rows past T and columns past d are masked.
 // ---------------------------------------------------------------------------
 // butterfly_dequant_restore_norm
 //   replaces src/repro/kernels/butterfly_kernel.py:_dequant_restore_norm_kernel
@@ -117,10 +151,16 @@
 //   Design: the norm needs whole rows, and one SM walking every column of
 //   a 4-row tick left the card idle, so a thread-block cluster of kCluster
 //   = 8 blocks (the portable size; __cluster_dims__) owns RD-row tiles:
-//   each block stages codes * scale (RD x d_r f32, 4 KB at d_r=64) and
-//   restores its own slabs of DDN = 512 columns, one column a thread, with
-//   dequant_restore's helpers (stage_dequant, restore_column), so x equals
-//   dequant_restore's output bit for bit.  Then a cluster barrier (arrive
+//   each block restores its own slabs of DDN = 512 columns of each RD-row
+//   tile with dequant_restore's routine for the dtype: in bf16 RestoreTile's
+//   walk over the cluster's tiles (16 warps, each 16 rows x 32 columns; a
+//   slab's w_restore, 64 KB at d_r=64, loaded once for the walk where it
+//   fits the 2-stage ring, d_r <= 128), in f32 stage_dequant and
+//   restore_column.
+//   Every output element goes through the same m16n8k16 placement (rows
+//   tiled by 16 and columns by 8 from 0 in both kernels), the same k steps
+//   in the same order from a zero accumulator and the same epilogue, so x
+//   equals dequant_restore's output bit for bit.  Then a cluster barrier (arrive
 //   .release, wait .acquire, after a __threadfence) makes every block's x
 //   stores visible across the cluster, and row r of the cluster's rows goes
 //   to warp (r / 8) % 16 of block r % 8, which normalises it with
@@ -128,7 +168,7 @@
 //   with plain loads.  rmsnorm uses the same routine, so its output equals
 //   h bit for bit.  A cluster owns one tile while the clusters fit one
 //   wave of the card (as many as cudaOccupancyMaxActiveClusters gives: a
-//   block of 512 threads of 98 registers holds an SM), and ceil(tiles /
+//   block of 512 threads of 128 registers holds an SM), and ceil(tiles /
 //   wave) tiles beyond, so the grid stays one wave and its norm keeps more
 //   warps busy.  A 4-row tick runs on 8 SMs; d that 8 * 512 does not
 //   divide leaves columns of the last slab (and at small d whole blocks)
@@ -141,9 +181,6 @@
 #include "row_norm.cuh"
 
 namespace {
-
-using row_norm::from_f32;
-using row_norm::to_f32;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -675,6 +712,7 @@ int reduce_entry(const void* x, const void* w, void* codes, void* scales, int* c
   return (int)dispatch_reduce<kCount>(a, p, dtype, static_cast<cudaStream_t>(stream));
 }
 
+// ---- dequant_restore and restore_norm: the f32 walk (CUDA cores) ----------
 // codes * scale of rows [row0, row0 + RD) as f32 in shared memory, k-major
 // (rs[k * RD + r]); rows past n_rows are zeros
 __device__ __forceinline__ void stage_dequant(const int8_t* __restrict__ codes,
@@ -688,14 +726,13 @@ __device__ __forceinline__ void stage_dequant(const int8_t* __restrict__ codes,
 
 // acc[r] = sum over k, in order, of rs[k][r] * w[k][col] (f32 fmaf): one
 // output column of the block's RD rows
-template <typename T>
-__device__ __forceinline__ void restore_column(const float* rs, const T* __restrict__ w,
+__device__ __forceinline__ void restore_column(const float* rs, const float* __restrict__ w,
                                                int col, int d_r, int d, float (&acc)[RD]) {
 #pragma unroll
   for (int r = 0; r < RD; ++r) acc[r] = 0.f;
 #pragma unroll 8
   for (int k = 0; k < d_r; ++k) {
-    const float wv = to_f32(w[(size_t)k * d + col]);
+    const float wv = w[(size_t)k * d + col];
 #pragma unroll
     for (int r = 0; r < RD; r += 4) {
       const float4 rv = *reinterpret_cast<const float4*>(&rs[k * RD + r]);
@@ -707,13 +744,13 @@ __device__ __forceinline__ void restore_column(const float* rs, const T* __restr
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-dequant_restore_kernel(const int8_t* __restrict__ codes,
-                       const float* __restrict__ scales,
-                       const T* __restrict__ w, T* __restrict__ out,
-                       int n_rows, int d_r, int d) {
-  extern __shared__ __align__(16) float rs[];   // d_r x RD, codes * scale as f32
+dequant_restore_f32_kernel(const int8_t* __restrict__ codes,
+                           const float* __restrict__ scales,
+                           const float* __restrict__ w, float* __restrict__ out,
+                           int n_rows, int d_r, int d) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* rs = reinterpret_cast<float*>(smem_raw);   // d_r x RD, codes * scale
   const int row0 = blockIdx.x * RD;
   stage_dequant(codes, scales, rs, row0, n_rows, d_r);
   __syncthreads();
@@ -725,16 +762,375 @@ dequant_restore_kernel(const int8_t* __restrict__ codes,
 #pragma unroll
   for (int r = 0; r < RD; ++r) {
     const int row = row0 + r;
-    if (row < n_rows) from_f32(acc[r], &out[(size_t)row * d + col]);
+    if (row < n_rows) out[(size_t)row * d + col] = acc[r];
   }
 }
 
+// ---- dequant_restore and restore_norm: the bf16 tile (tensor cores) --------
+struct RestoreArgs {
+  const int8_t* codes;
+  const float* scales;
+  const void* w;            // (d_r, d) of the kernel's dtype
+  void* out;                // (n_rows, d) of the kernel's dtype (restore_norm: x)
+  int n_rows, d_r, d;
+  int kp;                   // d_r rounded up to 16: the k the products run over
+  int cbytes;               // codes copied 16 or 4 bytes at a time, or 1: plain loads
+  bool vec;                 // w read and out written 16 bytes at a time
+};
+
+RestoreArgs restore_args(const void* codes, const void* scales, const void* w, void* out,
+                         int n_rows, int d_r, int d) {
+  RestoreArgs p;
+  p.codes = static_cast<const int8_t*>(codes);
+  p.scales = static_cast<const float*>(scales);
+  p.w = w;
+  p.out = out;
+  p.n_rows = n_rows;
+  p.d_r = d_r;
+  p.d = d;
+  p.kp = (d_r + 15) / 16 * 16;
+  const uintptr_t ca = reinterpret_cast<uintptr_t>(codes);
+  p.cbytes = d_r % 16 == 0 && (ca & 15) == 0 ? 16 : d_r % 4 == 0 && (ca & 3) == 0 ? 4 : 1;
+  p.vec = d % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0 &&
+          (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  return p;
+}
+
+// 4 bytes global -> shared, asynchronously; bytes < 4 fills the rest with zeros
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p))
+               : "memory");
+}
+
+// Two int8 codes, the low and the high byte of v, as a bf16 pair (low
+// element first), exactly: the byte c + 128 in the low mantissa bits of
+// 2**23 is the f32 2**23 + 128 + c, and subtracting 2**23 + 128 is exact
+__device__ __forceinline__ uint32_t codes_to_bf16x2(uint32_t v) {
+  const uint32_t u = v ^ 0x8080u;
+  const float lo = __uint_as_float(0x4B000000u | (u & 0xffu)) - 8388736.f;
+  const float hi = __uint_as_float(0x4B000000u | ((u >> 8) & 0xffu)) - 8388736.f;
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// Tiles of BM x BN outputs, WM x WN warps, each MT x NT tiles of 16 x 8:
+// out = bf16(scale * sum_k code_k * w_k) with every product on the tensor
+// cores and the k steps of 16 in order from a zero accumulator, whatever
+// the tile shape, so two tile shapes give the same bits for the same
+// element.  Shared memory: two buffers, each of BM scales (f32) and a
+// region that holds a tile's codes as copied (BM rows of kp int8, row
+// stride kp + 16) and then its output tile (row stride BN + 8 bf16); and a
+// ring of w chunks (KC k rows x BN columns, row stride BN + 8; a chunk of
+// kp rows where kp < KC).  The codes and w arrive by cp.async together,
+// so a block waits for memory once a tile; each warp then turns its rows'
+// codes into its bf16 A fragments straight from the copy
+// (codes_to_bf16x2).  The strides keep the rows of an ldmatrix, and the
+// codes a warp reads, in distinct banks.
+template <int BM, int BN, int WM, int WN, int KC, int kStages>
+struct RestoreTile {
+  using bf16 = __nv_bfloat16;
+  static constexpr int kBlock = 32 * WM * WN;
+  static constexpr int MT = BM / 16 / WM, NT = BN / 8 / WN;
+  static constexpr int WS = BN + 8, OS = BN + 8;
+  static_assert(MT >= 1 && NT >= 2 && NT % 2 == 0 && KC % 16 == 0, "tile does not fit");
+
+  __host__ __device__ static int chunks(int kp) { return (kp + KC - 1) / KC; }
+  __host__ __device__ static int stages(int kp) {
+    return chunks(kp) < kStages ? chunks(kp) : kStages;
+  }
+  __host__ __device__ static int stage_elems(int kp) { return (kp < KC ? kp : KC) * WS; }
+  __host__ __device__ static int region_bytes(int kp) {
+    return BM * (kp + 16 > OS * 2 ? kp + 16 : OS * 2);
+  }
+  __host__ __device__ static size_t smem(int kp) {
+    return 2 * ((size_t)BM * 4 + region_bytes(kp)) + (size_t)stages(kp) * stage_elems(kp) * 2;
+  }
+
+  // The codes of rows [row0, row0 + BM) into raw[r * (kp + 16) + k], zeros
+  // past d_r and past n_rows: by cp.async where they come in 16- or 4-byte
+  // pieces, else plain loads; their scales into sc by cp.async
+  __device__ static void load_codes(const RestoreArgs& p, int8_t* raw, float* sc, int row0) {
+    const int rs = p.kp + 16;
+    if (p.cbytes > 1) {
+      const int cb = p.cbytes, q = p.kp / cb;
+      for (int i = threadIdx.x; i < BM * q; i += kBlock) {
+        const int r = i / q, k = (i - r * q) * cb, row = row0 + r;
+        const bool ok = row < p.n_rows && k < p.d_r;    // d_r % cb == 0: whole pieces
+        const int8_t* src = ok ? p.codes + (size_t)row * p.d_r + k : p.codes;
+        if (cb == 16) cp_async16(raw + r * rs + k, src, ok ? 16 : 0);
+        else cp_async4(raw + r * rs + k, src, ok ? 4 : 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < BM * p.kp; i += kBlock) {
+        const int r = i / p.kp, k = i - r * p.kp, row = row0 + r;
+        raw[r * rs + k] = row < p.n_rows && k < p.d_r ? p.codes[(size_t)row * p.d_r + k] : 0;
+      }
+    }
+    for (int r = threadIdx.x; r < BM; r += kBlock) {
+      const bool ok = row0 + r < p.n_rows;
+      cp_async4(sc + r, ok ? p.scales + row0 + r : p.scales, ok ? 4 : 0);
+    }
+  }
+
+  // w rows [k0, k0 + min(KC, kp - k0)) of columns [col0, col0 + BN) into
+  // ws[kr * WS + c]: cp.async in 16-byte pieces, or an element at a time;
+  // zeros past d_r and past d
+  __device__ static void load_w(const RestoreArgs& p, bf16* ws, int k0, int col0) {
+    constexpr int P = BN / 8;                        // 16-byte pieces a row
+    const bf16* w = static_cast<const bf16*>(p.w);
+    const int kn = min(KC, p.kp - k0);
+    for (int i = threadIdx.x; i < kn * P; i += kBlock) {
+      const int kr = i / P, c = (i % P) * 8, k = k0 + kr, col = col0 + c;
+      bf16* dst = ws + kr * WS + c;
+      if (p.vec) {
+        const bool ok = k < p.d_r && col < p.d;     // d % 8 == 0: whole pieces
+        cp_async16(dst, ok ? w + (size_t)k * p.d + col : w, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = (k < p.d_r && col + e < p.d) ? w[(size_t)k * p.d + col + e]
+                                                 : __float2bfloat16_rn(0.f);
+      }
+    }
+  }
+
+  // acc += the products of the k steps [k0, k0 + kn) (kn <= KC); the A
+  // fragment of m16n8k16 (rows g and g + 8, k 2t, 2t + 1 and 8 more) comes
+  // from the copied codes, two codes a register
+  __device__ static void mma_chunk(float (&acc)[MT][NT][4], const int8_t* raw, int rs,
+                                   const bf16* ws, int k0, int kn, int m0, int n0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 16) {
+      if (kk >= kn) break;
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int8_t* c = raw + (m0 + m * 16 + g) * rs + k0 + kk + 2 * t;
+        af[m][0] = codes_to_bf16x2(*reinterpret_cast<const uint16_t*>(c));
+        af[m][1] = codes_to_bf16x2(*reinterpret_cast<const uint16_t*>(c + 8 * rs));
+        af[m][2] = codes_to_bf16x2(*reinterpret_cast<const uint16_t*>(c + 8));
+        af[m][3] = codes_to_bf16x2(*reinterpret_cast<const uint16_t*>(c + 8 * rs + 8));
+      }
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, ws + (kk + (lane & 15)) * WS + n0 + (n + (lane >> 4)) * 8);
+        const uint32_t b0[2] = {bf[0], bf[1]}, b1[2] = {bf[2], bf[3]};
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mma_bf16(acc[m][n], af[m], b0);
+          mma_bf16(acc[m][n + 1], af[m], b1);
+        }
+      }
+    }
+  }
+
+  // The epilogue of the tile at (row0, col0): scale the f32 sums, round
+  // once to bf16, write them through shared memory (o, over the tile's
+  // codes) and store them in 16-byte pieces
+  __device__ static void store_tile(const RestoreArgs& p, const float (&acc)[MT][NT][4],
+                                    const float* sc, bf16* o, int m0, int n0, int row0,
+                                    int col0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int r = m0 + m * 16 + g, c = n0 + n * 8 + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(o + r * OS + c) =
+            __floats2bfloat162_rn(acc[m][n][0] * sc[r], acc[m][n][1] * sc[r]);
+        *reinterpret_cast<__nv_bfloat162*>(o + (r + 8) * OS + c) =
+            __floats2bfloat162_rn(acc[m][n][2] * sc[r + 8], acc[m][n][3] * sc[r + 8]);
+      }
+    __syncthreads();
+    constexpr int P = BN / 8;
+    bf16* out = static_cast<bf16*>(p.out);
+    for (int i = threadIdx.x; i < BM * P; i += kBlock) {
+      const int r = i / P, c = (i % P) * 8, row = row0 + r, col = col0 + c;
+      if (row >= p.n_rows || col >= p.d) continue;
+      const bf16* src = o + r * OS + c;
+      bf16* dst = out + (size_t)row * p.d + col;
+      if (p.vec) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (col + e < p.d) dst[e] = src[e];
+      }
+    }
+  }
+
+  // The tiles at rows row0, row0 + stride, ... (ntiles of them) of the
+  // column slab at col0.  Where all of w's chunks fit the ring, the slab's
+  // w is loaded once for the walk and each tile's codes and scales arrive
+  // (in the other of two buffers) while the tile before computes and
+  // stores; otherwise each tile streams w through the ring.
+  __device__ static void walk(const RestoreArgs& p, unsigned char* smem, int col0, int row0,
+                              int stride, int ntiles) {
+    const int rb = region_bytes(p.kp), rs = p.kp + 16, nch = chunks(p.kp);
+    const int se = stage_elems(p.kp);
+    bf16* ring = reinterpret_cast<bf16*>(smem + 2 * BM * 4 + 2 * rb);
+    auto sc = [&](int i) { return reinterpret_cast<float*>(smem) + (i & 1) * BM; };
+    auto raw = [&](int i) { return reinterpret_cast<int8_t*>(smem + 2 * BM * 4 + (i & 1) * rb); };
+    const int warp = threadIdx.x >> 5;
+    const int m0 = (warp / WN) * MT * 16, n0 = (warp % WN) * NT * 8;
+    const bool resident = nch <= kStages;
+    __syncthreads();                   // a walk before this one is stored
+    if (resident) {
+      for (int c = 0; c < nch; ++c) load_w(p, ring + c * se, c * KC, col0);
+      load_codes(p, raw(0), sc(0), row0);
+      cp_async_commit();
+    }
+    for (int i = 0; i < ntiles; ++i) {
+      const int r0 = row0 + i * stride;
+      float acc[MT][NT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+      __syncthreads();                 // tile i - 1 is stored: its buffer is free
+      if (resident) {
+        if (i + 1 < ntiles) load_codes(p, raw(i + 1), sc(i + 1), r0 + stride);
+        cp_async_commit();
+        cp_async_wait<1>();            // tile i's codes (and w) have landed
+        __syncthreads();
+        for (int c = 0; c < nch; ++c)
+          mma_chunk(acc, raw(i), rs, ring + c * se, c * KC, min(KC, p.kp - c * KC), m0, n0);
+      } else {                         // a ring of kStages chunks
+        load_codes(p, raw(i), sc(i), r0);   // in the first chunk's group
+#pragma unroll
+        for (int s = 0; s < kStages - 1; ++s) {
+          load_w(p, ring + s * se, s * KC, col0);
+          cp_async_commit();
+        }
+        for (int c = 0; c < nch; ++c) {
+          cp_async_wait<kStages - 2>();     // chunk c has landed
+          __syncthreads();                  // ... and chunk c - 1 is consumed
+          const int nx = c + kStages - 1;
+          if (nx < nch) load_w(p, ring + (nx % kStages) * se, nx * KC, col0);
+          cp_async_commit();
+          mma_chunk(acc, raw(i), rs, ring + (c % kStages) * se, c * KC,
+                    min(KC, p.kp - c * KC), m0, n0);
+        }
+        cp_async_wait<0>();
+      }
+      __syncthreads();                 // every warp has read tile i's codes
+      store_tile(p, acc, sc(i), reinterpret_cast<bf16*>(raw(i)), m0, n0, r0, col0);
+    }
+  }
+};
+
+// dequant_restore's bf16 tiles: BM rows x kRestoreBN columns, 4 warps (as
+// many along the rows as there are 16-row tiles, up to 4), w in k-chunks of
+// 64 rows, a ring of 3.  A block walks `groups`-strided row tiles of one
+// column slab; plan_restore picks BM and the groups from the shape.
+constexpr int kRestoreBN = 64;
+constexpr int kRestoreMaxCodes = 16384;   // BM * kp: a tile's codes, 16 KB
+constexpr int kRestoreBlocks = 4 * 132;   // four blocks on each of the H100's SMs
+
+template <int BM>
+using RestoreMma = RestoreTile<BM, kRestoreBN, (BM / 16 < 4 ? BM / 16 : 4),
+                               4 / (BM / 16 < 4 ? BM / 16 : 4), 64, 3>;
+
+template <int BM>
+__global__ void __launch_bounds__(RestoreMma<BM>::kBlock)
+dequant_restore_mma_kernel(RestoreArgs p, int groups) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tiles = (p.n_rows + BM - 1) / BM, g = blockIdx.x;
+  RestoreMma<BM>::walk(p, smem_raw, blockIdx.y * kRestoreBN, g * BM, groups * BM,
+                       (tiles - g + groups - 1) / groups);
+}
+
+struct RestorePlan {
+  int bm, slabs, groups;
+};
+
+// Rows a tile: the tallest of 16, 32, 64 and 128 that still gives
+// kTargetBlocks tiles of kRestoreBN columns and whose codes fit
+// kRestoreMaxCodes: few rows spread over the column slabs, many rows share
+// each staged slab of w_restore.  At d = 3840-4096 (60-64 slabs) and d_r <=
+// 64: 16 rows up to T = 128, 32 up to 256, 64 up to 512 and 128 from 513
+// rows.  Then the tiles of a slab split into as few equal groups as keep
+// the blocks within kRestoreBlocks, each a block that walks its group: one
+// tile a block up to T = 1,024 at d = 4096, 2 at 1,025, 4 at 4,096.
+RestorePlan plan_restore(int n_rows, int d, int kp) {
+  RestorePlan p;
+  p.slabs = (d + kRestoreBN - 1) / kRestoreBN;
+  p.bm = 16;
+  for (int cand = 32; cand <= 128; cand *= 2)
+    if (cand * kp <= kRestoreMaxCodes &&
+        (long long)((n_rows + cand - 1) / cand) * p.slabs >= kTargetBlocks)
+      p.bm = cand;
+  const int tiles = (n_rows + p.bm - 1) / p.bm;
+  const int want = kRestoreBlocks / p.slabs > 1 ? kRestoreBlocks / p.slabs : 1;
+  const int per = (tiles + want - 1) / want;            // tiles a block walks
+  p.groups = (tiles + per - 1) / per;
+  return p;
+}
+
+size_t restore_mma_smem(int bm, int kp) {
+  switch (bm) {
+    case 16: return RestoreMma<16>::smem(kp);
+    case 32: return RestoreMma<32>::smem(kp);
+    case 64: return RestoreMma<64>::smem(kp);
+    default: return RestoreMma<128>::smem(kp);
+  }
+}
+
+template <int BM>
+cudaError_t launch_restore_mma(const RestoreArgs& p, const RestorePlan& plan,
+                               cudaStream_t s) {
+  auto kern = dequant_restore_mma_kernel<BM>;
+  const size_t smem = RestoreMma<BM>::smem(p.kp);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<dim3(plan.groups, plan.slabs), RestoreMma<BM>::kBlock, smem, s>>>(p, plan.groups);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_restore(const RestoreArgs& p, int dtype, cudaStream_t s) {
+  if (dtype == 1) {
+    const RestorePlan plan = plan_restore(p.n_rows, p.d, p.kp);
+    switch (plan.bm) {
+      case 16: return launch_restore_mma<16>(p, plan, s);
+      case 32: return launch_restore_mma<32>(p, plan, s);
+      case 64: return launch_restore_mma<64>(p, plan, s);
+      default: return launch_restore_mma<128>(p, plan, s);
+    }
+  }
+  const size_t smem = (size_t)RD * p.d_r * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dequant_restore_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((p.n_rows + RD - 1) / RD, (p.d + DD - 1) / DD);
+  dequant_restore_f32_kernel<<<grid, kThreads, smem, s>>>(
+      p.codes, p.scales, static_cast<const float*>(p.w), static_cast<float*>(p.out),
+      p.n_rows, p.d_r, p.d);
+  return cudaGetLastError();
+}
+
+// ---- restore_norm ----------------------------------------------------------
 // A cluster of kCluster blocks owns `sub` tiles of RD rows: block `rank`
-// restores the column slabs rank, rank + kCluster, ... of DDN columns, one
-// column a thread, for each tile in turn.  After the cluster barrier every
-// column of those rows is in x, and row r of the cluster's rows goes to
-// warp (r / kCluster) % kNormWarps of block r % kCluster.  x is written by
-// other SMs of the cluster and read back here, so it is a plain pointer (see
+// restores the column slabs rank, rank + kCluster, ... of DDN columns, for
+// each tile in turn (bf16: slab by slab, RestoreTile's walk over the
+// tiles; f32: tile by tile, one column a thread).  After the cluster barrier every column of
+// those rows is in x, and row r of the cluster's rows goes to warp
+// (r / kCluster) % kNormWarps of block r % kCluster.  x is written by other
+// SMs of the cluster and read back here, so it is a plain pointer (see
 // row_norm.cuh), never read through the non-coherent path.  The norm reads
 // w as it writes h (no PREFETCH_W): holding w too, as rmsnorm does, costs
 // registers; the sums run in the same order either way.
@@ -742,27 +1138,44 @@ constexpr int kCluster = 8;       // blocks a cluster: the portable maximum
 constexpr int DDN = 512;          // columns (and threads) a restore_norm block
 constexpr int kNormWarps = DDN / 32;
 
+// one warp a 16-row x 32-column strip of the slab; w chunks of 64 k rows, a
+// ring of 2 (a slab's whole w_restore stays put up to d_r = 128)
+using NormRestore = RestoreTile<RD, DDN, 1, kNormWarps, 64, 2>;
+
+template <typename T>
+size_t restore_norm_smem(int d_r) {
+  if (sizeof(T) == 2) return NormRestore::smem((d_r + 15) / 16 * 16);
+  return (size_t)RD * d_r * sizeof(float);
+}
+
 template <typename T>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(DDN)
-dequant_restore_norm_kernel(const int8_t* __restrict__ codes,
-                            const float* __restrict__ scales,
-                            const T* __restrict__ w, const T* __restrict__ norm_w,
-                            T* x, T* __restrict__ h, int n_rows, int d_r, int d,
-                            float eps, int sub) {
-  extern __shared__ __align__(16) float rs[];   // d_r x RD, codes * scale as f32
+dequant_restore_norm_kernel(RestoreArgs p, const T* __restrict__ norm_w,
+                            T* __restrict__ h, float eps, int sub) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int rank = blockIdx.x % kCluster, row0 = blockIdx.x / kCluster * RD * sub;
-  for (int t = 0; t < sub && row0 + t * RD < n_rows; ++t) {
-    const int r0 = row0 + t * RD;
-    if (t) __syncthreads();                     // the last tile's rs is read
-    stage_dequant(codes, scales, rs, r0, n_rows, d_r);
-    __syncthreads();
-    for (int col = rank * DDN + threadIdx.x; col < d; col += kCluster * DDN) {
-      float acc[RD];
-      restore_column(rs, w, col, d_r, d, acc);
+  const int n_rows = p.n_rows, d = p.d;
+  T* x = static_cast<T*>(p.out);
+  if constexpr (sizeof(T) == 2) {
+    const int ntiles = min(sub, (n_rows - row0 + RD - 1) / RD);
+    for (int col0 = rank * DDN; col0 < d; col0 += kCluster * DDN)
+      NormRestore::walk(p, smem_raw, col0, row0, RD, ntiles);
+  } else {
+    float* rs = reinterpret_cast<float*>(smem_raw);   // d_r x RD, codes * scale
+    const float* w = static_cast<const float*>(p.w);
+    for (int t = 0; t < sub && row0 + t * RD < n_rows; ++t) {
+      const int r0 = row0 + t * RD;
+      if (t) __syncthreads();                     // the last tile's rs is read
+      stage_dequant(p.codes, p.scales, rs, r0, n_rows, p.d_r);
+      __syncthreads();
+      for (int col = rank * DDN + threadIdx.x; col < d; col += kCluster * DDN) {
+        float acc[RD];
+        restore_column(rs, w, col, p.d_r, d, acc);
 #pragma unroll
-      for (int r = 0; r < RD; ++r) {
-        const int row = r0 + r;
-        if (row < n_rows) from_f32(acc[r], &x[(size_t)row * d + col]);
+        for (int r = 0; r < RD; ++r) {
+          const int row = r0 + r;
+          if (row < n_rows) x[(size_t)row * d + col] = acc[r];
+        }
       }
     }
   }
@@ -780,24 +1193,6 @@ dequant_restore_norm_kernel(const int8_t* __restrict__ codes,
       row_norm::warp_row_norm<T, false>(x + (size_t)row * d, norm_w,
                                         h + (size_t)row * d, d, eps);
   }
-}
-
-template <typename T>
-cudaError_t launch_restore(const int8_t* codes, const float* scales,
-                           const void* w, void* out, int n_rows, int d_r,
-                           int d, cudaStream_t stream) {
-  const size_t smem = (size_t)RD * d_r * sizeof(float);
-  auto kern = dequant_restore_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid((n_rows + RD - 1) / RD, (d + DD - 1) / DD);
-  kern<<<grid, kThreads, smem, stream>>>(codes, scales,
-                                         static_cast<const T*>(w),
-                                         static_cast<T*>(out), n_rows, d_r, d);
-  return cudaGetLastError();
 }
 
 // The clusters of restore_norm the current card holds at once
@@ -832,25 +1227,22 @@ cudaError_t restore_norm_wave(size_t smem, int* wave) {
 }
 
 template <typename T>
-cudaError_t launch_restore_norm(const int8_t* codes, const float* scales,
-                                const void* w, const void* norm_w, void* x, void* h,
-                                int n_rows, int d_r, int d, float eps,
-                                cudaStream_t stream) {
-  const size_t smem = (size_t)RD * d_r * sizeof(float);
+cudaError_t launch_restore_norm(const RestoreArgs& p, const void* norm_w, void* h,
+                                float eps, cudaStream_t stream) {
+  const size_t smem = restore_norm_smem<T>(p.d_r);
   auto kern = dequant_restore_norm_kernel<T>;
   // one RD-row tile a cluster while the clusters fit one wave of the card,
   // then as many tiles a cluster as keep it to one wave; __cluster_dims__
   // fixes the cluster shape, so a card that cannot place it refuses the
   // launch (and the occupancy query fails first)
-  const int tiles = (n_rows + RD - 1) / RD;
+  const int tiles = (p.n_rows + RD - 1) / RD;
   int wave = 0;
   const cudaError_t err = restore_norm_wave<T>(smem, &wave);
   if (err != cudaSuccess) return err;
   const int sub = (tiles + wave - 1) / wave;
   const dim3 grid((unsigned)kCluster * ((tiles + sub - 1) / sub));
-  kern<<<grid, DDN, smem, stream>>>(codes, scales, static_cast<const T*>(w),
-                                    static_cast<const T*>(norm_w), static_cast<T*>(x),
-                                    static_cast<T*>(h), n_rows, d_r, d, eps, sub);
+  kern<<<grid, DDN, smem, stream>>>(p, static_cast<const T*>(norm_w), static_cast<T*>(h),
+                                    eps, sub);
   return cudaGetLastError();
 }
 
@@ -896,27 +1288,46 @@ extern "C" int butterfly_reduce_quant_bincount(const void* x, const void* w,
                             tickets, n_rows, d, d_r, qmax, dtype, stream);
 }
 
+bool restore_args_ok(int n_rows, int d_r, int d, int dtype) {
+  return n_rows > 0 && d > 0 && d_r > 0 && d_r <= kMaxDr && (dtype == 0 || dtype == 1);
+}
+
 // out has the dtype of w.
 extern "C" int butterfly_dequant_restore(const void* codes, const void* scales,
                                          const void* w, void* out, int n_rows,
                                          int d_r, int d, int dtype, void* stream) {
-  if (n_rows <= 0 || d <= 0 || d_r <= 0 || d_r > kMaxDr) return (int)cudaErrorInvalidValue;
-  const int8_t* c = static_cast<const int8_t*>(codes);
-  const float* sc = static_cast<const float*>(scales);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_restore<float>(c, sc, w, out, n_rows, d_r, d, s);
-  if (dtype == 1) return (int)launch_restore<__nv_bfloat16>(c, sc, w, out, n_rows, d_r, d, s);
-  return (int)cudaErrorInvalidValue;
+  if (!restore_args_ok(n_rows, d_r, d, dtype)) return (int)cudaErrorInvalidValue;
+  return (int)launch_restore(restore_args(codes, scales, w, out, n_rows, d_r, d), dtype,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// How butterfly_dequant_restore launches at this shape: plan[0] rows a
+// block, plan[1] blocks, plan[2] dynamic shared memory a block (bytes);
+// plan[3] butterfly_dequant_restore_norm's dynamic shared memory a block.
+extern "C" int butterfly_restore_plan(int n_rows, int d_r, int d, int dtype, int* plan) {
+  if (!restore_args_ok(n_rows, d_r, d, dtype)) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const int kp = (d_r + 15) / 16 * 16;
+    const RestorePlan rp = plan_restore(n_rows, d, kp);
+    plan[0] = rp.bm;
+    plan[1] = rp.groups * rp.slabs;
+    plan[2] = (int)restore_mma_smem(rp.bm, kp);
+    plan[3] = (int)restore_norm_smem<__nv_bfloat16>(d_r);
+  } else {
+    plan[0] = RD;
+    plan[1] = (n_rows + RD - 1) / RD * ((d + DD - 1) / DD);
+    plan[2] = RD * d_r * (int)sizeof(float);
+    plan[3] = (int)restore_norm_smem<float>(d_r);
+  }
+  return 0;
 }
 
 // The restore_norm clusters the current card holds at once at this d_r
 // (a cluster owns one 16-row tile up to 16 * wave rows, more beyond).
 extern "C" int butterfly_restore_norm_wave(int d_r, int dtype, int* wave) {
-  if (d_r <= 0 || d_r > kMaxDr) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)RD * d_r * sizeof(float);
-  if (dtype == 0) return (int)restore_norm_wave<float>(smem, wave);
-  if (dtype == 1) return (int)restore_norm_wave<__nv_bfloat16>(smem, wave);
-  return (int)cudaErrorInvalidValue;
+  if (!restore_args_ok(1, d_r, 1, dtype)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)restore_norm_wave<float>(restore_norm_smem<float>(d_r), wave);
+  return (int)restore_norm_wave<__nv_bfloat16>(restore_norm_smem<__nv_bfloat16>(d_r), wave);
 }
 
 // x and h have the dtype of w and norm_w (d values).
@@ -924,14 +1335,9 @@ extern "C" int butterfly_dequant_restore_norm(const void* codes, const void* sca
                                               const void* w, const void* norm_w,
                                               void* x, void* h, int n_rows, int d_r,
                                               int d, float eps, int dtype, void* stream) {
-  if (n_rows <= 0 || d <= 0 || d_r <= 0 || d_r > kMaxDr) return (int)cudaErrorInvalidValue;
-  const int8_t* c = static_cast<const int8_t*>(codes);
-  const float* sc = static_cast<const float*>(scales);
+  if (!restore_args_ok(n_rows, d_r, d, dtype)) return (int)cudaErrorInvalidValue;
+  const RestoreArgs p = restore_args(codes, scales, w, x, n_rows, d_r, d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_restore_norm<float>(c, sc, w, norm_w, x, h, n_rows, d_r, d, eps, s);
-  if (dtype == 1)
-    return (int)launch_restore_norm<__nv_bfloat16>(c, sc, w, norm_w, x, h, n_rows, d_r, d,
-                                                   eps, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)launch_restore_norm<float>(p, norm_w, h, eps, s);
+  return (int)launch_restore_norm<__nv_bfloat16>(p, norm_w, h, eps, s);
 }

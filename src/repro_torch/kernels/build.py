@@ -39,6 +39,7 @@ SIGNATURES = {
         "butterfly_dequant_restore_norm": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
         "butterfly_reduce_width": [_I],
         "butterfly_restore_norm_wave": [_I, _I, _P],
+        "butterfly_restore_plan": [_I] * 4 + [_P],
     },
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P] + [_I] * 9 + [_P],

@@ -204,3 +204,13 @@ def restore_norm_wave(d_r: int, dtype=torch.bfloat16) -> int:
     raise_on(build.load("butterfly").butterfly_restore_norm_wave(
         d_r, DTYPE_CODE[dtype], ctypes.byref(wave)), "butterfly_restore_norm_wave")
     return wave.value
+
+
+def restore_plan(T: int, d: int, d_r: int, dtype=torch.bfloat16) -> dict:
+    """How :func:`dequant_restore` launches at this shape (the kernel asks
+    the same): ``rows`` a block, ``blocks``, ``smem`` (dynamic shared memory
+    a block, bytes), and ``norm_smem``, :func:`dequant_restore_norm`'s."""
+    plan = (ctypes.c_int * 4)()
+    raise_on(build.load("butterfly").butterfly_restore_plan(
+        T, d_r, d, DTYPE_CODE[dtype], plan), "butterfly_restore_plan")
+    return dict(zip(("rows", "blocks", "smem", "norm_smem"), plan))

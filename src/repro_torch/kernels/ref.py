@@ -50,6 +50,16 @@ def butterfly_dequant_restore_ref(codes: torch.Tensor, scales: torch.Tensor,
     return (r @ w_restore.float()).to(out_dtype)
 
 
+def butterfly_dequant_restore_tc_ref(codes: torch.Tensor, scales: torch.Tensor,
+                                     w_restore: torch.Tensor,
+                                     out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The bf16 kernel's order of operations, for tests: the codes as bf16
+    (exact), their f32 product with w_restore, then the row's scale once,
+    then the cast; :func:`butterfly_dequant_restore_ref` scales first."""
+    acc = codes.to(torch.bfloat16).float() @ w_restore.float()
+    return (acc * scales).to(out_dtype)
+
+
 def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
     """The model's RMSNorm (gemma-style ``1 + w`` weight) in f32, cast back

@@ -69,9 +69,18 @@ def _inputs(T, d, d_r, dtype, seed):
 # slices below 16 rows, at most 8 from 16 rows on) and off (d=64 in bf16
 # and d=128 at d_r <= 64 in f32 are one chunk), bf16 x rows whose width is
 # not a whole number of 16-byte pieces (d=100, 1001: element loads);
-# dequant_restore past 48 KB of shared memory at d_r = 1024
-@pytest.mark.parametrize("T", [1, 4, 8, 16, 32, 33, 37, 512, 1024, 1025, 4096])
+# dequant_restore past 48 KB of shared memory at d_r = 1024, its bf16 row
+# tiles of 16, 32, 64 and 128 on both sides of each switch (128/129,
+# 256/257, 512/513 rows at d = 3840-4096: see
+# test_restore_plan_switches_where_tested), w_restore loaded once for a
+# block's walk (one or two k chunks, d_r <= 128) or streamed through the
+# ring (256-1024), the codes copied 16 bytes at a time (d_r a multiple of
+# 16), 4 (gemma3's d_r = 60, zeros up to k = 64) or one (d_r = 33), and
+# widths whose rows are not whole 16-byte pieces
+@pytest.mark.parametrize("T", [1, 4, 8, 16, 32, 33, 37, 128, 129, 256, 257,
+                               512, 513, 1024, 1025, 4096])
 @pytest.mark.parametrize("d,d_r,dtype", [(4096, 64, torch.bfloat16),
+                                         (3840, 60, torch.bfloat16),
                                          (256, 16, torch.float32),
                                          (200, 48, torch.bfloat16),
                                          (512, 128, torch.float32),
@@ -83,7 +92,8 @@ def _inputs(T, d, d_r, dtype, seed):
                                          (64, 64, torch.bfloat16),
                                          (128, 32, torch.float32),
                                          (100, 16, torch.bfloat16),
-                                         (1001, 48, torch.bfloat16)])
+                                         (1001, 48, torch.bfloat16),
+                                         (1001, 33, torch.bfloat16)])
 def test_kernels_match_plain(cuda, T, d, d_r, dtype):
     x, w = (t.to(cuda) for t in _inputs(T, d, d_r, dtype, seed=T))
     n0 = butterfly_kernel.reduce_quant.launches
@@ -152,6 +162,19 @@ def test_bincount_kernel_matches_reduce_quant_and_plain(cuda, d, d_r, dtype, T,
     assert int((counts - counts_p).abs().sum()) <= 2 * n_diff
 
 
+def test_restore_plan_switches_where_tested(cuda):
+    """bf16 dequant_restore's row tiles switch where the tests put rows on
+    both sides (test_kernels_match_plain, test_restore_norm_matches_plain_
+    and_its_parts): 16 rows up to 128, 32 up to 256, 64 up to 512, 128
+    beyond, at both models' widths; d_r = 1024 keeps 16-row tiles."""
+    want = {1: 16, 128: 16, 129: 32, 256: 32, 257: 64, 512: 64, 513: 128,
+            4096: 128}
+    for d, d_r in ((4096, 64), (3840, 60)):
+        got = {T: butterfly_kernel.restore_plan(T, d, d_r)["rows"] for T in want}
+        assert got == want, (d, d_r, got)
+    assert butterfly_kernel.restore_plan(4096, 256, 1024)["rows"] == 16
+
+
 def test_kernel_wrappers_refuse_bad_input(cuda):
     x, w = (t.to(cuda) for t in _inputs(8, 64, 16, torch.float32, seed=0))
     with pytest.raises(TypeError):
@@ -211,8 +234,11 @@ def _norm_tol(dtype):
 # of the rmsnorm test (16-byte rows take the norm routine's vector branch, d
 # 33 and 1001 its scalar one; at small d most blocks restore nothing), 1 to
 # 4,096 rows (one or many 16-row tiles, a ragged last tile; a cluster owns
-# one tile up to one wave of clusters and more beyond, see below)
-@pytest.mark.parametrize("T", [1, 4, 16, 17, 37, 240, 241, 512, 1025, 4096])
+# one tile up to one wave of clusters and more beyond, see below), and
+# both sides of each switch of dequant_restore's bf16 row tiles, so x equals
+# its output whatever tile shape computed that output
+@pytest.mark.parametrize("T", [1, 4, 16, 17, 37, 128, 129, 240, 241, 256, 257,
+                               512, 513, 1025, 4096])
 @pytest.mark.parametrize("d,d_r,dtype", [(4096, 64, torch.bfloat16),
                                          (3840, 60, torch.bfloat16),
                                          (4096, 64, torch.float32),
@@ -224,7 +250,9 @@ def _norm_tol(dtype):
                                          (33, 16, torch.float32),
                                          (1000, 48, torch.bfloat16),
                                          (1001, 16, torch.bfloat16),
-                                         (5000, 64, torch.bfloat16)])
+                                         (5000, 64, torch.bfloat16),
+                                         # codes read a byte at a time
+                                         (4096, 33, torch.bfloat16)])
 def test_restore_norm_matches_plain_and_its_parts(cuda, T, d, d_r, dtype):
     codes, scales, wr, nw = (t.to(cuda) for t in _restore_inputs(T, d, d_r,
                                                                   dtype, seed=T))
@@ -262,29 +290,33 @@ def test_restore_norm_cluster_tiles_on_both_sides_of_one_wave(cuda):
 
 
 # the wire kernels' blocks share data within a launch (reduce_quant's
-# split-K partials and tickets, restore_norm's x across a cluster): any
-# missing fence, stale read or reused ticket shows as a call that differs
+# split-K partials and tickets, restore_norm's x across a cluster, and the
+# restore tiles' w_restore kept in shared memory across tiles): any missing
+# fence, stale read or reused ticket shows as a call that differs
 @pytest.mark.parametrize("T", [1, 4, 128, 4096])
 def test_wire_kernels_repeat_bit_for_bit(cuda, T):
     x, w = (t.to(cuda) for t in _inputs(T, 4096, 64, torch.bfloat16, seed=T))
     codes, scales, wr, nw = (t.to(cuda) for t in _restore_inputs(
         T, 4096, 64, torch.bfloat16, seed=T))
-    first = (ops.butterfly_reduce_quant(x, w),
-             ops.butterfly_restore_norm(codes, scales, wr, nw, eps=1e-6,
-                                        out_dtype=torch.bfloat16))
+
+    def calls():
+        return (ops.butterfly_reduce_quant(x, w),
+                ops.butterfly_restore_norm(codes, scales, wr, nw, eps=1e-6,
+                                           out_dtype=torch.bfloat16),
+                (ops.butterfly_dequant_restore(codes, scales, wr,
+                                               out_dtype=torch.bfloat16),))
+
+    first = calls()
     for _ in range(19):
-        again = (ops.butterfly_reduce_quant(x, w),
-                 ops.butterfly_restore_norm(codes, scales, wr, nw, eps=1e-6,
-                                            out_dtype=torch.bfloat16))
-        for a, b in zip(first, again):
+        for a, b in zip(first, calls()):
             assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 def test_wire_kernels_on_two_streams_match_serial(cuda):
-    """reduce_quant and restore_norm, 10 calls each on each of two streams
-    at once (their launches interleave on the card), give what serial calls
-    on the default stream give, bit for bit: the two streams' split-K
-    tickets never meet."""
+    """reduce_quant, restore_norm and dequant_restore, 10 calls each on
+    each of two streams at once (their launches interleave on the card),
+    give what serial calls on the default stream give, bit for bit: the
+    two streams' split-K tickets never meet."""
     shapes = (1, 4, 128)
     xs = [tuple(t.to(cuda) for t in _inputs(T, 4096, 64, torch.bfloat16, seed=T))
           for T in shapes]
@@ -298,6 +330,8 @@ def test_wire_kernels_on_two_streams_match_serial(cuda):
             out.append(ops.butterfly_reduce_quant(x, w))
             out.append(ops.butterfly_restore_norm(codes, scales, wr, nw, eps=1e-6,
                                                   out_dtype=torch.bfloat16))
+            out.append((ops.butterfly_dequant_restore(codes, scales, wr,
+                                                      out_dtype=torch.bfloat16),))
         return out
 
     want = calls()

@@ -14,9 +14,9 @@ import pytest
 import torch
 
 from repro.core import butterfly as jbf
-from repro.kernels import ops as jops, ref as jref
+from repro.kernels import butterfly_kernel as jbk, ops as jops, ref as jref
 from repro_torch.core import butterfly as tbf
-from repro_torch.kernels import butterfly_kernel, ops
+from repro_torch.kernels import butterfly_kernel, ops, ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -63,6 +63,30 @@ def test_dequant_restore_matches_jax(T, d, d_r):
                  jref.butterfly_dequant_restore_ref(codes, scales, jnp.asarray(wr))):
         np.testing.assert_allclose(out.numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d_r", [16, 60, 64])
+def test_tensor_core_order_matches_jax_kernel(d_r):
+    """The bf16 restore kernel's order of operations (codes exact in bf16,
+    f32 sums of the exact products, the row's scale once after them, one
+    rounding to bf16; ``ref.butterfly_dequant_restore_tc_ref``) against the
+    JAX Pallas kernel in interpret mode, which scales the codes first:
+    within one bf16 ulp (rtol 2**-7, atol 1e-3), the card tests' bound."""
+    T, d = 48, 96
+    rng = np.random.default_rng(d_r)
+    codes = rng.integers(-128, 128, (T, d_r)).astype(np.int8)
+    scales = rng.uniform(0.01, 0.1, (T, 1)).astype(np.float32)
+    wr = (rng.standard_normal((d_r, d)) / np.sqrt(d_r)).astype(np.float32)
+    wj, wt = _pair(wr, "bfloat16")
+    want = jbk.butterfly_dequant_restore_kernel(
+        jnp.asarray(codes), jnp.asarray(scales), wj, out_dtype=jnp.bfloat16,
+        block_t=16, interpret=True)
+    got = ref.butterfly_dequant_restore_tc_ref(
+        torch.from_numpy(codes), torch.from_numpy(scales), wt, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (T, d)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=2 ** -7, atol=1e-3)
 
 
 def test_wrappers_keep_leading_axes():
