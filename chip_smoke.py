@@ -17,9 +17,10 @@ result line):
   3. kernels - holds each kernel against its plain PyTorch version on the
                card: the butterfly kernels at both models' widths (d=4096,
                d_r=64 at 1 to 4,096 rows, both sides of reduce_quant's and
-               dequant_restore's row-tile switches, and d=3840, d_r=60,
-               bf16) and a small f32 shape, with reduce_quant's worst share
-               of differing codes; flash
+               dequant_restore's row-tile switches; d=3840, d_r=60; and the
+               dense configs' d=5120, d_r=80 and d=3072, d_r=48 at 1, 128
+               and 2,048 rows; bf16) and a small f32 shape, with
+               reduce_quant's worst share of differing codes; flash
                attention at every head dim (32-256) in f32 (the CUDA-core
                kernel) and bf16 (the tensor-core kernel, whose bf16 weights
                give it its own bound: see _flash_excess), causal, windowed and
@@ -30,7 +31,9 @@ result line):
                call (a yardstick the port never calls; for the restore, three
                calls: (codes.to(bf16) @ w_restore) * scales), inputs cold in L2:
                the butterfly kernels at 1, 4, 128-1,024, 1,025 and 4,096 rows
-               (d=4096) and at gemma3-12b's 100 and 2,048 (d=3840),
+               (d=4096), at gemma3-12b's 100 and 2,048 (d=3840), and at 1,
+               128 and 2,048 rows of the d=5120 and d=3072 wires; flash at
+               the paths' shapes, gemma-7b's MHA and qwen3-14b's included,
                beside the least time the card could take (bytes or
                operations over its data-sheet rates); for flash also its
                TFLOP/s and the host time of encoding its TMA tensor maps;
@@ -76,15 +79,34 @@ result line):
                prefill's largest logit with the same greedy token, the last
                decode step must stay within 5% of a kernel prefill of the
                whole sequence, and the peak must fit the 80 GB card.
+  9. qwen3-14b serving - once gemma3-12b is freed, full-width qwen3-14b (40
+               layers, d_model 5120, 40/8 heads, bf16, seed 0) split after
+               layer 5 with a d_r=80 int8 butterfly: phase 5's handoff path
+               and checks on four prompts of 64-128 tokens and 8 decode
+               tokens, with exactly S*80 + 4*S wire bytes a request;
+ 10. gemma-7b kernel prefill - phase 6 on full-width gemma-7b (28 layers,
+               d_model 3072, MHA 16/16 at head_dim 256, GeGLU, tied
+               embeddings, d_r=48 after layer 3): 28 flash launches a
+               kernel prefill;
+ 11. resnet - the paper's ResNet-50 in f32 at 224x224 (no TF32), 16 seeded
+               images, split after RB3, 7, 13 and 16 with the paper's least
+               d_r (1, 2, 5, 10): the in-graph forward against
+               edge_cloud_split, the wire's shape and exact bytes, the card
+               against the port's CPU run on 2 images, no kernel launched
+               (as in the reference); edge, cloud and in-graph times and
+               images/s beside the f32 floor (see phase_resnet).
+Each model's weights leave the card before the next one is built, and
+each phase prints its peak device memory.
 With ``--profile [DIR]`` it profiles one qwen3-8b prefill and 8 decode steps
 and a short pipelined and serial decode pipeline after phase 8, and
 gemma3-12b's kernel and plain prefills of the 2,048-token prompt and 8
 decode steps after phase 6 (torch.profiler: wall time, device-busy share,
 top kernels; the operator tables go to DIR when one is given).  It then
-prints the kernels' JSON line (launches by path; the times of flash
-attention and of the norm and bincount kernels per launch, averaged over
-their path's launches; the two butterfly kernels' at 128 rows; every timed
-shape under "by_shape") and, last, the result line.
+prints the kernels' JSON line (launches by path, the three paths of phases
+9-11 included; the times of flash attention and of the norm and bincount
+kernels per launch, averaged over their path's launches; the two butterfly
+kernels' at 128 rows; every timed shape under "by_shape") and, last, the
+result line.
 """
 from __future__ import annotations
 
@@ -128,6 +150,12 @@ TIME_ROWS = (1, 4, 128, 256, 512, 768, 1024, 1025, 4096)
 # and at gemma3-12b's d=3840, d_r=60: its 100- and 2,048-token prompts
 GEMMA_TIME_ROWS = (100, 2048)
 JSON_ROWS = 128          # a 128-token prompt's edge/cloud call on the main path
+# the two dense configs of phases 9 and 10: qwen3-14b's bank (d=5120,
+# d_r=80, reduce_quant pads it to 128 channels) and gemma-7b's in-graph
+# wire (d=3072, d_r=48, padded to 64), at a decode row, a 128-token prompt
+# and a 2,048-token prefill
+DENSE_WIDTHS = ((5120, 80), (3072, 48))
+DENSE_ROWS = (1, 128, 2048)
 
 
 def fail(msg: str):
@@ -173,8 +201,7 @@ def phase_build():
     print(f"build: {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc per source, in parallel)")
     from repro_torch.kernels import butterfly_kernel as bk
-    for T, d, d_r in [(T, D, D_R) for T in TIME_ROWS] + \
-            [(T, GEMMA_D, GEMMA_D_R) for T in GEMMA_TIME_ROWS]:
+    for T, d, d_r in _timed_shapes():
         plan = bk.restore_plan(T, d, d_r)
         print(f"build: dequant_restore bf16 T={T:5d} d={d} d_r={d_r}: "
               f"{plan['rows']}-row tiles, {plan['blocks']} blocks of 128 threads, "
@@ -207,6 +234,8 @@ def phase_kernels():
     worst_frac = (0.0, None)            # the largest share of codes that differ
     cases = [(T, D, D_R, torch.bfloat16) for T in CHECK_ROWS] + \
         [(T, GEMMA_D, GEMMA_D_R, torch.bfloat16) for T in GEMMA_ROWS] + \
+        [(T, d, d_r, torch.bfloat16) for d, d_r in DENSE_WIDTHS
+         for T in DENSE_ROWS] + \
         [(T, 256, 16, torch.float32) for T in (1, 37, 512)]
     for T, d, d_r, dtype in cases:
         x, w, wr = _inputs(T, d, d_r, dtype, seed=T)
@@ -241,12 +270,17 @@ def phase_kernels():
 
 # flash attention at the main paths' shapes, (B, S, N, K, hd, window) with
 # T = S, causal: gemma3-12b's global and windowed layers on the 2,048- and
-# 100-token prompts, and qwen3-8b on a 128-token prompt
+# 100-token prompts, qwen3-8b on a 128-token prompt, gemma-7b's MHA (one
+# query head a key head) on phase 10's prompts, and qwen3-14b's five query
+# heads a key head on a 128-token prompt
 FLASH_PATH = {
     "gemma3 S=2048 global": (1, 2048, 16, 8, 256, None),
     "gemma3 S=2048 window": (1, 2048, 16, 8, 256, 1024),
     "gemma3 S=100": (1, 100, 16, 8, 256, None),
     "qwen3 S=128": (1, 128, 32, 8, 128, None),
+    "gemma-7b S=2048": (1, 2048, 16, 16, 256, None),
+    "gemma-7b S=100": (1, 100, 16, 16, 256, None),
+    "qwen3-14b S=128": (1, 128, 40, 8, 128, None),
 }
 # the 2,048-token gemma3-12b prefill's 48 flash launches, by shape
 FLASH_JSON = {"gemma3 S=2048 window": 40, "gemma3 S=2048 global": 8}
@@ -345,6 +379,14 @@ def _device_ms(fn, reps: int = 30) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+def _timed_shapes():
+    """The wire kernels' timed (T, d, d_r): qwen3-8b's and gemma3-12b's
+    widths, then the two dense configs' (DENSE_WIDTHS at DENSE_ROWS)."""
+    return [(T, D, D_R) for T in TIME_ROWS] + \
+        [(T, GEMMA_D, GEMMA_D_R) for T in GEMMA_TIME_ROWS] + \
+        [(T, d, d_r) for d, d_r in DENSE_WIDTHS for T in DENSE_ROWS]
+
+
 def _bounds(rates, T, d, d_r):
     """(reduce_quant, dequant_restore) least times in ms at bf16, each as
     (ms, "bytes" | "operations")."""
@@ -421,17 +463,21 @@ def phase_flash_times(rates):
 
 def phase_times(rates):
     """reduce_quant and dequant_restore, and their plain versions, at
-    TIME_ROWS (d=4096, d_r=64) and GEMMA_TIME_ROWS (d=3840, d_r=60), bf16,
+    TIME_ROWS (d=4096, d_r=64), GEMMA_TIME_ROWS (d=3840, d_r=60) and
+    DENSE_ROWS at DENSE_WIDTHS (d=5120, d_r=80; d=3072, d_r=48), bf16,
     against the bound (_bounds); for dequant_restore also three PyTorch
     calls, ``(codes.to(bf16) @ w_restore) * scales`` (a yardstick the port
     never calls: no one call computes the function, so its library_ms stays
-    None).  Returns {(name, T, d): times}."""
+    None).  Where d_r is not a channel width the reduce kernel computes
+    (60, 80, 48), its wrapper pads w_reduce with zero columns on every call;
+    reduce_quant is then also timed on a w_reduce padded beforehand, which
+    shows what the pad costs.  Returns {(name, T, d): times}."""
     import torch
-    from repro_torch.kernels import butterfly_kernel as bk, ref
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, butterfly_kernel as bk, ref
+    width = build.load("butterfly").butterfly_reduce_width
     out = {}
-    shapes = [(T, D, D_R) for T in TIME_ROWS] + \
-        [(T, GEMMA_D, GEMMA_D_R) for T in GEMMA_TIME_ROWS]
-    for T, d, d_r in shapes:
+    for T, d, d_r in _timed_shapes():
         x, w, wr = _inputs(T, d, d_r, torch.bfloat16, seed=T)
         codes, scales = ref.butterfly_reduce_quant_ref(x, w)
         rows = {
@@ -450,6 +496,12 @@ def phase_times(rates):
             out[(name, T, d)] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                                      bound_ms=bound_ms, bound_by=bound_by)
             three = ""
+            if name == "butterfly_reduce_quant" and width(d_r) != d_r:
+                w_pad = F.pad(w, (0, width(d_r) - d_r))
+                pre_ms = _device_ms(lambda: bk.reduce_quant(x, w_pad, 8))
+                out[(name, T, d)]["prepadded_ms"] = pre_ms
+                three = f"  on a w_reduce padded to {width(d_r)} beforehand " \
+                    f"{pre_ms:.4f} ms"
             if name == "butterfly_dequant_restore":
                 three_ms = _device_ms(lambda: (codes.to(torch.bfloat16) @ wr) * scales)
                 out[(name, T, d)]["three_calls_ms"] = three_ms
@@ -497,11 +549,12 @@ def _prompts(n: int, lengths):
 
 def _serve_handoff(runner, engine, prompts, new_tokens):
     """Cache handoff: each prompt prefills through edge_half -> host wire ->
-    cloud_half and joins the engine, which then decodes them together."""
+    cloud_half and joins the engine, which then decodes them together.
+    ``wire`` holds each request's bytes on the wire (codes + scales)."""
     import torch
     params = runner.params
-    reqs, logits_out, prefill_ms = [], [], []
-    wire = raw = 0
+    reqs, logits_out, prefill_ms, wire = [], [], [], []
+    raw = 0
     for toks in prompts:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -510,8 +563,8 @@ def _serve_handoff(runner, engine, prompts, new_tokens):
         logits, c1 = runner.cloud_half(params, payload_h.cuda(), scales_h.cuda())
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t) * 1e3)
-        wire += payload_h.numel() * payload_h.element_size() + \
-            scales_h.numel() * scales_h.element_size()
+        wire.append(payload_h.numel() * payload_h.element_size() +
+                    scales_h.numel() * scales_h.element_size())
         raw += len(toks) * runner.cfg.d_model * 2
         logits_out.append(logits[0])
         reqs.append(engine.submit_prefilled(len(toks), [c0, c1], logits[0],
@@ -549,54 +602,75 @@ def _serve_streamed(runner, engine, toks, new_tokens, max_len):
     return req, (time.perf_counter() - t) * 1e3 / max(len(req.generated) - 1, 1)
 
 
-def phase_serving():
+def phase_serving(arch: str = "qwen3-8b", new_tokens: int = 16,
+                  streamed: bool = True, label: str = "serving"):
+    """``arch`` at full width through the bank's split path (phases 5 and
+    9): prompts of 64, 80, 100 and 128 tokens prefill one at a time through
+    edge_half -> host wire -> cloud_half and decode ``new_tokens`` together
+    in the engine (cache handoff); with ``streamed`` one more 96-token
+    prompt decodes 8 tokens through edge_step/stream_step.  Returns the
+    launches and the runner."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.runtime.split_exec import SplitModelBank
 
-    cfg = get_config("qwen3-8b")
+    cfg = get_config(arch)
     split, d_r = cfg.num_layers // 8, max(16, cfg.d_model // 64)
     t0 = time.perf_counter()
     bank = SplitModelBank(cfg, d_r, wire_mode="int8", seed=0, device="cuda")
     runner = bank.runner(split)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in _leaves(runner.params))
-    print(f"serving: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
-          f"{cfg.dtype}, {n_params / 1e9:.3f} B params, split {split}, d_r "
-          f"{d_r}, int8 wire; init {time.perf_counter() - t0:.1f} s")
+    print(f"{label}: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads {cfg.dtype}, "
+          f"{n_params / 1e9:.3f} B params, split {split}, d_r {d_r}, int8 "
+          f"wire; init {time.perf_counter() - t0:.1f} s")
     max_len = 256
-    prompts = _prompts(5, (64, 80, 100, 128, 96))
-    engine = runner.make_engine(max_batch=4, max_len=max_len, seed=0)
+    n = 4
+    prompts = _prompts(n + 1, (64, 80, 100, 128, 96))
+    engine = runner.make_engine(max_batch=n, max_len=max_len, seed=0)
     # warm-up at the same shapes, so the timed run pays no first-call costs
     # (cuBLAS heuristics, allocator growth)
     t0 = time.perf_counter()
-    _serve_handoff(runner, engine, prompts[:4], 2)
-    _serve_streamed(runner, engine, prompts[4], 2, max_len)
-    print(f"serving: warm-up {time.perf_counter() - t0:.1f} s")
+    _serve_handoff(runner, engine, prompts[:n], 2)
+    if streamed:
+        _serve_streamed(runner, engine, prompts[n], 2, max_len)
+    print(f"{label}: warm-up {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
 
     _zero_counts()
-    reqs, cloud_logits, prefill_ms, wire_bytes, raw_bytes, decode_ms, \
-        decode_steps = _serve_handoff(runner, engine, prompts[:4], 16)
-    sreq, stream_ms = _serve_streamed(runner, engine, prompts[4], 8, max_len)
+    reqs, cloud_logits, prefill_ms, wire, raw_bytes, decode_ms, \
+        decode_steps = _serve_handoff(runner, engine, prompts[:n], new_tokens)
+    sreq = None
+    if streamed:
+        sreq, stream_ms = _serve_streamed(runner, engine, prompts[n], 8, max_len)
     launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # the bank's attention is the plain one: only the butterfly kernels run
-    print(f"serving: launches on the main path {launches}")
+    print(f"{label}: launches on the main path {launches}")
     if min(launches["butterfly_reduce_quant"],
            launches["butterfly_dequant_restore"]) <= 0:
-        fail(f"a kernel was not launched on the main path: {launches}")
-    for r in reqs + [sreq]:
+        fail(f"a kernel was not launched on the {arch} split path: {launches}")
+    done = reqs + ([sreq] if streamed else [])
+    for r in done:
         if not r.done:
             fail(f"request {r.uid} did not finish")
-    if [len(r.generated) for r in reqs] != [16] * 4 or len(sreq.generated) != 8:
+    if [len(r.generated) for r in reqs] != [new_tokens] * n or \
+            (streamed and len(sreq.generated) != 8):
         fail("wrong number of generated tokens")
+    # the int8 wire: S codes of d_r bytes and S f32 scales a request
+    want_wire = [len(toks) * (d_r + 4) for toks in prompts[:n]]
+    if wire != want_wire:
+        fail(f"wire bytes {wire} per request, expected S * {d_r} + 4 * S = "
+             f"{want_wire}")
+    if peak_gb >= 80:
+        fail(f"peak device memory {peak_gb:.2f} GB does not fit the card")
 
     # the reference rounds x @ w_reduce to bf16 before quantizing, so the
     # check is a bound, not equality
     agree = 0
-    for toks, lg in zip(prompts[:4], cloud_logits):
+    for toks, lg in zip(prompts[:n], cloud_logits):
         ref, _ = runner.reference_prefill(toks[None])
         ref = ref[0, -1]
         if not (torch.isfinite(lg).all() and lg.shape == ref.shape
@@ -607,23 +681,28 @@ def phase_serving():
         if delta > limit:
             fail(f"cloud logits differ from the reference by {delta} > {limit}")
         agree += int(torch.argmax(lg) == torch.argmax(ref))
-        print(f"serving: S={len(toks)} max|logits - reference| {delta:.4g} "
+        print(f"{label}: S={len(toks)} max|logits - reference| {delta:.4g} "
               f"(limit {limit:.4g})")
     for r, lg in zip(reqs, cloud_logits):
         if r.generated[0] != int(torch.argmax(lg)):
             fail("the first token is not the greedy token of the cloud logits")
-    print(f"serving: greedy first-token agreement with the reference "
-          f"{agree}/4")
-    print(f"serving: wire {wire_bytes} B (codes + scales) for {raw_bytes} B of "
-          f"raw bf16 boundary activations ({raw_bytes / wire_bytes:.1f}x)")
-    print(f"serving: prefill (edge + wire + cloud) ms per request "
+    print(f"{label}: greedy first-token agreement with the reference "
+          f"{agree}/{n}")
+    print(f"{label}: wire {wire} B a request (codes + scales, S * {d_r} + "
+          f"4 * S each) for {raw_bytes} B of raw bf16 boundary activations "
+          f"({raw_bytes / sum(wire):.1f}x)")
+    print(f"{label}: prefill (edge + wire + cloud) ms per request "
           f"{[round(v, 3) for v in prefill_ms]}, median "
           f"{statistics.median(prefill_ms):.3f}")
-    print(f"serving: handoff decode {decode_ms:.3f} ms per step of 4 slots "
-          f"({decode_steps} steps, {decode_ms / 4:.3f} ms per token); streamed "
-          f"decode {stream_ms:.3f} ms per token")
-    print(f"serving: peak device memory {peak_gb:.2f} GB")
-    print(f"serving: tokens {[r.generated for r in reqs]} streamed {sreq.generated}")
+    weight_gb = n_params * 2 / 1e9
+    print(f"{label}: handoff decode {decode_ms:.3f} ms per step of {n} slots "
+          f"({decode_steps} steps, {decode_ms / n:.3f} ms per token)"
+          + (f"; streamed decode {stream_ms:.3f} ms per token" if streamed else "")
+          + f"; weight-read floor {weight_gb / 3.35:.2f} ms a step "
+          f"({weight_gb:.2f} GB at 3.35 TB/s)")
+    print(f"{label}: peak device memory {peak_gb:.2f} GB")
+    print(f"{label}: tokens {[r.generated for r in reqs]}"
+          + (f" streamed {sreq.generated}" if streamed else ""))
     return launches, runner
 
 
@@ -723,16 +802,17 @@ def _check_prompt(params, built, toks, r):
     return tokens
 
 
-def phase_kernel_prefill(profile: bool = False, out_dir: Optional[Path] = None):
-    """Full-width gemma3-12b through forward_prefill(use_kernel=True) and
-    greedy forward_decode (see the module docstring).  With ``profile`` it
-    then profiles the 2,048-token prompt's kernel and plain prefills and 8
-    decode steps."""
+def phase_kernel_prefill(arch: str = "gemma3-12b", profile: bool = False,
+                         out_dir: Optional[Path] = None):
+    """``arch`` at full width through forward_prefill(use_kernel=True) and
+    greedy forward_decode (phases 6 and 10; see the module docstring).
+    With ``profile`` it then profiles the 2,048-token prompt's kernel and
+    plain prefills and 8 decode steps."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    base = get_config("gemma3-12b")
+    base = get_config(arch)
     cfg = base.with_butterfly(base.num_layers // 8, max(16, base.d_model // 64))
     built = M.build(cfg)
     t0 = time.perf_counter()
@@ -741,10 +821,13 @@ def phase_kernel_prefill(profile: bool = False, out_dir: Optional[Path] = None):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in _leaves(params))
     print(f"kernel prefill: {cfg.name} {cfg.num_layers} layers d_model "
-          f"{cfg.d_model} head_dim {cfg.resolved_head_dim} window "
-          f"{cfg.sliding_window} {cfg.dtype}, {n_params / 1e9:.3f} B params, "
-          f"butterfly after layer {cfg.butterfly.layer} d_r {cfg.butterfly.d_r}; "
-          f"init {time.perf_counter() - t0:.1f} s")
+          f"{cfg.d_model} {cfg.num_heads}/{cfg.num_kv_heads} heads head_dim "
+          f"{cfg.resolved_head_dim} window {cfg.sliding_window} {cfg.dtype}, "
+          f"{n_params / 1e9:.3f} B params, butterfly after layer "
+          f"{cfg.butterfly.layer} d_r {cfg.butterfly.d_r}; init "
+          f"{time.perf_counter() - t0:.1f} s; weight-read floor "
+          f"{n_params * 2 / 1e9 / 3.35:.2f} ms ({n_params * 2 / 1e9:.2f} GB at "
+          f"3.35 TB/s)")
     new_tokens = 16
     prompts = [torch.tensor(p, dtype=torch.int64, device="cuda")[None]
                for p in _prompts(2, (100, 2048))]
@@ -1402,6 +1485,159 @@ def phase_runtime_cli():
           f"(process start and build check included): {head}")
 
 
+# -------------------------------------------------------------------------- 11
+# the paper's Fig. 7 split points, each with its least d_r for <2% accuracy
+# loss (PAPER_MIN_DR), and the batch of images the cloud serves at once
+RESNET_SPLITS = (3, 7, 13, 16)
+RESNET_BATCH = 16
+RESNET_CPU_IMAGES = 2
+
+
+def _resnet_flops(cfg, d_r: int) -> int:
+    """Multiply-adds x 2 of one image's convs (every conv at its own input
+    and output size; the butterfly's reduce and restore) and head."""
+    n = cfg.image_size // 2                        # the 7x7/2 stem's output
+    flops = 2 * n * n * 49 * 3 * cfg.stem_channels
+    n = -(-n // 2)                                 # the 3x3/2 max pool
+    cin = cfg.stem_channels
+    for si, (blocks, cout) in enumerate(cfg.stages):
+        for bi in range(blocks):
+            stride = 2 if (bi == 0 and si > 0) else 1
+            mid, m = cout // 4, -(-n // stride)
+            flops += 2 * (n * n * cin * mid + m * m * 9 * mid * mid
+                          + m * m * mid * cout)
+            if cin != cout or stride != 1:
+                flops += 2 * m * m * cin * cout
+            cin, n = cout, m
+    c, sp = cfg.block_channels()[cfg.butterfly.layer - 1], \
+        cfg.block_spatial()[cfg.butterfly.layer - 1]
+    return flops + 2 * 2 * sp * sp * c * d_r + 2 * cin * cfg.num_classes
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host wall of ``fn`` in ms, each run ending in a synchronize."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def phase_resnet(smi: str):
+    """Full ResNet-50 in f32 at 224x224 (no TF32), random weights from seed
+    0, a batch of RESNET_BATCH seeded images, split after each of
+    RESNET_SPLITS with the paper's least d_r.  At each split: the in-graph
+    forward (fake_quant) against edge_cloud_split within rtol = atol = 1e-4
+    (the JAX test's tolerance); int8 codes of shape (B, H, W, d_r) and
+    exactly B*H*W*d_r + 4*B*H*W bytes on the wire; the card's codes against
+    the port's CPU run of the same weights on RESNET_CPU_IMAGES images (at
+    most 1 apart on at most 0.1% of entries, scales within rtol 1e-5 and an
+    atol of 1e-5 of the largest scale), and the card's cloud half on the
+    CPU's wire against the CPU's logits within 1e-4.  The ResNet path, like
+    the reference, reaches no kernel: every launch count must stay 0.
+    Prints edge-half, cloud-half and in-graph ms, images/s beside the f32
+    floor (the convs' operations over 67 TFLOP/s), and the peak memory."""
+    import torch
+    from repro_torch.configs.resnet50 import PAPER_MIN_DR, resnet50
+    from repro_torch.models import resnet as R
+    from repro_torch.tree import tree_map
+
+    base = resnet50()
+    B, size = RESNET_BATCH, base.image_size
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    backbone = R.init_resnet(gen, base, device="cuda")
+    images = torch.randn((B, size, size, 3), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(backbone))
+    print(f"resnet: {base.name} {base.num_blocks} blocks, stages "
+          f"{base.stages}, {base.dtype} (no TF32), {n_params / 1e6:.3f} M "
+          f"params, {B} images of {size}x{size}; init "
+          f"{time.perf_counter() - t0:.1f} s; card {smi}")
+    cpu_backbone = tree_map(lambda t: t.cpu(), backbone)
+    cpu_images = images[:RESNET_CPU_IMAGES].cpu()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    for split in RESNET_SPLITS:
+        d_r = PAPER_MIN_DR[split]
+        cfg = base.with_butterfly(split, d_r)
+        c, sp = cfg.block_channels()[split - 1], cfg.block_spatial()[split - 1]
+        params = dict(backbone, butterfly=R.init_butterfly_conv(
+            gen, c, d_r, "cuda"))
+        logits, wire = R.edge_cloud_split(params, images, cfg)
+        ingraph = R.forward_resnet(params, images, cfg)
+        codes, scales = wire["codes"], wire["scales"]
+        if codes.dtype != torch.int8 or tuple(codes.shape) != (B, sp, sp, d_r) \
+                or tuple(scales.shape) != (B, sp, sp, 1):
+            fail(f"RB{split}: wire codes {codes.dtype} {tuple(codes.shape)}, "
+                 f"scales {tuple(scales.shape)}; expected int8 "
+                 f"{(B, sp, sp, d_r)} and {(B, sp, sp, 1)}")
+        nbytes = codes.numel() * codes.element_size() + \
+            scales.numel() * scales.element_size()
+        if nbytes != B * sp * sp * d_r + 4 * B * sp * sp:
+            fail(f"RB{split}: {nbytes} B on the wire")
+        if not (torch.isfinite(logits).all() and logits.shape == (B, cfg.num_classes)):
+            fail(f"RB{split}: logits are not finite or of the wrong shape")
+        gap = float((ingraph - logits).abs().max())
+        if not torch.allclose(ingraph, logits, rtol=1e-4, atol=1e-4):
+            fail(f"RB{split}: the in-graph forward differs from "
+                 f"edge_cloud_split by {gap}")
+        # the port's CPU run of the same weights on the first images
+        cpu_params = dict(cpu_backbone, butterfly=tree_map(
+            lambda t: t.cpu(), params["butterfly"]))
+        cpu_wire = R.edge_half(cpu_params, cpu_images, cfg)
+        cpu_logits = R.cloud_half(cpu_params, cpu_wire, cfg, torch.float32)
+        diff = (codes[:RESNET_CPU_IMAGES].cpu().int() - cpu_wire["codes"].int()).abs()
+        n_diff, allowed = int((diff > 0).sum()), math.ceil(1e-3 * diff.numel())
+        if int(diff.max()) > 1 or n_diff > allowed:
+            fail(f"RB{split}: {n_diff} codes differ from the CPU's (max "
+                 f"{int(diff.max())}); allowed {allowed} by at most 1")
+        cpu_scales = cpu_wire["scales"]
+        torch.testing.assert_close(
+            scales[:RESNET_CPU_IMAGES].cpu(), cpu_scales, rtol=1e-5,
+            atol=1e-5 * float(cpu_scales.abs().max()))
+        card_logits = R.cloud_half(params, {k: v.cuda() for k, v in cpu_wire.items()},
+                                   cfg, torch.float32).cpu()
+        cpu_gap = float((card_logits - cpu_logits).abs().max())
+        if not torch.allclose(card_logits, cpu_logits, rtol=1e-4, atol=1e-4):
+            fail(f"RB{split}: the card's cloud half differs from the CPU's by "
+                 f"{cpu_gap}")
+        # times: the edge half to its wire on the host, the cloud half from
+        # the wire on the card, and the in-graph forward
+        edge_ms = _host_ms(lambda: {k: v.cpu() for k, v in
+                                    R.edge_half(params, images, cfg).items()})
+        host_wire = {k: v.cpu() for k, v in wire.items()}
+        cloud_ms = _host_ms(lambda: R.cloud_half(
+            params, {k: v.cuda() for k, v in host_wire.items()}, cfg,
+            torch.float32))
+        ingraph_ms = _host_ms(lambda: R.forward_resnet(params, images, cfg))
+        flops = _resnet_flops(cfg, d_r)
+        floor_ms = B * flops / H100_F32 * 1e3
+        print(f"resnet: RB{split:2d} d_r {d_r:2d}: wire {nbytes // B} B an image "
+              f"(codes {tuple(codes.shape)} int8 + f32 scales; raw f32 "
+              f"{sp * sp * c * 4} B); in-graph vs split max|d logits| "
+              f"{gap:.3g}; card vs CPU codes differ {n_diff}/{diff.numel()}, "
+              f"cloud logits {cpu_gap:.3g}")
+        print(f"resnet: RB{split:2d} d_r {d_r:2d}: edge half {edge_ms:.3f} ms, "
+              f"cloud half {cloud_ms:.3f} ms, {B / (edge_ms + cloud_ms) * 1e3:.1f} "
+              f"images/s split; in-graph {ingraph_ms:.3f} ms "
+              f"({B / ingraph_ms * 1e3:.1f} images/s); f32 floor "
+              f"{floor_ms:.3f} ms ({flops / 1e9:.3f} GFLOP an image at 67 "
+              f"TFLOP/s, {B / floor_ms * 1e3:.1f} images/s)")
+    launches = _counts()
+    if any(launches.values()):
+        fail(f"the ResNet path launched a kernel: {launches}")
+    print(f"resnet: launches on the path {launches} (none: the wire "
+          f"quantizes in plain PyTorch, as the reference does)")
+    print(f"resnet: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launches
+
+
 # --------------------------------------------------------------------- profile
 def _profiled(label: str, fn, out_dir: Optional[Path]):
     """Run ``fn`` twice: once bare for its host wall time, once under
@@ -1480,6 +1716,13 @@ def phase_profile_pipeline(runner, out_dir: Optional[Path]):
                   lambda: run(toks), out_dir)
 
 
+def _free():
+    """Hand the last phase's freed device memory back to the card."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description="Run the port's main path on "
                                  "one NVIDIA GPU (see the module docstring).")
@@ -1513,10 +1756,20 @@ def main():
         phase_profile(runner, profile_dir)
         phase_profile_pipeline(runner, profile_dir)
     del runner                       # the qwen3-8b weights leave the card
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     paths["gemma3-12b kernel prefill"], _ = phase_kernel_prefill(
-        args.profile is not None, profile_dir)
+        "gemma3-12b", args.profile is not None, profile_dir)
+    # each model's weights leave the card before the next one is built
+    _free()
+    print(f"qwen3-14b serving: card {smi}")
+    paths["qwen3-14b split serving"], runner = phase_serving(
+        "qwen3-14b", new_tokens=8, streamed=False, label="qwen3-14b serving")
+    del runner
+    _free()
+    print(f"kernel prefill: card {smi}")
+    paths["gemma-7b kernel prefill"], _ = phase_kernel_prefill("gemma-7b")
+    _free()
+    paths["resnet50 split inference"] = phase_resnet(smi)
 
     # flash over the 2,048-token gemma3-12b prefill's 48 launches, the norm
     # and bincount kernels over their path's launches; every timed shape

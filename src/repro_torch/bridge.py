@@ -3,8 +3,9 @@
 The JAX param tree (``M.init_model(jax.random.key(seed), built)``) and the
 per-split butterflies (``fold_in(key(seed), split)``) arrive as numpy
 arrays in the same nested dict/list layout the port uses, so the bridge is
-one tree map.  It takes numpy only: the caller does the ``np.asarray`` on
-the JAX side, and the port never imports JAX.
+one tree map (and, for the ResNet, a transpose of each conv kernel).  It
+takes numpy only: the caller does the ``np.asarray`` on the JAX side, and
+the port never imports JAX.
 """
 from __future__ import annotations
 
@@ -36,3 +37,12 @@ def to_torch(tree, *, device="cuda", dtype: Optional[torch.dtype] = None):
         return t.to(device)
 
     return tree_map(conv, tree)
+
+
+def resnet_to_torch(params_np, *, device="cuda",
+                    dtype: Optional[torch.dtype] = None):
+    """The JAX package's ResNet tree (numpy; HWIO conv kernels, ``(C,)``
+    norm vectors, the ``(C, classes)`` head) -> the port's, whose conv
+    kernels are OIHW (``models/resnet.py``)."""
+    oihw = lambda a: np.transpose(a, (3, 2, 0, 1)) if np.ndim(a) == 4 else a
+    return to_torch(tree_map(oihw, params_np), device=device, dtype=dtype)

@@ -2,10 +2,10 @@
 
 The port keeps its own copy (it imports nothing of ``repro``): every
 architecture is a frozen dataclass registered under its ``--arch`` id.
-Only the families this port runs are registered (``qwen3_8b``,
-``gemma3_12b``), and ``resnet50``, whose config the cost model reads (the
-ResNet model itself is not ported yet); the other families arrive with
-their slices.
+Only the families this port runs are registered: the dense transformers
+(``qwen3_8b``, ``qwen3_14b``, ``gemma_7b``, and ``gemma3_12b`` with its
+sliding windows) and the paper's ``resnet50`` (``models/resnet.py``); the
+other families arrive with their slices.
 """
 from __future__ import annotations
 
@@ -206,6 +206,8 @@ def register(name: str):
 def _import_archs():
     # the per-arch modules are imported lazily so `register` runs
     import repro_torch.configs.gemma3_12b  # noqa: F401
+    import repro_torch.configs.gemma_7b  # noqa: F401
+    import repro_torch.configs.qwen3_14b  # noqa: F401
     import repro_torch.configs.qwen3_8b  # noqa: F401
     import repro_torch.configs.resnet50  # noqa: F401
 

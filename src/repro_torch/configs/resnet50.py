@@ -3,8 +3,8 @@ faithful reproduction of Fig. 4/5/7 and Tables IV/V. [He et al. 2015; paper 3]
 
 These are conv configs, handled by ``models/resnet.py`` rather than the
 transformer stack; registered here so ``--arch resnet50`` works everywhere.
-(Port of ``repro/configs/resnet50.py``: the cost model reads the config; the
-ResNet model is not ported yet.)
+(Port of ``repro/configs/resnet50.py``; the cost model and
+``models/resnet.py`` read it.)
 """
 from __future__ import annotations
 

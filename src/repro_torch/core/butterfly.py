@@ -10,7 +10,9 @@ versions on a CPU tensor, with f32 products; the fused codec emits int8
 codes, so it takes ``wire_bits <= 8`` and raises otherwise);
 ``use_kernel=False`` runs the unfused ops in the activation dtype, as the JAX
 package's plain path does.
-The straight-through training form arrives with the training slice.
+The straight-through training form arrives with the training slice.  A
+1x1 conv over NHWC (the paper's ResNet form, ``models/resnet.py``) is the
+same per-position linear map.
 """
 from __future__ import annotations
 
@@ -63,3 +65,8 @@ def apply_butterfly(params, x: torch.Tensor, *, wire_bits: int = 8,
 
 def butterfly_wire_bytes(batch: int, seq: int, d_r: int, wire_bits: int = 8) -> int:
     return wire_bytes((batch, seq, d_r), wire_bits)
+
+
+def compression_ratio(d: int, d_r: int, act_bits: int, wire_bits: int = 8) -> float:
+    """Feature-volume compression vs. shipping the raw boundary tensor."""
+    return (d * act_bits) / (d_r * wire_bits)

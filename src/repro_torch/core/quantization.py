@@ -5,8 +5,9 @@ Symmetric absmax quantization per token row (over the ``d_r`` channel
 axis); an f32 scale rides along with every row.  The arithmetic follows
 the JAX package exactly: ``scale = max(absmax, 1e-8) / qmax`` and the codes
 come from a true divide ``r / scale`` rounded half to even (``torch.round``
-rounds like ``jnp.round``).  The straight-through ``fake_quant`` arrives
-with the training slice.
+rounds like ``jnp.round``).  ``fake_quant`` is the forward of the JAX
+straight-through estimator; its backward arrives with the training slice,
+so until then it refuses a tensor that requires grad.
 """
 from __future__ import annotations
 
@@ -32,6 +33,16 @@ def dequantize(codes: torch.Tensor, scale: torch.Tensor,
     return (codes.float() * scale).to(dtype)
 
 
+def fake_quant(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Quantize-dequantize in ``x``'s dtype: the forward of the JAX
+    package's straight-through ``fake_quant``."""
+    if x.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "fake_quant has no straight-through backward yet (it lands with "
+            "the training slice); call it under torch.no_grad()")
+    return dequantize(*quantize(x, bits), x.dtype)
+
+
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:
     """Pack int8 codes in [-8, 7] two-per-byte along the last axis.
 
@@ -53,6 +64,11 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     hi = packed >> 4
     out = torch.stack([lo, hi], dim=-1)
     return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def scale_dtype_bytes(dtype=torch.float32) -> int:
+    """Wire width of one per-row scale at its real dtype."""
+    return dtype.itemsize
 
 
 def wire_bytes(shape: tuple, bits: int, scale_bytes: int = 4) -> int:

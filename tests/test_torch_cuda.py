@@ -76,11 +76,15 @@ def _inputs(T, d, d_r, dtype, seed):
 # block's walk (one or two k chunks, d_r <= 128) or streamed through the
 # ring (256-1024), the codes copied 16 bytes at a time (d_r a multiple of
 # 16), 4 (gemma3's d_r = 60, zeros up to k = 64) or one (d_r = 33), and
-# widths whose rows are not whole 16-byte pieces
+# widths whose rows are not whole 16-byte pieces; and the dense configs'
+# wires: qwen3-14b's d=5120, d_r=80 (padded to 128 channels) and gemma-7b's
+# d=3072, d_r=48 (padded to 64)
 @pytest.mark.parametrize("T", [1, 4, 8, 16, 32, 33, 37, 128, 129, 256, 257,
                                512, 513, 1024, 1025, 4096])
 @pytest.mark.parametrize("d,d_r,dtype", [(4096, 64, torch.bfloat16),
                                          (3840, 60, torch.bfloat16),
+                                         (5120, 80, torch.bfloat16),
+                                         (3072, 48, torch.bfloat16),
                                          (256, 16, torch.float32),
                                          (200, 48, torch.bfloat16),
                                          (512, 128, torch.float32),
@@ -461,12 +465,17 @@ def test_flash_attention_matches_plain(cuda, hd, dtype, mask):
 
 
 # the main paths' shapes (chip_smoke.py's FLASH_PATH: gemma3-12b's global
-# and windowed layers on 2,048- and 100-token prompts, qwen3-8b on 128),
-# and B*N = 512 blocks a query tile, several waves over 132 SMs
+# and windowed layers on 2,048- and 100-token prompts, qwen3-8b on 128,
+# gemma-7b's MHA (one query head a key head) on 2,048 and 100, qwen3-14b's
+# five query heads a key head on 128), and B*N = 512 blocks a query tile,
+# several waves over 132 SMs
 @pytest.mark.parametrize("B,S,N,K,hd,window", [(1, 2048, 16, 8, 256, None),
                                                (1, 2048, 16, 8, 256, 1024),
                                                (1, 100, 16, 8, 256, None),
                                                (1, 128, 32, 8, 128, None),
+                                               (1, 2048, 16, 16, 256, None),
+                                               (1, 100, 16, 16, 256, None),
+                                               (1, 128, 40, 8, 128, None),
                                                (16, 130, 32, 8, 128, 64),
                                                (8, 200, 64, 8, 64, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -553,6 +562,94 @@ def test_windowed_model_kernel_prefill_and_ring_decode(cuda):
         near(logits, ref_logits)
         tok = ref_logits[:, -1].argmax(-1, keepdim=True)
     assert butterfly_kernel.reduce_quant.launches == n[1] + 1 + steps
+
+
+def test_mha_model_kernel_prefill_and_decode(cuda):
+    """Reduced gemma-7b with its MHA kept (4 query heads, 4 key heads; f32,
+    d_r=16 butterfly after layer 2) on the card: a 40-token kernel prefill
+    launches the flash kernel once a layer and stays near the plain
+    prefill, and 8 greedy decode steps stay near the plain run's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    base = get_config("gemma-7b").reduced()
+    cfg = dataclasses.replace(base, num_layers=4, num_kv_heads=base.num_heads
+                              ).with_butterfly(2, 16)
+    built = M.build(cfg)
+    params = M.init_model(torch.Generator(device=cuda).manual_seed(0), built,
+                          device=cuda)
+    S, steps = 40, 8
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, S))).to(cuda)
+    n = fa.flash_attention.launches
+    logits, caches = M.forward_prefill(params, built, {"tokens": toks},
+                                       use_kernel=True)
+    assert fa.flash_attention.launches == n + cfg.num_layers
+    ref_logits, ref_caches = M.forward_prefill(params, built, {"tokens": toks})
+
+    def near(a, b):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 0.05 * float(b.abs().max())
+
+    near(logits, ref_logits)
+    caches = M.pad_decode_caches(built, caches, S + steps)
+    ref_caches = M.pad_decode_caches(built, ref_caches, S + steps)
+    tok = ref_logits[:, -1].argmax(-1, keepdim=True)
+    for pos in range(S, S + steps):
+        logits, caches = M.forward_decode(params, built, tok, caches, pos,
+                                          use_kernel=True)
+        ref_logits, ref_caches = M.forward_decode(params, built, tok,
+                                                  ref_caches, pos)
+        near(logits, ref_logits)
+        tok = ref_logits[:, -1].argmax(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("split", [3, 7, 13, 16])
+def test_resnet_split_on_the_card_matches_cpu(cuda, split):
+    """Full-width ResNet-50 in f32 (no TF32) on two 64x64 images, split at
+    the paper's Fig. 7 points with their least d_r: on the card the
+    in-graph forward and edge_cloud_split agree within 1e-4; the card's
+    codes equal the port's CPU run's (at most 1 apart on at most 0.1% of
+    entries), scales within rtol 1e-5 and an atol of 1e-5 of the largest
+    scale, and the card's cloud half on the CPU's wire gives the CPU's
+    logits within 1e-4.  No kernel launches: the ResNet wire quantizes in
+    plain PyTorch, as the JAX package's does."""
+    from repro_torch.configs.resnet50 import PAPER_MIN_DR, resnet50
+    from repro_torch.models import resnet as R
+    from repro_torch.tree import tree_map
+    d_r = PAPER_MIN_DR[split]
+    cfg = dataclasses.replace(resnet50(), image_size=64).with_butterfly(split, d_r)
+    params = R.init_resnet(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           device=cuda)
+    images = torch.from_numpy(np.random.default_rng(split).standard_normal(
+        (2, 64, 64, 3)).astype(np.float32))
+    before = dict(_launch_counts())
+    logits, wire = R.edge_cloud_split(params, images.to(cuda), cfg)
+    ingraph = R.forward_resnet(params, images.to(cuda), cfg)
+    assert _launch_counts() == before
+    torch.testing.assert_close(ingraph, logits, rtol=1e-4, atol=1e-4)
+    sp = cfg.block_spatial()[split - 1]
+    assert wire["codes"].dtype == torch.int8
+    assert tuple(wire["codes"].shape) == (2, sp, sp, d_r)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu_wire = R.edge_half(cpu_params, images, cfg)
+    diff = (wire["codes"].cpu().int() - cpu_wire["codes"].int()).abs()
+    assert int(diff.max()) <= 1
+    assert int((diff > 0).sum()) <= math.ceil(1e-3 * diff.numel())
+    torch.testing.assert_close(wire["scales"].cpu(), cpu_wire["scales"],
+                               rtol=1e-5,
+                               atol=1e-5 * float(cpu_wire["scales"].abs().max()))
+    card = R.cloud_half(params, {k: v.to(cuda) for k, v in cpu_wire.items()},
+                        cfg, torch.float32)
+    torch.testing.assert_close(card.cpu(), R.cloud_half(
+        cpu_params, cpu_wire, cfg, torch.float32), rtol=1e-4, atol=1e-4)
+
+
+def _launch_counts():
+    return {fn.__name__: fn.launches for fn in (
+        butterfly_kernel.reduce_quant, butterfly_kernel.dequant_restore,
+        butterfly_kernel.dequant_restore_norm,
+        butterfly_kernel.reduce_quant_bincount, fa.flash_attention,
+        rmsnorm_kernel.rmsnorm)}
 
 
 def test_two_stream_pipeline_matches_serial(cuda):
