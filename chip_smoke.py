@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-On one H100 80GB HBM3 it takes about three minutes, the kernels' build
-included.
+On one H100 80GB HBM3 it takes two and a half to three and a half
+minutes, the kernels' build included.
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -95,15 +95,33 @@ result line):
                against the port's CPU run on 2 images, no kernel launched
                (as in the reference); edge, cloud and in-graph times and
                images/s beside the f32 floor (see phase_resnet).
+ 12. qwen3-8b training - the training entry points (init_train_state,
+               make_train_step: plain autograd through the straight-through
+               wire, AdamW in place), as the JAX package trains: first a
+               reduced f32 qwen3 with a butterfly and the rate term takes 8
+               steps from one init on the card and on the CPU, whose losses
+               and grad norms must agree; then qwen3-8b at its published
+               widths cut to 8 of its 36 layers (bf16, butterfly after layer
+               4 at d_r 64) takes 8 AdamW steps on one batch of 4 x 512
+               tokens.  Losses and grad norms must be finite and the loss
+               must fall, grads must reach both sides of the wire, the
+               params stay bf16, no kernel launches; prints the step walls,
+               tokens/s against the 6*N*tokens floor, and the peak;
+ 13. resnet50 training - the same for ResNet-50 through the training
+               example's step: a reduced parity run, then the paper's model
+               uncut at 224x224 (f32, no TF32, butterfly after RB3 at d_r 1)
+               8 steps on 16 SyntheticImages; images/s against 3 x the
+               forward's operations at 67 TFLOP/s.
 Each model's weights leave the card before the next one is built, and
 each phase prints its peak device memory.
 With ``--profile [DIR]`` it profiles one qwen3-8b prefill and 8 decode steps
 and a short pipelined and serial decode pipeline after phase 8, and
 gemma3-12b's kernel and plain prefills of the 2,048-token prompt and 8
-decode steps after phase 6 (torch.profiler: wall time, device-busy share,
-top kernels; the operator tables go to DIR when one is given).  It then
-prints the kernels' JSON line (launches by path, the three paths of phases
-9-11 included; the times of flash attention and of the norm and bincount
+decode steps after phase 6, and one training step of each model in phases
+12 and 13 (torch.profiler: wall time, device-busy share, top kernels; the
+operator tables go to DIR when one is given).  It then
+prints the kernels' JSON line (launches by path, the five paths of phases
+9-13 included, the training paths with none; the times of flash attention and of the norm and bincount
 kernels per launch, averaged over their path's launches; the two butterfly
 kernels' at 128 rows; every timed shape under "by_shape") and, last, the
 result line.
@@ -1638,6 +1656,268 @@ def phase_resnet(smi: str):
     return launches
 
 
+# -------------------------------------------------------------------- 12, 13
+# training, as the JAX package trains: plain autograd through the
+# straight-through wire (its Pallas kernels have no backward), AdamW in place.
+# Parity: a reduced model takes the same steps from one init on the card and
+# on the CPU; losses and grad norms agree within TRAIN_RTOL at every step.
+# f32 without TF32 on both, but sums run in another order: the gap starts
+# near 1e-7 and grows as wire codes flip (the qwen3 run's worst was 1.9e-4
+# after 8 steps on an H100; the CPU port against JAX, 1.2e-5 to 1.5e-4
+# after 10 by thread count). A bf16 forward, or a wrong gradient, moves a
+# loss by 1e-2 or more.
+TRAIN_RTOL = 1e-3
+# full width: qwen3-8b cut to 8 of its 36 layers, since all 36 need 8.19 B x
+# 12 B = 98 GB of bf16 params and grads and f32 moments, more than the card
+# holds; the butterfly after layer 4 at d_r 64 (phase 5's wire); 8 steps on
+# one fixed batch of 4 x 512 tokens at a constant learning rate
+LM_TRAIN = dict(layers=8, split=4, d_r=64, batch=4, seq=512, steps=8, lr=3e-4)
+# ResNet-50 uncut at 224x224, 100 classes, f32 without TF32, the butterfly
+# after RB3 at d_r 1 (the paper's least), 8 steps on one fixed batch of 16
+# images at the example's weight decay.  At the example's lr of 1e-3 the
+# loss rose above its first value for steps 2-5 (5.04 -> 6.71 on an H100);
+# at 3e-4 it stayed under it (5.04 -> 2.77)
+RESNET_TRAIN = dict(split=3, d_r=1, batch=16, steps=8, lr=3e-4,
+                    weight_decay=1e-4)
+
+
+def _lm_step(built, ocfg):
+    """The training entry point's step, as (params, opt, loss, grad norm)."""
+    from repro_torch.training import make_train_step
+    step = make_train_step(built, ocfg)
+
+    def run(params, opt, batch):
+        params, opt, m = step(params, opt, batch)
+        return params, opt, m["loss"], m["grad_norm"]
+    return run
+
+
+def _run_steps(step, params, opt, batches):
+    """One ``step`` a batch; returns (losses, grad norms, host wall ms of
+    each step, which ends in a synchronize on the card)."""
+    import torch
+    losses, gnorms, walls = [], [], []
+    cuda = _leaves(params)[0].is_cuda
+    for batch in batches:
+        t = time.perf_counter()
+        params, opt, loss, gnorm = step(params, opt, batch)
+        if cuda:
+            torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+        gnorms.append(float(gnorm))
+    return losses, gnorms, walls
+
+
+def _step_parts(vg, args, ocfg, params, opt):
+    """Host wall ms of one more step, in its two parts: the forward and
+    backward (``vg(params, *args)``) and the AdamW update."""
+    import torch
+    from repro_torch.training import adamw_update
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, grads = vg(params, *args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(ocfg, params, grads, opt)
+    torch.cuda.synchronize()
+    return (t1 - t) * 1e3, (time.perf_counter() - t1) * 1e3
+
+
+def _train_parity(label: str, step, params_cpu, batches_cpu):
+    """The same steps from ``params_cpu`` on the card and on the CPU."""
+    from repro_torch.training import adamw_init
+    from repro_torch.tree import tree_map
+    to_card = lambda tree: tree_map(lambda t: t.cuda(), tree)
+    card = to_card(params_cpu)          # before the CPU steps update in place
+    lc, gc, _ = _run_steps(step, card, adamw_init(card),
+                           [to_card(b) for b in batches_cpu])
+    lh, gh, _ = _run_steps(step, params_cpu, adamw_init(params_cpu), batches_cpu)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(lc + gc, lh + gh))
+    print(f"{label}: parity, {len(lc)} steps card vs CPU: losses "
+          f"{[round(x, 6) for x in lc]} vs {[round(x, 6) for x in lh]}; grad "
+          f"norms {[round(x, 5) for x in gc]} vs {[round(x, 5) for x in gh]}; "
+          f"worst relative gap {worst:.3g} (limit {TRAIN_RTOL:g})")
+    if not worst <= TRAIN_RTOL:
+        fail(f"{label}: the card's training differs from the CPU's by {worst:.3g}")
+
+
+def _check_training(label: str, losses, gnorms, params, opt, dtype, grad_leaves):
+    """Finite and falling losses, finite grad norms, params still in
+    ``dtype``, non-zero first moments (so non-zero grads) at ``grad_leaves``
+    (paths into the params tree), and no kernel launched."""
+    import torch
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"{label}: a loss or grad norm is not finite: {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall: {losses}")
+    dtypes = {str(t.dtype) for t in _leaves(params)}
+    if dtypes != {str(dtype)}:
+        fail(f"{label}: params are {dtypes}, not {dtype}")
+    for path in grad_leaves:
+        mu = opt["mu"]
+        for k in path:
+            mu = mu[k]
+        if not bool(torch.any(mu != 0)):
+            fail(f"{label}: no gradient reached {'/'.join(map(str, path))}")
+    launches = _counts()
+    if any(launches.values()):
+        fail(f"{label}: training launched a kernel: {launches}")
+    return launches
+
+
+def phase_train_qwen(smi: str, profile: bool = False,
+                     profile_dir: Optional[Path] = None):
+    """Phase 12.  Parity: the reduced f32 qwen3 (vocab 64) with a d_r=16
+    butterfly after layer 1 and the rate term (rate_weight 0.01) takes 8
+    steps on lm_batches from one init, card against CPU.  Full width:
+    qwen3-8b's published widths at LM_TRAIN's depth, bf16, random weights
+    from seed 0, 8 AdamW steps on one batch; see _check_training.  Prints
+    each step's loss, grad norm and wall, the median wall after the first
+    step, tokens/s, the share of the 6*N*tokens floor at 989 TFLOP/s (N
+    without the embedding lookup) and the peak memory."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import model as M
+    from repro_torch.training import (AdamWConfig, constant_schedule,
+                                      cosine_schedule, init_train_state,
+                                      make_loss_fn)
+    from repro_torch.training.train_loop import value_and_grad
+
+    small = dataclasses.replace(get_config("qwen3-8b").reduced(), vocab_size=64)
+    small = M.build(small.with_butterfly(1, 16, rate_weight=0.01))
+    stream = lm_batches(64, 64, 4, seed=1)
+    batches = [{k: torch.from_numpy(v) for k, v in next(stream).items()}
+               for _ in range(8)]
+    params, _ = init_train_state(torch.Generator().manual_seed(0), small,
+                                 device="cpu")
+    _train_parity("qwen3-8b training",
+                  _lm_step(small, AdamWConfig(lr=cosine_schedule(1e-3, 3, 8))),
+                  params, batches)
+
+    c = LM_TRAIN
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=c["layers"])
+    built = M.build(cfg.with_butterfly(c["split"], c["d_r"]))
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    params, opt = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                   built, device="cuda")
+    raw = next(lm_batches(cfg.vocab_size, c["seq"], c["batch"], seed=0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    torch.cuda.synchronize()
+    n_all = sum(p.numel() for p in _leaves(params))
+    n = n_all - params["embed"].numel()
+    print(f"qwen3-8b training: {c['layers']} of 36 layers at full width "
+          f"(d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, hd "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}), butterfly after layer {c['split']} at d_r {c['d_r']}; "
+          f"{n_all / 1e9:.3f} B params ({n / 1e9:.3f} B without the embedding); "
+          f"init {time.perf_counter() - t0:.1f} s; constant lr {c['lr']:g}; "
+          f"card {smi}")
+    ocfg = AdamWConfig(lr=constant_schedule(c["lr"]))
+    step = _lm_step(built, ocfg)
+    losses, gnorms, walls = _run_steps(step, params, opt, [batch] * c["steps"])
+    launches = _check_training(
+        "qwen3-8b training", losses, gnorms, params, opt, torch.bfloat16,
+        [("butterfly", "w_reduce"), ("stages", 0, 0, 0, "mixer", "wq")])
+    fwd_bwd, update = _step_parts(value_and_grad(make_loss_fn(built)), (batch,),
+                                  ocfg, params, opt)
+    if profile:
+        _profiled("train_qwen3_8b", lambda: step(params, opt, batch), profile_dir)
+    tokens = c["batch"] * c["seq"]
+    wall = statistics.median(walls[1:])
+    floor_ms = 6 * n * tokens / H100_RATES[1] * 1e3
+    for i, (l, g, w) in enumerate(zip(losses, gnorms, walls)):
+        print(f"qwen3-8b training: step {i} loss {l:.4f} gnorm {g:.4f} "
+              f"wall {w:.1f} ms")
+    print(f"qwen3-8b training: median step {wall:.1f} ms after the first "
+          f"(one more step: forward and backward {fwd_bwd:.1f} ms, AdamW "
+          f"update {update:.1f} ms), "
+          f"{tokens / wall * 1e3:,.0f} tokens/s; 6*N*tokens floor "
+          f"{floor_ms:.1f} ms at 989 TFLOP/s ({floor_ms / wall:.1%} of it); "
+          f"launches {launches} (none); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {smi}")
+    return launches
+
+
+def phase_train_resnet(smi: str, profile: bool = False,
+                       profile_dir: Optional[Path] = None):
+    """Phase 13.  Parity: the reduced ResNet (2 blocks at 32x32) with a d_r=2
+    butterfly after RB1 takes 5 steps of 8 image_batches images from one
+    init, card against CPU.  Full size: RESNET_TRAIN, through the example's
+    step (train_resnet_butterfly.make_resnet_step); see _check_training.
+    Prints each step, the median wall after the first, images/s beside the
+    floor of 3 x the forward's operations an image at 67 TFLOP/s, and the
+    peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.resnet50 import resnet50
+    from repro_torch.data import ImageTaskConfig, SyntheticImages, image_batches
+    from repro_torch.examples.train_resnet_butterfly import (make_resnet_step,
+                                                            resnet_loss)
+    from repro_torch.models import resnet as R
+    from repro_torch.training import AdamWConfig, adamw_init, constant_schedule
+    from repro_torch.training.train_loop import value_and_grad
+
+    c = RESNET_TRAIN
+    ocfg = AdamWConfig(lr=constant_schedule(c["lr"]),
+                       weight_decay=c["weight_decay"])
+    small = resnet50().reduced().with_butterfly(1, 2)
+    stream = image_batches(8, ImageTaskConfig(num_classes=small.num_classes,
+                                              image_size=small.image_size))
+    batches = [tuple(torch.from_numpy(a) for a in next(stream)) for _ in range(5)]
+    step = make_resnet_step(small, ocfg)
+    _train_parity("resnet50 training",
+                  lambda p, o, b: step(p, o, *b),
+                  R.init_resnet(torch.Generator().manual_seed(0), small,
+                                device="cpu"), batches)
+
+    cfg = resnet50().with_butterfly(c["split"], c["d_r"])
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    params = R.init_resnet(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           device="cuda")
+    task = SyntheticImages(ImageTaskConfig(num_classes=cfg.num_classes,
+                                           image_size=cfg.image_size))
+    batch = tuple(torch.from_numpy(a).cuda()
+                  for a in task.batch(c["batch"], np.random.default_rng(0)))
+    print(f"resnet50 training: {cfg.name} uncut, {cfg.image_size}x"
+          f"{cfg.image_size}, {cfg.num_classes} classes, {cfg.dtype} (no TF32), "
+          f"butterfly after RB{c['split']} at d_r {c['d_r']}; "
+          f"{sum(p.numel() for p in _leaves(params)) / 1e6:.3f} M params; "
+          f"{c['batch']} SyntheticImages; constant lr {c['lr']:g}, weight decay "
+          f"{c['weight_decay']:g}; card {smi}")
+    step, opt = make_resnet_step(cfg, ocfg), adamw_init(params)
+    losses, gnorms, walls = _run_steps(lambda p, o, b: step(p, o, *b), params,
+                                       opt, [batch] * c["steps"])
+    launches = _check_training(
+        "resnet50 training", losses, gnorms, params, opt, torch.float32,
+        [("butterfly", "reduce"), ("stem",)])
+    fwd_bwd, update = _step_parts(value_and_grad(resnet_loss), batch + (cfg,),
+                                  ocfg, params, opt)
+    if profile:
+        _profiled("train_resnet50", lambda: step(params, opt, *batch), profile_dir)
+    wall = statistics.median(walls[1:])
+    floor_ms = c["batch"] * 3 * _resnet_flops(cfg, c["d_r"]) / H100_F32 * 1e3
+    for i, (l, g, w) in enumerate(zip(losses, gnorms, walls)):
+        print(f"resnet50 training: step {i} loss {l:.4f} gnorm {g:.4f} "
+              f"wall {w:.1f} ms")
+    print(f"resnet50 training: median step {wall:.1f} ms after the first "
+          f"(one more step: forward and backward {fwd_bwd:.1f} ms, AdamW "
+          f"update {update:.1f} ms), "
+          f"{c['batch'] / wall * 1e3:.1f} images/s; floor {floor_ms:.2f} ms "
+          f"(3 x {_resnet_flops(cfg, c['d_r']) / 1e9:.3f} GFLOP an image at 67 "
+          f"TFLOP/s, {c['batch'] / floor_ms * 1e3:.1f} images/s; "
+          f"{floor_ms / wall:.1%} of it); launches {launches} (none); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"card {smi}")
+    return launches
+
+
 # --------------------------------------------------------------------- profile
 def _profiled(label: str, fn, out_dir: Optional[Path]):
     """Run ``fn`` twice: once bare for its host wall time, once under
@@ -1728,7 +2008,8 @@ def main():
                                  "one NVIDIA GPU (see the module docstring).")
     ap.add_argument("--profile", nargs="?", const="", metavar="DIR",
                     help="profile prefills and 8 decode steps of both "
-                         "models; write the operator tables to DIR if given")
+                         "serving models and a training step of each trained "
+                         "model; write the operator tables to DIR if given")
     args = ap.parse_args()
     name, smi, rates = phase_device()
     import torch
@@ -1770,6 +2051,12 @@ def main():
     paths["gemma-7b kernel prefill"], _ = phase_kernel_prefill("gemma-7b")
     _free()
     paths["resnet50 split inference"] = phase_resnet(smi)
+    _free()
+    paths["qwen3-8b training"] = phase_train_qwen(smi, args.profile is not None,
+                                                  profile_dir)
+    _free()
+    paths["resnet50 training"] = phase_train_resnet(smi, args.profile is not None,
+                                                    profile_dir)
 
     # flash over the 2,048-token gemma3-12b prefill's 48 launches, the norm
     # and bincount kernels over their path's launches; every timed shape

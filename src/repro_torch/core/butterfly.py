@@ -1,4 +1,4 @@
-"""The butterfly unit (port of ``repro/core/butterfly.py``), inference form:
+"""The butterfly unit (port of ``repro/core/butterfly.py``):
 
   reduction unit  : learned projection  d -> d_r   (edge side)
   wire            : int8 symmetric quantization (+ f32 scales)
@@ -10,16 +10,19 @@ versions on a CPU tensor, with f32 products; the fused codec emits int8
 codes, so it takes ``wire_bits <= 8`` and raises otherwise);
 ``use_kernel=False`` runs the unfused ops in the activation dtype, as the JAX
 package's plain path does.
-The straight-through training form arrives with the training slice.  A
-1x1 conv over NHWC (the paper's ResNet form, ``models/resnet.py``) is the
-same per-position linear map.
+``apply_butterfly(train=True)`` is the training form: the wire is
+``fake_quant``, whose straight-through gradient trains the unit end to end
+(the JAX package trains with no kernel either: its Pallas kernels have no
+backward).  A 1x1 conv over NHWC (the paper's ResNet form,
+``models/resnet.py``) is the same per-position linear map.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ButterflyConfig
-from repro_torch.core.quantization import dequantize, quantize, wire_bytes
+from repro_torch.core.quantization import dequantize, fake_quant, quantize, \
+    wire_bytes
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import dense_init
 
@@ -52,9 +55,13 @@ def restore_unit(params, codes: torch.Tensor, scales: torch.Tensor, dtype,
 
 
 def apply_butterfly(params, x: torch.Tensor, *, wire_bits: int = 8,
-                    use_kernel: bool = False) -> torch.Tensor:
-    """In-graph wire at inference (the JAX ``train=False`` form): reduce,
-    quantize, dequantize, restore."""
+                    train: bool = False, use_kernel: bool = False) -> torch.Tensor:
+    """In-graph wire: reduce, quantize, dequantize, restore.  ``train=True``
+    quantizes through the straight-through ``fake_quant``, whatever
+    ``use_kernel`` says.  ``train`` defaults to False (the JAX function's
+    default is True): every caller but the training forward serves."""
+    if train:
+        return fake_quant(x @ params["w_reduce"], wire_bits) @ params["w_restore"]
     if use_kernel:
         codes, scales = reduce_unit(params, x, use_kernel=True,
                                     wire_bits=wire_bits)

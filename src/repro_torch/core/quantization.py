@@ -5,9 +5,9 @@ Symmetric absmax quantization per token row (over the ``d_r`` channel
 axis); an f32 scale rides along with every row.  The arithmetic follows
 the JAX package exactly: ``scale = max(absmax, 1e-8) / qmax`` and the codes
 come from a true divide ``r / scale`` rounded half to even (``torch.round``
-rounds like ``jnp.round``).  ``fake_quant`` is the forward of the JAX
-straight-through estimator; its backward arrives with the training slice,
-so until then it refuses a tensor that requires grad.
+rounds like ``jnp.round``).  ``fake_quant`` is the JAX package's
+straight-through estimator: quantize-dequantize forward, identity backward,
+so the butterfly and the codec train end to end.
 """
 from __future__ import annotations
 
@@ -33,14 +33,20 @@ def dequantize(codes: torch.Tensor, scale: torch.Tensor,
     return (codes.float() * scale).to(dtype)
 
 
+class _FakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bits):
+        return dequantize(*quantize(x, bits), x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def fake_quant(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
-    """Quantize-dequantize in ``x``'s dtype: the forward of the JAX
-    package's straight-through ``fake_quant``."""
-    if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "fake_quant has no straight-through backward yet (it lands with "
-            "the training slice); call it under torch.no_grad()")
-    return dequantize(*quantize(x, bits), x.dtype)
+    """Quantize-dequantize in ``x``'s dtype, with a straight-through
+    gradient (the upstream gradient passes unchanged)."""
+    return _FakeQuant.apply(x, bits)
 
 
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:

@@ -26,9 +26,8 @@ Per-row *decode* streaming keeps fixed-rate int8 rows: the ~12-byte state
 flush dwarfs a d_r-symbol row, so entropy coding only pays on prefill-sized
 payloads (see DESIGN.md section 18).
 
-Everything here is host-side numpy.  The JAX package's ``rate_bits`` (the
-differentiable rate term of the training loss) is not here: it comes with
-the port's training loop.
+Everything here is host-side numpy, except ``rate_bits``: the
+differentiable rate term of the training loss, in PyTorch.
 """
 from __future__ import annotations
 
@@ -269,6 +268,60 @@ def expected_bits_per_symbol(counts, prior: WirePrior) -> float:
         return 0.0
     bits_per = SCALE_BITS - np.log2(prior.freqs.astype(np.float64))
     return float((c * bits_per).sum() / n)
+
+
+# ---------------------------------------------------------------------------
+# differentiable rate term (training hook)
+# ---------------------------------------------------------------------------
+
+
+def rate_bits(r, bits: int = 8, prior_logits=None):
+    """Expected code length (bits/symbol) of the butterfly's reduced
+    activations ``r`` (..., d_r) under a per-channel categorical prior —
+    differentiable in both ``r`` and ``prior_logits``.
+
+    Mirrors the quantizer's scaling (per-row absmax -> continuous symbol
+    position), then linearly interpolates the prior pmf between the two
+    neighbouring symbols, so gradients flow into the reduce projection
+    (sharper, lower-entropy code distributions) and into the prior.  With
+    ``prior_logits=None`` a fixed two-sided geometric prior is used, which
+    penalizes code magnitude — the BottleNet-style rate pressure.
+
+    The clips are ``minimum(maximum(x, lo), hi)`` on tensor bounds, as
+    ``jnp.clip`` computes them: at a bound the gradient splits 0.5/0.5
+    (``torch.clamp`` would pass all of it), and a row whose positive absmax
+    divides to ``qmax`` lands on the top symbol exactly.
+    """
+    import torch
+
+    K = alphabet_size(bits)
+    qmax = 2 ** (bits - 1) - 1
+    d_r = r.shape[-1]
+    bound = lambda v: torch.full((), v, dtype=r.dtype, device=r.device)
+    absmax = r.abs().amax(dim=-1, keepdim=True)
+    # a true division, as JAX's: CUDA divides by a host scalar through its
+    # reciprocal, and a scale one bit off moves the row's absmax entry across
+    # the interpolation's kink at a whole symbol, where the gradient jumps
+    scale = torch.maximum(absmax, bound(1e-8)) / bound(qmax)
+    s = torch.minimum(torch.maximum(r / scale + (qmax + 1), bound(0.0)),
+                      bound(K - 1.0))                      # continuous symbol
+    if prior_logits is None:
+        center = 1 << (bits - 1)
+        k = torch.arange(K, dtype=torch.float32, device=r.device)
+        logp = (k - center).abs() * float(np.log(np.float32(0.8)))
+        logp = logp - torch.log(logp.exp().sum())
+        logp = logp[None].expand(d_r, K)
+    else:
+        logp = torch.log_softmax(prior_logits.float(), dim=-1)
+    p = logp.exp()                                         # (d_r, K)
+    lo = torch.clamp(torch.floor(s), 0, K - 2).long()
+    frac = s - lo.to(s.dtype)
+    flat = lo.reshape(-1, d_r)
+    ch = torch.arange(d_r, device=r.device)[None, :]
+    p_lo = p[ch, flat].reshape(lo.shape)
+    p_hi = p[ch, flat + 1].reshape(lo.shape)
+    p_s = p_lo * (1.0 - frac) + p_hi * frac
+    return (-torch.log2(p_s + 1e-12)).mean()
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,13 @@
+from repro_torch.data.pipeline import (
+    ImageTaskConfig,
+    LMStreamConfig,
+    MarkovLMStream,
+    SyntheticImages,
+    image_batches,
+    lm_batches,
+)
+
+__all__ = [
+    "ImageTaskConfig", "LMStreamConfig", "MarkovLMStream", "SyntheticImages",
+    "image_batches", "lm_batches",
+]

@@ -7,10 +7,14 @@
   forward_prefill(params, built, batch)       -> (last-position logits, caches)
   pad_decode_caches(built, caches, length)    -> caches at decode capacity
   forward_decode(params, built, tokens, caches, pos) -> (logits, caches)
+  lm_loss(logits, targets)                    -> masked next-token NLL
 
 ``use_kernel=True`` runs full-sequence attention through the flash kernel
 and the in-graph butterfly wire through the fused butterfly kernels (the
 Hopper kernels on CUDA tensors, their plain versions on CPU tensors).
+``forward_train`` runs the butterfly's training wire (straight-through
+``fake_quant``) and returns the JAX package's three aux terms; the dense
+families have no MoE, so the load-balance and router-z terms are zeros.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from repro_torch import device as dev_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import butterfly as bf_lib
+from repro_torch.core.wire_codec import rate_bits
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed, init_embedding, init_rms_norm, \
     rms_norm, unembed
@@ -82,31 +87,42 @@ def _logits(params, built: BuiltModel, x):
 
 def _run_stages(params, built: BuiltModel, x, *, mode, caches, pos,
                 use_kernel: bool):
+    """Returns (x, new caches, wire rate): in train mode the rate is a 0-d
+    f32 tensor, non-zero with ``rate_weight > 0``; otherwise None."""
     cfg = built.cfg
+    train = mode == "train"
+    rate = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
     new_caches = []
     for stage_idx, segs in enumerate(built.stages):
         if stage_idx == 1:
-            if mode == "train":
-                raise NotImplementedError(
-                    "the straight-through training wire arrives with the "
-                    "training slice")
+            if train and cfg.butterfly.rate_weight > 0:
+                # recomputes the (cheap, d_r-wide) reduce matmul, as the
+                # JAX package does, so apply_butterfly's signature stays
+                rate = rate_bits(x @ params["butterfly"]["w_reduce"],
+                                 bits=cfg.butterfly.wire_bits)
             x = bf_lib.apply_butterfly(params["butterfly"], x,
                                        wire_bits=cfg.butterfly.wire_bits,
-                                       use_kernel=use_kernel)
+                                       train=train, use_kernel=use_kernel)
         stage_cache = None if caches is None else caches[stage_idx]
         x, nc = tfm.apply_stage(list(segs), params["stages"][stage_idx], x,
                                 cfg=cfg, mode=mode, stage_cache=stage_cache,
                                 pos=pos, use_kernel=use_kernel)
         new_caches.append(nc)
-    return x, new_caches
+    return x, new_caches, rate
 
 
 def forward_train(params, built: BuiltModel, batch: dict,
                   use_kernel: bool = False):
+    """(logits, aux): aux holds ``load_balance``, ``router_z`` and
+    ``wire_rate_bits``, 0-d f32 tensors.  ``use_kernel`` sends attention
+    through the flash kernel, which has no backward: differentiate only the
+    plain path (``training.make_train_step`` refuses the kernels)."""
     x = _embed_inputs(params, built, batch["tokens"])
-    x, _ = _run_stages(params, built, x, mode="train", caches=None, pos=None,
-                       use_kernel=use_kernel)
-    return _logits(params, built, x), {}
+    x, _, rate = _run_stages(params, built, x, mode="train", caches=None,
+                             pos=None, use_kernel=use_kernel)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, built, x), {"load_balance": zero, "router_z": zero,
+                                       "wire_rate_bits": rate}
 
 
 def forward_prefill(params, built: BuiltModel, batch: dict,
@@ -114,8 +130,8 @@ def forward_prefill(params, built: BuiltModel, batch: dict,
     """Last-position logits and the caches: full length for global layers,
     ring order (``min(S, window)`` rows) for windowed ones."""
     x = _embed_inputs(params, built, batch["tokens"])
-    x, caches = _run_stages(params, built, x, mode="prefill", caches=None,
-                            pos=None, use_kernel=use_kernel)
+    x, caches, _ = _run_stages(params, built, x, mode="prefill", caches=None,
+                               pos=None, use_kernel=use_kernel)
     return _logits(params, built, x[:, -1:]), caches
 
 
@@ -139,6 +155,16 @@ def forward_decode(params, built: BuiltModel, tokens, caches, pos,
     in place and returned.  ``use_kernel`` reaches only the butterfly wire:
     decode attention is the plain path, as in the JAX package."""
     x = _embed_inputs(params, built, tokens)
-    x, new_caches = _run_stages(params, built, x, mode="decode", caches=caches,
-                                pos=pos, use_kernel=use_kernel)
+    x, new_caches, _ = _run_stages(params, built, x, mode="decode",
+                                   caches=caches, pos=pos,
+                                   use_kernel=use_kernel)
     return _logits(params, built, x), new_caches
+
+
+def lm_loss(logits, targets, ignore: int = -1):
+    """Cross entropy in f32; targets equal to ``ignore`` are masked."""
+    mask = targets != ignore
+    tgt = torch.where(mask, targets, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)

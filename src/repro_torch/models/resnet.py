@@ -1,6 +1,5 @@
 """Paper-faithful ResNet-50 (He et al. 2015) with the butterfly unit after
-any of the 16 residual blocks (port of ``repro/models/resnet.py``, inference
-form).
+any of the 16 residual blocks (port of ``repro/models/resnet.py``).
 
 The API keeps the JAX package's layouts: activations and images are NHWC,
 the wire is ``(B, H, W, d_r)`` int8 codes with ``(B, H, W, 1)`` f32 scales.
@@ -14,8 +13,8 @@ As in the JAX package, GroupNorm(32) stands in for BatchNorm, and the
 butterfly is a 1x1 conv C -> d_r, the int8 wire (quantized per pixel over
 its d_r channels), and a 1x1 conv d_r -> C.  The quantization is plain
 PyTorch, as it is plain jnp in the reference: the ResNet path reaches no
-kernel.  ``fake_quant`` is the forward only (the straight-through backward
-arrives with the training slice).
+kernel.  ``forward_resnet``'s wire is ``fake_quant``, whose gradient is
+straight through, so the network and its butterfly train end to end.
 """
 from __future__ import annotations
 
@@ -179,9 +178,12 @@ def _head(params, x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(1, 2)) @ params["head"]
 
 
-def forward_resnet(params, images: torch.Tensor, cfg: ResNetConfig) -> torch.Tensor:
+def forward_resnet(params, images: torch.Tensor, cfg: ResNetConfig,
+                   train: bool = True) -> torch.Tensor:
     """images (B, H, W, 3) -> logits (B, num_classes), the butterfly's wire
-    in-graph (``fake_quant``) where the config has one."""
+    in-graph (``fake_quant``) where the config has one.  ``train`` changes
+    nothing, as in the JAX package: GroupNorm keeps no running statistics,
+    and the wire is ``fake_quant`` either way."""
     x = _stem(params, images)
     for b, stride in enumerate(_strides(cfg), start=1):
         x = apply_block(params["blocks"][b - 1], x, stride)

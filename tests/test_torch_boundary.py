@@ -3,8 +3,8 @@
 Every module of ``src/repro_torch`` and ``chip_smoke.py`` imports neither
 ``jax`` nor anything of ``repro``; the port imports and runs with JAX
 unimportable; an entry point asked for the default device raises when
-CUDA is absent (the simulator's numerics too, while its timing-only runs
-need no device); ``chip_smoke.py`` fails, printing no result, without a GPU
+CUDA is absent (the simulator's numerics and the training entry points
+too, while the simulator's timing-only runs need no device); ``chip_smoke.py`` fails, printing no result, without a GPU
 or away from the repository."""
 import ast
 import os
@@ -110,6 +110,42 @@ print("ok")
 import runpy
 sys.argv = {argv!r}
 runpy.run_module("repro_torch.launch.runtime_sim", run_name="__main__")
+""")
+        assert proc.returncode != 0 and err in proc.stderr, proc.stderr
+
+
+def test_training_needs_a_gpu():
+    """``init_train_state``, the training launcher and both training
+    examples default to the card and raise without one; the launcher's
+    ``--lower-only`` (the JAX package's XLA dry run) is not ported."""
+    code = BLOCKED + """
+import dataclasses
+from repro_torch.configs import get_config
+from repro_torch.examples import quickstart, train_resnet_butterfly
+from repro_torch.models import model as M
+from repro_torch.training import init_train_state
+built = M.build(dataclasses.replace(get_config("qwen3-8b").reduced(), num_layers=2))
+for name, fn in (("init_train_state", lambda: init_train_state(torch.Generator(), built)),
+                 ("quickstart", lambda: quickstart.main([])),
+                 ("train_resnet_butterfly",
+                  lambda: train_resnet_butterfly.main(["--steps", "1"]))):
+    try:
+        fn()
+    except RuntimeError as e:
+        assert "CUDA" in str(e), e
+    else:
+        raise SystemExit(f"{name} without a GPU did not raise")
+print("ok")
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+    for extra, err in (([], "CUDA"), (["--lower-only"], "NotImplementedError")):
+        argv = ["train", "--steps", "1"] + extra
+        proc = _run(BLOCKED + f"""
+import runpy
+sys.argv = {argv!r}
+runpy.run_module("repro_torch.launch.train", run_name="__main__")
 """)
         assert proc.returncode != 0 and err in proc.stderr, proc.stderr
 

@@ -1,8 +1,8 @@
 """The port on the card: each kernel against its plain PyTorch version on
 the same inputs, the split path launching both butterfly kernels, the
 windowed model's kernel prefill launching the flash kernel, the two-pod
-decode pipeline on two streams of one card, and the runtime simulator's
-numerics on the card.
+decode pipeline on two streams of one card, the runtime simulator's
+numerics on the card, and training on the card against the CPU.
 
 These tests import no JAX, so a GPU machine with PyTorch alone runs them,
 without the JAX package's conftest:
@@ -717,3 +717,124 @@ def test_simulation_entropy_wire_serves_the_int8_ids(cuda):
             coded = [t.coded_bytes for t in tel.traces]
             assert all(c > 0 for c in coded) == (wire == "entropy")
         assert ids["entropy"] == ids["int8"], transport
+
+
+def _train_on(step, params, batches):
+    from repro_torch.training import adamw_init
+    opt = adamw_init(params)
+    out = []
+    for batch in batches:
+        params, opt, loss, gnorm = step(params, opt, batch)
+        out += [float(loss), float(gnorm)]
+    return out
+
+
+def test_lm_training_on_the_card_matches_cpu(cuda):
+    """The reduced f32 qwen3 (vocab 64) with a d_r=16 butterfly after layer
+    1 and the rate term takes 5 steps from one init on the card and on the
+    CPU: losses and grad norms within rtol 1e-3 (chip_smoke.py's TRAIN_RTOL:
+    sums in another order flip a few wire codes), no kernel launched, the
+    params left on the card in f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import model as M
+    from repro_torch.training import (AdamWConfig, cosine_schedule,
+                                      make_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), vocab_size=64)
+    built = M.build(cfg.with_butterfly(1, 16, rate_weight=0.01))
+    train = make_train_step(built, AdamWConfig(lr=cosine_schedule(1e-3, 2, 5)))
+
+    def step(params, opt, batch):
+        params, opt, m = train(params, opt, batch)
+        return params, opt, m["loss"], m["grad_norm"]
+
+    stream = lm_batches(64, 64, 4, seed=1)
+    batches = [{k: torch.from_numpy(v) for k, v in next(stream).items()}
+               for _ in range(5)]
+    cpu = M.init_model(torch.Generator().manual_seed(0), built, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    before = _launch_counts()
+    got = _train_on(step, card, [tree_map(lambda t: t.to(cuda), b) for b in batches])
+    assert _launch_counts() == before
+    want = _train_on(step, cpu, batches)
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+    assert all(t.is_cuda and t.dtype == torch.float32 for t in tree_leaves(card))
+
+
+def test_resnet_training_on_the_card_matches_cpu(cuda):
+    """The reduced ResNet with a d_r=2 butterfly after RB1 takes 3 steps of
+    the training example's step on the card and on the CPU (f32 without
+    TF32): losses and grad norms within rtol 1e-3; no kernel launched."""
+    from repro_torch.configs.resnet50 import resnet50
+    from repro_torch.data import ImageTaskConfig, image_batches
+    from repro_torch.examples.train_resnet_butterfly import make_resnet_step
+    from repro_torch.models import resnet as R
+    from repro_torch.training import AdamWConfig, constant_schedule
+    from repro_torch.tree import tree_map
+    cfg = resnet50().reduced().with_butterfly(1, 2)
+    train = make_resnet_step(cfg, AdamWConfig(lr=constant_schedule(1e-3),
+                                              weight_decay=1e-4))
+    step = lambda p, o, b: train(p, o, *b)
+    stream = image_batches(8, ImageTaskConfig(num_classes=cfg.num_classes,
+                                              image_size=cfg.image_size))
+    batches = [tuple(torch.from_numpy(a) for a in next(stream)) for _ in range(3)]
+    cpu = R.init_resnet(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    before = _launch_counts()
+    got = _train_on(step, card, [tuple(a.to(cuda) for a in b) for b in batches])
+    assert _launch_counts() == before
+    np.testing.assert_allclose(got, _train_on(step, cpu, batches), rtol=1e-3)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_wire_gradients_on_the_card_match_cpu(cuda, bits):
+    """fake_quant's gradient is the upstream gradient on the card too, and
+    its forward within rtol 1e-6 of the CPU's (the card divides by qmax, a
+    host scalar, as a product with its reciprocal, so a scale may differ in
+    its last bit); rate_bits's value within rtol 1e-5 and its grads within
+    1e-5 of their largest, card against CPU."""
+    from repro_torch.core.quantization import fake_quant
+    from repro_torch.core.wire_codec import rate_bits
+    rng = np.random.default_rng(bits)
+    r = torch.from_numpy(rng.standard_normal((4, 9, 16)).astype(np.float32))
+    logits = torch.from_numpy(rng.standard_normal((16, 2 ** bits)).astype(np.float32))
+    up = torch.from_numpy(rng.standard_normal((4, 9, 16)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda):
+        x = r.to(dev, copy=True).requires_grad_()
+        y = fake_quant(x, bits)
+        y.backward(up.to(dev))
+        assert torch.equal(x.grad.cpu(), up)
+        grads.append(y.detach().cpu())
+        x = r.to(dev, copy=True).requires_grad_()
+        lg = logits.to(dev, copy=True).requires_grad_()
+        v = rate_bits(x, bits, lg)
+        v.backward()
+        grads += [v.detach().cpu(), x.grad.cpu(), lg.grad.cpu()]
+    torch.testing.assert_close(grads[4], grads[0], rtol=1e-6, atol=0)
+    torch.testing.assert_close(grads[5], grads[1], rtol=1e-5, atol=0)
+    for a, b in ((grads[6], grads[2]), (grads[7], grads[3])):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+
+
+def test_checkpoint_round_trips_from_the_card(cuda, tmp_path):
+    """bf16 params and f32 moments saved from the card come back onto the
+    card exactly, in their dtypes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import init_train_state
+    from repro_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), dtype="bfloat16")
+    built = M.build(cfg.with_butterfly(1, 16))
+    params, opt = init_train_state(torch.Generator(device=cuda).manual_seed(0),
+                                   built, device=cuda)
+    opt["mu"]["embed"].add_(0.5)
+    path = save_checkpoint(str(tmp_path / "ckpt"), params, opt, step=4)
+    template = M.init_model(torch.Generator(device=cuda).manual_seed(1), built,
+                            device=cuda)
+    back, back_opt, meta = restore_checkpoint(path, template, opt)
+    assert meta == {"step": 4}
+    for a, b in zip(tree_leaves((params, opt)), tree_leaves((back, back_opt))):
+        assert b.is_cuda and b.dtype == a.dtype and torch.equal(a, b)

@@ -1,6 +1,6 @@
 """The port's dense model against the JAX package's, with the JAX weights
 carried across by ``repro_torch.bridge``: forward_train / forward_prefill
-logits within 1e-5, forward_decode after prefill within 1e-4, at the
+logits within 1e-5 (forward_train's aux within rtol 1e-6), forward_decode after prefill within 1e-4, at the
 reduced 4-layer qwen3-8b config in f32."""
 import dataclasses
 
@@ -86,9 +86,26 @@ def test_forward_prefill_matches_jax(butterfly):
 
 
 def test_forward_train_refuses_the_training_wire():
-    _, _, tbuilt, tparams = _models((2, 16))
-    with pytest.raises(NotImplementedError):
-        TM.forward_train(tparams, tbuilt, {"tokens": torch.from_numpy(TOKS)})
+    """The name is from when the port refused the training wire; now
+    forward_train with a butterfly, without and with the rate term, gives
+    JAX's logits within 1e-5 and its three aux terms (zeros but the rate)
+    within rtol 1e-6."""
+    for rate_weight in (0.0, 0.01):
+        jc, tc = _cfgs()
+        jc = jc.with_butterfly(2, 16, rate_weight=rate_weight)
+        tc = tc.with_butterfly(2, 16, rate_weight=rate_weight)
+        jbuilt, tbuilt = JM.build(jc), TM.build(tc)
+        jparams, _ = JM.init_model(jax.random.key(0), jbuilt)
+        tparams = bridge.to_torch(jax.tree.map(np.asarray, jparams), device="cpu")
+        jl, jaux = JM.forward_train(jparams, jbuilt, {"tokens": jnp.asarray(TOKS)})
+        tl, taux = TM.forward_train(tparams, tbuilt, {"tokens": torch.from_numpy(TOKS)})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-5)
+        assert set(taux) == set(jaux) == {"load_balance", "router_z",
+                                          "wire_rate_bits"}
+        for k, v in taux.items():
+            assert v.dtype == torch.float32 and v.dim() == 0
+            np.testing.assert_allclose(float(v), float(jaux[k]), rtol=1e-6)
+        assert (float(taux["wire_rate_bits"]) > 0) == (rate_weight > 0)
 
 
 @pytest.mark.parametrize("butterfly", [None, (2, 16)])

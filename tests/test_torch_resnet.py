@@ -7,8 +7,8 @@ across by ``bridge.resnet_to_torch`` (HWIO conv kernels -> OIHW):
     ``"SAME"`` padding at stride 2, within 1e-5;
   * ``group_norm`` at C 16, 48 (32 groups step down to 24) and 64, within
     1e-5;
-  * ``fake_quant``'s forward bit for bit, and its refusal of a tensor that
-    requires grad (no straight-through backward yet);
+  * ``fake_quant``'s forward bit for bit, and its gradient the upstream
+    gradient exactly (straight through, as JAX's custom VJP);
   * ``forward_resnet`` (the in-graph wire) within 1e-4, and
     ``edge_cloud_split``: codes equal (at most 1 apart on at most 0.1% of
     entries, rounded up to a whole entry: the f32 convs sum in another
@@ -93,11 +93,19 @@ def test_fake_quant_forward_is_bit_for_bit_jax(bits):
 
 
 def test_fake_quant_refuses_a_tensor_that_requires_grad():
-    x = torch.ones((2, 4), requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        TQ.fake_quant(x)
-    with torch.no_grad():
-        assert TQ.fake_quant(x).shape == (2, 4)
+    """The name is from when fake_quant refused a tensor that requires
+    grad; now its gradient is straight through, the upstream gradient
+    exactly, as JAX's custom VJP gives it, and its forward is unchanged."""
+    rng = _rng(5)
+    x = rng.standard_normal((3, 7, 12)).astype(np.float32)
+    g = rng.standard_normal((3, 7, 12)).astype(np.float32)
+    jy, vjp = jax.vjp(lambda a: JQ.fake_quant(a, 8), jnp.asarray(x))
+    xt = torch.tensor(x, requires_grad=True)
+    yt = TQ.fake_quant(xt)
+    yt.backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(yt.detach().numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(xt.grad.numpy(), g)
+    np.testing.assert_array_equal(np.asarray(vjp(jnp.asarray(g))[0]), g)
 
 
 def test_compression_ratio_and_scale_bytes_match_jax():
