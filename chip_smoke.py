@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-On one H100 80GB HBM3 it takes two and a half to three and a half
-minutes, the kernels' build included.
+On one H100 80GB HBM3 it takes about three minutes (five with
+``--profile``), the kernels' build included.
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -112,16 +112,46 @@ result line):
                uncut at 224x224 (f32, no TF32, butterfly after RB3 at d_r 1)
                8 steps on 16 SyntheticImages; images/s against 3 x the
                forward's operations at 67 TFLOP/s.
+ 14. qwen3-moe serving - first a reduced f32 card-vs-CPU run (every expert
+               id equal, logits within 1e-4); then qwen3-moe-235b-a22b at its
+               published widths (d 4096, 64/4 heads, 128 experts top-8 of
+               d_ff 1536, bf16, seed 0) cut from 94 to 8 layers, split after
+               layer 4 at d_r 64: phase 5's handoff path on prompts of
+               64-128 tokens and 8 decode tokens in a 4-slot engine, one
+               streamed request equal to its one-slot handoff, the cloud
+               half twice on one payload equal, exact wire bytes; routing
+               against the reference (its share that agrees printed, the 5%
+               bound held where every route agrees; see phase_moe_serving);
+               then the two-pod decode pipeline on this bank (int8, kernels,
+               pipelined == serial, restore_norm's launches exact);
+ 15. llama4 serving - the same parity run on a reduced interleaved llama4,
+               then llama4-maverick-400b-a17b at published widths (d 5120,
+               40/8 heads, 128 experts top-1 of d_ff 8192, a shared expert,
+               MoE every 2nd layer) cut from 48 to 2 layers (one dense, one
+               MoE), split after layer 1 at d_r 80: two prompts, 4 tokens;
+ 16. pixtral kernel prefill - phase 6 on pixtral-12b uncut (40 layers, d
+               5120, 32/8 heads), 1,024 seeded patch embeddings before 100
+               text tokens, butterfly after layer 4 at d_r 80: 40 causal
+               flash launches at 1,124 x 1,124 a kernel prefill, 8 decode
+               steps from position 1,124;
+ 17. whisper kernel prefill - phase 6 on whisper-base uncut (6 encoder and 6
+               decoder layers, d 512, 8 heads at hd 64) over 1,500 seeded
+               frame embeddings, a 32-token prompt, butterfly after decoder
+               layer 3 at d_r 64: 12 flash launches a kernel prefill, the 6
+               encoder ones non-causal at 1,500 x 1,500, and 16 decode steps
+               through the cross_kv caches.
 Each model's weights leave the card before the next one is built, and
 each phase prints its peak device memory.
 With ``--profile [DIR]`` it profiles one qwen3-8b prefill and 8 decode steps
 and a short pipelined and serial decode pipeline after phase 8, and
 gemma3-12b's kernel and plain prefills of the 2,048-token prompt and 8
-decode steps after phase 6, and one training step of each model in phases
-12 and 13 (torch.profiler: wall time, device-busy share, top kernels; the
+decode steps after phase 6, one training step of each model in phases
+12 and 13, one qwen3-moe prefill and 8 decode steps after phase 14, and
+pixtral's and whisper's kernel and plain prefills and 8 decode steps in
+phases 16 and 17 (torch.profiler: wall time, device-busy share, top kernels; the
 operator tables go to DIR when one is given).  It then
-prints the kernels' JSON line (launches by path, the five paths of phases
-9-13 included, the training paths with none; the times of flash attention and of the norm and bincount
+prints the kernels' JSON line (launches by path, the paths of phases
+9-17 included, the training paths with none; the times of flash attention and of the norm and bincount
 kernels per launch, averaged over their path's launches; the two butterfly
 kernels' at 128 rows; every timed shape under "by_shape") and, last, the
 result line.
@@ -287,10 +317,13 @@ def phase_kernels():
 
 
 # flash attention at the main paths' shapes, (B, S, N, K, hd, window) with
-# T = S, causal: gemma3-12b's global and windowed layers on the 2,048- and
-# 100-token prompts, qwen3-8b on a 128-token prompt, gemma-7b's MHA (one
-# query head a key head) on phase 10's prompts, and qwen3-14b's five query
-# heads a key head on a 128-token prompt
+# T = S, causal unless in FLASH_FULL: gemma3-12b's global and windowed
+# layers on the 2,048- and 100-token prompts, qwen3-8b on a 128-token
+# prompt, gemma-7b's MHA (one query head a key head) on phase 10's prompts,
+# qwen3-14b's five query heads a key head on a 128-token prompt,
+# qwen3-moe's sixteen (64/4 heads) on 128, pixtral-12b's 1,024 patches +
+# 100 tokens (phase 16), and whisper-base's encoder over 1,500 frames (not
+# causal) and its decoder on a 32-token prompt (phase 17)
 FLASH_PATH = {
     "gemma3 S=2048 global": (1, 2048, 16, 8, 256, None),
     "gemma3 S=2048 window": (1, 2048, 16, 8, 256, 1024),
@@ -299,7 +332,12 @@ FLASH_PATH = {
     "gemma-7b S=2048": (1, 2048, 16, 16, 256, None),
     "gemma-7b S=100": (1, 100, 16, 16, 256, None),
     "qwen3-14b S=128": (1, 128, 40, 8, 128, None),
+    "qwen3-moe S=128": (1, 128, 64, 4, 128, None),
+    "pixtral S=1124": (1, 1124, 32, 8, 128, None),
+    "whisper enc S=1500": (1, 1500, 8, 8, 64, None),
+    "whisper dec S=32": (1, 32, 8, 8, 64, None),
 }
+FLASH_FULL = {"whisper enc S=1500"}
 # the 2,048-token gemma3-12b prefill's 48 flash launches, by shape
 FLASH_JSON = {"gemma3 S=2048 window": 40, "gemma3 S=2048 global": 8}
 
@@ -360,10 +398,11 @@ def phase_flash_checks():
                   f"tolerance {worst_x:.4f}")
     worst = 0.0
     for label, (B, S, N, K, hd, window) in FLASH_PATH.items():
+        causal = label not in FLASH_FULL
         q, k, v = _qkv(B, S, S, N, K, hd, torch.bfloat16, seed=S + hd)
-        out = ops.flash_attention(q, k, v, causal=True, window=window)
-        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
-        excess = _flash_excess(out, q, k, v, True, window)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        excess = _flash_excess(out, q, k, v, causal, window)
         if excess > 1:
             fail(f"flash {label} bf16: out of tolerance")
         err = float((out.float() - want.float()).abs().max())
@@ -444,6 +483,7 @@ def phase_flash_times(rates):
     bw, bf16_ops = rates
     out = {}
     for label, (B, S, N, K, hd, window) in FLASH_PATH.items():
+        causal = label not in FLASH_FULL
         q, k, v = _qkv(B, S, S, N, K, hd, torch.bfloat16, seed=S + hd)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # SDPA's layout
         if window:
@@ -453,16 +493,16 @@ def phase_flash_times(rates):
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)
         else:
             library = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
         lib_out = library().transpose(1, 2)
-        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         lib_err = float((lib_out.float() - want.float()).abs().max())
-        ms = _device_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+        ms = _device_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                     window=window))
         plain_ms = _device_ms(lambda: ref.flash_attention_ref(
-            q, k, v, causal=True, window=window))
+            q, k, v, causal=causal, window=window))
         library_ms = _device_ms(library)
-        flops = 4 * B * N * hd * _visible_pairs(S, S, True, window)
+        flops = 4 * B * N * hd * _visible_pairs(S, S, causal, window)
         nbytes = 2 * (2 * B * S * N * hd + 2 * B * S * K * hd)
         tb, to = nbytes / bw * 1e3, flops / bf16_ops * 1e3
         bound_ms, bound_by = (tb, "bytes") if tb >= to else (to, "operations")
@@ -730,22 +770,28 @@ def _leaves(tree):
 
 
 # --------------------------------------------------------------------------- 6
-def _serve_prompt(params, built, toks, new_tokens):
-    """One prompt: kernel prefill, plain prefill, pad the caches to
+def _positions(batch) -> int:
+    """Positions a prompt takes: its tokens, after a VLM's patches."""
+    return batch["tokens"].shape[1] + (batch["patches"].shape[1]
+                                       if "patches" in batch else 0)
+
+
+def _serve_prompt(params, built, batch, new_tokens):
+    """One prompt (a batch dict: tokens, and patches or frames where the
+    model takes them): kernel prefill, plain prefill, pad the caches to
     capacity, greedy decode.  Returns what came out and what it measured."""
     import torch
     from repro_torch.models import model as M
-    S = toks.shape[1]
+    S = _positions(batch)
     n0 = _counts()["flash_attention"]
     torch.cuda.synchronize()
     t = time.perf_counter()
-    logits, caches = M.forward_prefill(params, built, {"tokens": toks},
-                                       use_kernel=True)
+    logits, caches = M.forward_prefill(params, built, batch, use_kernel=True)
     torch.cuda.synchronize()
     kernel_ms = (time.perf_counter() - t) * 1e3
     flash_kernel = _counts()["flash_attention"] - n0
     t = time.perf_counter()
-    ref, _ = M.forward_prefill(params, built, {"tokens": toks})
+    ref, _ = M.forward_prefill(params, built, batch)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
     cap = S + new_tokens
@@ -768,10 +814,12 @@ def _serve_prompt(params, built, toks, new_tokens):
                 kernel_ms=kernel_ms, plain_ms=plain_ms, decode_ms=decode_ms)
 
 
-def _check_prompt(params, built, toks, r):
+def _check_prompt(params, built, batch, r):
     """Hold one prompt's results from :func:`_serve_prompt` to the phase's
-    limits.  Its whole-sequence prefill is a check, so it runs after the
-    path's launches were read."""
+    limits: one flash launch an attention layer (the encoder's included),
+    the 5% logit bound and equal greedy tokens, the decode caches' lengths.
+    Its whole-sequence prefill is a check, so it runs after the path's
+    launches were read."""
     import torch
     from repro_torch.models import model as M
     cfg = built.cfg
@@ -779,10 +827,11 @@ def _check_prompt(params, built, toks, r):
         r[k] for k in ("S", "cap", "logits", "ref", "caches", "step_logits",
                        "generated"))
     flash = r["flash_kernel"]
-    if flash != cfg.num_layers or r["flash_rest"] != 0:
+    layers = cfg.num_layers + cfg.encoder_layers
+    if flash != layers or r["flash_rest"] != 0:
         fail(f"S={S}: the kernel prefill launched the flash kernel {flash} "
              f"times, the plain prefill and decode {r['flash_rest']}; "
-             f"expected {cfg.num_layers} and 0")
+             f"expected {layers} and 0")
     if not (torch.isfinite(logits).all() and logits.shape == (1, 1, cfg.vocab_size)):
         fail(f"S={S}: kernel prefill logits are not finite or of the wrong shape")
     delta = float((logits - ref).abs().max())
@@ -794,14 +843,16 @@ def _check_prompt(params, built, toks, r):
         fail(f"S={S}: the kernel and plain prefills disagree on the greedy token")
     windowed = {d.window for segs in built.stages for seg in segs for d in seg.unit}
     want_lengths = {cap if w is None else min(cap, w) for w in windowed}
+    if cfg.is_encdec:                 # the cross_kv caches: one row a frame
+        want_lengths.add(batch["frames"].shape[1])
     lengths = {leaf.shape[2] for leaf in _leaves(caches)}
     if lengths != want_lengths:
         fail(f"S={S}: decode cache lengths {sorted(lengths)}, expected "
              f"{sorted(want_lengths)}")
     # the last decode step against a kernel prefill of the whole sequence,
     # whose windowed layers see the same 1024 positions the rings hold
-    seq = torch.cat([toks] + generated[:-1], dim=1)
-    whole, _ = M.forward_prefill(params, built, {"tokens": seq}, use_kernel=True)
+    seq = dict(batch, tokens=torch.cat([batch["tokens"]] + generated[:-1], dim=1))
+    whole, _ = M.forward_prefill(params, built, seq, use_kernel=True)
     d_delta = float((step_logits - whole).abs().max())
     d_limit = 0.05 * float(whole.abs().max())
     if not torch.isfinite(step_logits).all() or d_delta > d_limit:
@@ -820,76 +871,122 @@ def _check_prompt(params, built, toks, r):
     return tokens
 
 
+def _family_prompts(cfg, lengths, seed: int = 0):
+    """Prompts as batches: byte-tokenized text of ``lengths`` tokens, with
+    pixtral's NUM_PATCHES seeded patch embeddings before them and
+    whisper's seeded frame embeddings (stand-ins for the stubbed vision and
+    audio frontends, N(0, 1) as in the JAX package's tests)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = getattr(torch, cfg.dtype)
+    out = []
+    for p in _prompts(len(lengths), lengths):
+        batch = {"tokens": torch.tensor(p, dtype=torch.int64, device="cuda")[None]}
+        if cfg.num_patches:
+            batch["patches"] = torch.randn((1, cfg.num_patches, cfg.d_model),
+                                           generator=g, device="cuda").to(dtype)
+        if cfg.is_encdec:
+            batch["frames"] = torch.randn((1, cfg.encoder_frames, cfg.d_model),
+                                          generator=g, device="cuda").to(dtype)
+        out.append(batch)
+    return out
+
+
 def phase_kernel_prefill(arch: str = "gemma3-12b", profile: bool = False,
-                         out_dir: Optional[Path] = None):
+                         out_dir: Optional[Path] = None, lengths=(100, 2048),
+                         butterfly=None, new_tokens: int = 16,
+                         label: str = "kernel prefill"):
     """``arch`` at full width through forward_prefill(use_kernel=True) and
-    greedy forward_decode (phases 6 and 10; see the module docstring).
-    With ``profile`` it then profiles the 2,048-token prompt's kernel and
-    plain prefills and 8 decode steps."""
+    greedy forward_decode (phases 6, 10, 16, 17; see the module docstring):
+    one prompt of each of ``lengths`` tokens (and the model's patches or
+    frames), the butterfly after ``butterfly = (layer, d_r)`` (by default
+    an eighth of the way, d_r = d_model / 64).  With ``profile`` it then
+    profiles the last prompt's kernel and plain prefills and 8 decode
+    steps.  Returns the launches, the tokens and the flash calls' (S, T,
+    causal) of one kernel prefill of the last prompt."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa, ops
     from repro_torch.models import model as M
 
     base = get_config(arch)
-    cfg = base.with_butterfly(base.num_layers // 8, max(16, base.d_model // 64))
+    layer, d_r = butterfly or (base.num_layers // 8, max(16, base.d_model // 64))
+    cfg = base.with_butterfly(layer, d_r)
     built = M.build(cfg)
     t0 = time.perf_counter()
     params = M.init_model(torch.Generator(device="cuda").manual_seed(0), built,
                           device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in _leaves(params))
-    print(f"kernel prefill: {cfg.name} {cfg.num_layers} layers d_model "
+    extra = (f", {cfg.num_patches} patches" if cfg.num_patches else "") + \
+        (f", {cfg.encoder_layers} encoder layers over {cfg.encoder_frames} frames"
+         if cfg.is_encdec else "")
+    print(f"{label}: {cfg.name} {cfg.num_layers} layers d_model "
           f"{cfg.d_model} {cfg.num_heads}/{cfg.num_kv_heads} heads head_dim "
-          f"{cfg.resolved_head_dim} window {cfg.sliding_window} {cfg.dtype}, "
+          f"{cfg.resolved_head_dim} window {cfg.sliding_window}{extra} {cfg.dtype}, "
           f"{n_params / 1e9:.3f} B params, butterfly after layer "
           f"{cfg.butterfly.layer} d_r {cfg.butterfly.d_r}; init "
           f"{time.perf_counter() - t0:.1f} s; weight-read floor "
           f"{n_params * 2 / 1e9 / 3.35:.2f} ms ({n_params * 2 / 1e9:.2f} GB at "
           f"3.35 TB/s)")
-    new_tokens = 16
-    prompts = [torch.tensor(p, dtype=torch.int64, device="cuda")[None]
-               for p in _prompts(2, (100, 2048))]
-    if [p.shape[1] for p in prompts] != [100, 2048]:
-        fail("the prompts are not 100 and 2048 tokens long")
+    prompts = _family_prompts(cfg, lengths)
+    if [p["tokens"].shape[1] for p in prompts] != list(lengths):
+        fail(f"the prompts are not {lengths} tokens long")
     # warm-up at the same shapes, so the timed run pays no first-call costs
     t0 = time.perf_counter()
-    for toks in prompts:
-        _serve_prompt(params, built, toks, 2)
-    print(f"kernel prefill: warm-up {time.perf_counter() - t0:.1f} s")
+    for batch in prompts:
+        _serve_prompt(params, built, batch, 2)
+    print(f"{label}: warm-up {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
 
     _zero_counts()
-    served = [_serve_prompt(params, built, toks, new_tokens) for toks in prompts]
+    served = [_serve_prompt(params, built, batch, new_tokens) for batch in prompts]
     launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"kernel prefill: launches on the path {launches}")
+    print(f"{label}: launches on the path {launches}")
     if min(launches[k] for k in ("butterfly_reduce_quant",
                                  "butterfly_dequant_restore",
                                  "flash_attention")) <= 0:
         fail(f"a kernel was not launched on the kernel-prefill path: {launches}")
     if peak_gb >= 80:
         fail(f"peak device memory {peak_gb:.2f} GB does not fit the card")
-    results = [_check_prompt(params, built, toks, r)
-               for toks, r in zip(prompts, served)]
+    results = [_check_prompt(params, built, batch, r)
+               for batch, r in zip(prompts, served)]
     del served
-    print(f"kernel prefill: peak device memory {peak_gb:.2f} GB")
+    # which flash calls one kernel prefill makes: (S, T, causal) a launch,
+    # read at the entry point the attention layers call
+    calls, entry = [], ops.flash_attention
+
+    def recording(q, k, v, *, causal=True, window=None):
+        n = fa.flash_attention.launches
+        out = entry(q, k, v, causal=causal, window=window)
+        calls.extend([(q.shape[1], k.shape[1], causal)] * (fa.flash_attention.launches - n))
+        return out
+    ops.flash_attention = recording
+    try:
+        M.forward_prefill(params, built, prompts[-1], use_kernel=True)
+    finally:
+        ops.flash_attention = entry
+    print(f"{label}: one kernel prefill's flash calls (S, T, causal): "
+          f"{sorted(set(calls))}, {len(calls)} in all")
+    print(f"{label}: peak device memory {peak_gb:.2f} GB")
     if profile:
-        toks = prompts[1]
-        S = toks.shape[1]
-        _profiled("gemma3_kernel_prefill", lambda: M.forward_prefill(
-            params, built, {"tokens": toks}, use_kernel=True), out_dir)
-        _profiled("gemma3_plain_prefill", lambda: M.forward_prefill(
-            params, built, {"tokens": toks}), out_dir)
-        logits, caches = M.forward_prefill(params, built, {"tokens": toks},
-                                           use_kernel=True)
+        batch = prompts[-1]
+        S = _positions(batch)
+        tag = arch.split("-")[0]
+        _profiled(f"{tag}_kernel_prefill", lambda: M.forward_prefill(
+            params, built, batch, use_kernel=True), out_dir)
+        _profiled(f"{tag}_plain_prefill", lambda: M.forward_prefill(
+            params, built, batch), out_dir)
+        logits, caches = M.forward_prefill(params, built, batch, use_kernel=True)
         caches = M.pad_decode_caches(built, caches, S + 8)
         tok = logits[:, -1].argmax(-1, keepdim=True)
 
         def decode():
             for pos in range(S, S + 8):
                 M.forward_decode(params, built, tok, caches, pos, use_kernel=True)
-        _profiled("gemma3_decode", decode, out_dir)
-    return launches, results
+        _profiled(f"{tag}_decode", decode, out_dir)
+    return launches, results, calls
 
 
 # --------------------------------------------------------------------------- 7
@@ -1918,6 +2015,315 @@ def phase_train_resnet(smi: str, profile: bool = False,
     return launches
 
 
+# -------------------------------------------------------------------- 14, 15
+# the MoE family at published widths, cut in depth only (bf16): qwen3-moe-
+# 235b-a22b's 94 layers of 4.97 GB (128 experts of 3 x 4096 x 1536) would
+# take about 470 GB, so 8 layers (42.3 GB) split after layer 4 at d_r 64;
+# llama4-maverick's MoE layer alone is 32.2 GB (128 x 3 x 5120 x 8192), so
+# one dense and one MoE layer (its every-2nd pattern once, about 37 GB)
+# split after layer 1 at d_r 80
+MOE_SERVING = {
+    "qwen3-moe-235b-a22b": dict(label="qwen3-moe serving", layers=8, split=4,
+                                d_r=64, lengths=(64, 80, 100, 128),
+                                new_tokens=8, streamed=96),
+    "llama4-maverick-400b-a17b": dict(label="llama4 serving", layers=2,
+                                      split=1, d_r=80, lengths=(80, 128),
+                                      new_tokens=4, streamed=None),
+}
+# the decode pipeline on the qwen3-moe bank: phase 7's microbatches of 4 x
+# 128 tokens, 4 tokens (6 ticks)
+MOE_PIPE = dict(Mmb=2, mb=4, S=128, T=4)
+# card vs CPU at f32 without TF32, from one init: f32 sums in another order
+MOE_PARITY_RTOL = 1e-4
+
+
+class _Routes:
+    """Records the expert ids (and the dropped choices) of every MoE layer
+    run inside the block, by wrapping ``models.moe.route``; the wrapper
+    comes off on exit."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._route = moe, moe.route
+        self.eids, self.dropped = [], []
+
+        def route(x_flat, router, mcfg, capacity):
+            out = self._route(x_flat, router, mcfg, capacity)
+            self.eids.append(out[3])
+            self.dropped.append(out[4] >= capacity)
+            return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def _moe_parity(arch: str, label: str):
+    """The reduced config in f32 (llama4 at 4 layers, MoE every 2nd, as
+    published) from one CPU init: forward_train on the card and on the CPU
+    routes every (token, layer, choice) to the same expert, and the logits
+    and aux losses agree within MOE_PARITY_RTOL."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch).reduced()
+    if cfg.moe.shared_expert_ff:
+        cfg = dataclasses.replace(cfg, num_layers=4,
+                                  moe=dataclasses.replace(cfg.moe, every=2))
+    built = M.build(cfg)
+    params = M.init_model(torch.Generator().manual_seed(0), built, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    runs = []
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else tree_map(lambda t: t.cuda(), params)
+        with _Routes() as r:
+            logits, aux = M.forward_train(p, built, {"tokens": toks.to(dev)})
+        runs.append((r, logits.cpu(), {k: float(v) for k, v in aux.items()
+                                       if k != "wire_rate_bits"}))
+    (rc, lc, ac), (rg, lg, ag) = runs
+    if len(rc.eids) != len(rg.eids) or not all(
+            torch.equal(a, b.cpu()) for a, b in zip(rc.eids, rg.eids)):
+        fail(f"{label}: the card routes a choice to another expert than the CPU")
+    torch.testing.assert_close(lg, lc, rtol=MOE_PARITY_RTOL, atol=1e-5)
+    for k in ac:
+        if not math.isclose(ag[k], ac[k], rel_tol=MOE_PARITY_RTOL):
+            fail(f"{label}: aux {k} {ag[k]} on the card, {ac[k]} on the CPU")
+    n = sum(e.numel() for e in rc.eids)
+    print(f"{label}: parity, reduced {cfg.name} ({cfg.num_layers} layers, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, f32, no TF32) card "
+          f"vs CPU: {n} (token, layer, choice) routes equal, "
+          f"{sum(int(d.sum()) for d in rc.dropped)} dropped on both; logits max "
+          f"|d| {float((lg - lc).abs().max()):.3g}; aux {ag} vs {ac}")
+
+
+def _moe_reference(runner, toks):
+    """The single-model forward with the reference wire (unfused, bf16
+    rounding before the quantize), at the bank's padded shape (whose pad
+    rows compete for expert capacity, as in the bank's halves), read at the
+    prompt's last position."""
+    bank, params = runner.bank, runner.params
+    S = toks.shape[1]
+    x, _ = bank._layers(params, bank._embed(params, bank._pad_toks(
+        toks, *bank._buckets(1, S))), 0, runner.split, "prefill", None, None)
+    x = bank._wire_ingraph(params["butterfly"], x, use_kernel=False)
+    x, _ = bank._layers(params, x, runner.split, bank.base_cfg.num_layers,
+                        "prefill", None, None)
+    return bank._head(params, x[:, S - 1:S])[0, 0]
+
+
+def phase_moe_serving(arch: str, smi: str):
+    """Phases 14 and 15: ``arch`` at published widths cut to MOE_SERVING's
+    depth, bf16, seed 0, through the bank's split path as phase 5 (edge_half
+    -> host wire -> cloud_half, then the engine decodes together: cache
+    handoff), after a reduced card-vs-CPU parity run.  Checks: both wire
+    kernels launch, wire bytes exactly S*d_r + 4*S, the cloud half run twice
+    on one payload gives the same logits, bit for bit.  Routing is
+    discontinuous, so the reference (its wire rounds x @ w_reduce to bf16)
+    is held to phase 5's 5% bound only on prompts whose every (token,
+    layer, choice) routes as the kernel path's; the share that agrees is
+    printed.  With ``streamed`` one more prompt decodes streamed, and the
+    same prompt alone in a one-slot engine (cache handoff, the same batch of
+    one in every MoE layer) must give the same ids.  Returns the launches
+    and the runner."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.split_exec import SplitModelBank
+
+    c = MOE_SERVING[arch]
+    label = c["label"]
+    _moe_parity(arch, label)
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, num_layers=c["layers"])
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    bank = SplitModelBank(cfg, c["d_r"], wire_mode="int8", seed=0, device="cuda")
+    runner = bank.runner(c["split"])
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(runner.params))
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    m = cfg.moe
+    print(f"{label}: {cfg.name} cut to {cfg.num_layers} of {base.num_layers} "
+          f"layers (ffn {[d.ffn for d in bank._defs]}), d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {m.num_experts} experts "
+          f"top-{m.top_k} of d_ff {m.d_ff_expert}, shared {m.shared_expert_ff}, "
+          f"{cfg.dtype}, {n_params / 1e9:.3f} B params ({n_params * 2 / 1e9:.2f} "
+          f"GB), split {c['split']}, d_r {c['d_r']}, int8 wire; init "
+          f"{time.perf_counter() - t0:.1f} s, peak {init_peak:.2f} GB; card {smi}")
+    max_len = 256
+    n = len(c["lengths"])
+    prompts = _prompts(n, c["lengths"])
+    engine = runner.make_engine(max_batch=n, max_len=max_len, seed=0)
+    t0 = time.perf_counter()
+    _serve_handoff(runner, engine, prompts, 2)          # warm-up, same shapes
+    print(f"{label}: warm-up {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+
+    _zero_counts()
+    reqs, cloud_logits, prefill_ms, wire, raw_bytes, decode_ms, decode_steps = \
+        _serve_handoff(runner, engine, prompts, c["new_tokens"])
+    sreq = None
+    if c["streamed"]:
+        (stoks,) = _prompts(n + 1, c["lengths"] + (c["streamed"],))[n:]
+        sreq, stream_ms = _serve_streamed(runner, engine, stoks, 8, max_len)
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label}: launches on the main path {launches}")
+    if min(launches["butterfly_reduce_quant"],
+           launches["butterfly_dequant_restore"]) <= 0:
+        fail(f"a kernel was not launched on the {arch} split path: {launches}")
+    if any(not r.done for r in reqs) or \
+            [len(r.generated) for r in reqs] != [c["new_tokens"]] * n:
+        fail("a request did not finish with its tokens")
+    want_wire = [len(t) * (c["d_r"] + 4) for t in prompts]
+    if wire != want_wire:
+        fail(f"wire bytes {wire} per request, expected S * {c['d_r']} + 4 * S = "
+             f"{want_wire}")
+    if peak_gb >= 80 or init_peak >= 80:
+        fail(f"peak device memory {max(peak_gb, init_peak):.2f} GB does not fit the card")
+    for r, lg in zip(reqs, cloud_logits):
+        if r.generated[0] != int(torch.argmax(lg)):
+            fail("the first token is not the greedy token of the cloud logits")
+
+    # exactness: the cloud half twice on one payload
+    params = runner.params
+    toks = torch.tensor(prompts[0], device="cuda")[None]
+    payload, scales, _ = runner.edge_half(params, toks)
+    once, _ = runner.cloud_half(params, payload, scales)
+    twice, _ = runner.cloud_half(params, payload, scales)
+    if not torch.equal(once, twice):
+        fail("the cloud half gave two results on one payload")
+    if sreq is not None:
+        solo = runner.make_engine(max_batch=1, max_len=max_len, seed=0)
+        (h,), *_ = _serve_handoff(runner, solo, [stoks], 8)
+        if h.generated != sreq.generated:
+            fail(f"streamed ids {sreq.generated} differ from the same prompt's "
+                 f"one-slot cache handoff {h.generated}")
+
+    # routing: the kernel path's halves against the reference, per prompt
+    agree = total = cloud_agree = cloud_total = held = 0
+    moe_at = [i for i, d in enumerate(bank._defs) if d.ffn == "moe"]
+    for t, lg in zip(prompts, cloud_logits):
+        toks = torch.tensor(t, device="cuda")[None]
+        S = toks.shape[1]
+        with _Routes() as kr:
+            payload, scales, _ = runner.edge_half(params, toks)
+            kl, _ = runner.cloud_half(params, payload, scales)
+        with _Routes() as rr:
+            ref = _moe_reference(runner, toks)
+        if not torch.equal(kl[0], lg):
+            fail("the cloud half's logits moved between two runs of one prompt")
+        same = [bool(torch.equal(a[:S], b[:S])) for a, b in zip(kr.eids, rr.eids)]
+        eq = [int((a[:S] == b[:S]).sum()) for a, b in zip(kr.eids, rr.eids)]
+        agree += sum(eq)
+        total += sum(a[:S].numel() for a in kr.eids)
+        for li, e, a in zip(moe_at, eq, kr.eids):
+            if li >= c["split"]:
+                cloud_agree += e
+                cloud_total += a[:S].numel()
+        dropped = sum(int(d[:S].sum()) for d in kr.dropped)
+        delta = float((lg - ref).abs().max())
+        limit = 0.05 * float(ref.abs().max())
+        if not (torch.isfinite(lg).all() and lg.shape == ref.shape
+                and lg.shape[-1] == cfg.vocab_size):
+            fail("cloud logits are not finite or of the wrong shape")
+        if all(same):
+            held += 1
+            if delta > limit:
+                fail(f"S={S}: routing agrees, and the cloud logits differ from "
+                     f"the reference by {delta} > {limit}")
+        print(f"{label}: S={S} routes equal to the reference's in "
+              f"{sum(same)}/{len(same)} MoE layers ({sum(eq)}/"
+              f"{sum(a[:S].numel() for a in kr.eids)} choices), {dropped} "
+              f"choices dropped at capacity; max|logits - reference| "
+              f"{delta:.4g} (5% limit {limit:.4g}, "
+              f"{'held' if all(same) else 'not held: routing differs'}); greedy "
+              f"{'same' if int(lg.argmax()) == int(ref.argmax()) else 'differs'}")
+    print(f"{label}: routing agreement with the reference {agree}/{total} = "
+          f"{agree / total:.4%} of (token, layer, choice); cloud layers "
+          f"{cloud_agree}/{cloud_total} = {cloud_agree / max(cloud_total, 1):.4%}; "
+          f"5% logit bound held on {held}/{n} prompts")
+    print(f"{label}: wire {wire} B a request (S * {c['d_r']} + 4 * S) for "
+          f"{raw_bytes} B of raw bf16 boundary activations "
+          f"({raw_bytes / sum(wire):.1f}x)")
+    print(f"{label}: prefill (edge + wire + cloud) ms per request "
+          f"{[round(v, 3) for v in prefill_ms]}, median "
+          f"{statistics.median(prefill_ms):.3f}")
+    weight_gb = n_params * 2 / 1e9
+    print(f"{label}: handoff decode {decode_ms:.3f} ms per step of {n} slots "
+          f"({decode_steps} steps)"
+          + (f"; streamed decode {stream_ms:.3f} ms per token" if sreq else "")
+          + f"; weight-read floor {weight_gb / 3.35:.2f} ms a step "
+          f"({weight_gb:.2f} GB at 3.35 TB/s: every expert GEMM reads all its "
+          f"experts, as the reference does); card {smi}")
+    print(f"{label}: peak device memory {max(peak_gb, init_peak):.2f} GB (init "
+          f"{init_peak:.2f}, serving {peak_gb:.2f})")
+    print(f"{label}: tokens {[r.generated for r in reqs]}"
+          + (f" streamed {sreq.generated} (== one-slot handoff)" if sreq else ""))
+    return launches, runner
+
+
+def phase_moe_pipeline(runner):
+    """Phase 14's decode pipeline on the qwen3-moe bank, both pods on this
+    card with their own streams: MOE_PIPE's 2 microbatches of 4 x 128
+    tokens, int8 with the kernels, pipelined and serial.  Each run must
+    launch reduce_quant and restore_norm exactly Mmb + Mmb*(T-1) times,
+    dequant_restore and flash never, and the pipelined ids must equal the
+    serial ids, bit for bit.  Column 0's agreement with cloud_half's greedy
+    tokens is printed, not held: the pipeline's first cloud layer reads
+    restore_norm's RMSNorm, the bank's the plain one, and one bit there can
+    move a route.  Returns the path's launches."""
+    import numpy as np
+    import torch
+    Mmb, mb, S, T = (MOE_PIPE[k] for k in ("Mmb", "mb", "S", "T"))
+    toks = torch.tensor(np.stack(_prompts(Mmb * mb, (S,) * (Mmb * mb))),
+                        dtype=torch.int64, device="cuda")
+    per_run = Mmb + Mmb * (T - 1)
+    runs = {p: runner.decode_pipeline(None, Mmb, S, mb, T, pipelined=p,
+                                      use_kernel=True) for p in (True, False)}
+    for run in runs.values():                                 # warm-up
+        run(toks)
+    torch.cuda.synchronize()
+    launches = dict.fromkeys(_counts(), 0)
+    ids = {}
+    for pipelined, run in runs.items():
+        timings: dict = {}
+        _zero_counts()
+        ids[pipelined] = run(toks, timings)
+        torch.cuda.synchronize()
+        got = _counts()
+        want = dict.fromkeys(got, 0)
+        want["butterfly_reduce_quant"] = want["butterfly_dequant_restore_norm"] = per_run
+        if got != want:
+            fail(f"moe pipeline pipelined={pipelined}: launches {got}, expected {want}")
+        for k, v in got.items():
+            launches[k] += v
+        out = ids[pipelined]
+        if out.shape != (Mmb * mb, T) or int(out.min()) < 0 or \
+                int(out.max()) >= runner.cfg.vocab_size:
+            fail(f"moe pipeline ids {tuple(out.shape)} are not (Mmb*mb, T) tokens")
+        print(f"moe pipeline: {'pipelined' if pipelined else 'serial   '} prefill "
+              f"{timings['prefill_ms'] / Mmb:.3f} ms a microbatch, decode "
+              f"{timings['decode_ms'] / timings['ticks']:.3f} ms a tick "
+              f"({timings['ticks']} ticks); launches {got}")
+    if not torch.equal(ids[True], ids[False]):
+        fail("moe pipeline: pipelined ids differ from serial ids")
+    col0 = 0
+    for k in range(Mmb):
+        payload, scales, _ = runner.edge_half(runner.params, toks[k * mb:(k + 1) * mb])
+        logits, _ = runner.cloud_half(runner.params, payload, scales)
+        col0 += int((logits.argmax(-1).int() == ids[True][k * mb:(k + 1) * mb, 0]).sum())
+    print(f"moe pipeline: pipelined == serial, bitwise; column 0 == cloud_half's "
+          f"greedy token on {col0}/{Mmb * mb} rows; tokens {ids[True].tolist()}")
+    print(f"moe pipeline: launches on the path {launches}")
+    return launches
+
+
 # --------------------------------------------------------------------- profile
 def _profiled(label: str, fn, out_dir: Optional[Path]):
     """Run ``fn`` twice: once bare for its host wall time, once under
@@ -1958,10 +2364,10 @@ def _profiled(label: str, fn, out_dir: Optional[Path]):
             sort_by="self_device_time_total", row_limit=40))
 
 
-def phase_profile(runner, out_dir: Optional[Path]):
+def phase_profile(runner, out_dir: Optional[Path], tag: str = ""):
     """Where the time goes (``--profile``): one 128-token request's prefill
     (edge + host wire + cloud) and 8 handoff decode steps of 4 slots, after
-    a warm-up."""
+    a warm-up; ``tag`` prefixes the labels."""
     params = runner.params
     prompts = _prompts(4, (128,) * 4)
     engine = runner.make_engine(max_batch=4, max_len=256, seed=0)
@@ -1975,8 +2381,8 @@ def phase_profile(runner, out_dir: Optional[Path]):
     for toks in prompts:
         engine.submit_prefilled(len(toks), *prefill(toks), max_new_tokens=64)
     engine.step()
-    _profiled("prefill", lambda: prefill(prompts[0]), out_dir)
-    _profiled("decode", lambda: [engine.step() for _ in range(8)], out_dir)
+    _profiled(f"{tag}prefill", lambda: prefill(prompts[0]), out_dir)
+    _profiled(f"{tag}decode", lambda: [engine.step() for _ in range(8)], out_dir)
 
 
 def phase_profile_pipeline(runner, out_dir: Optional[Path]):
@@ -2007,9 +2413,9 @@ def main():
     ap = argparse.ArgumentParser(description="Run the port's main path on "
                                  "one NVIDIA GPU (see the module docstring).")
     ap.add_argument("--profile", nargs="?", const="", metavar="DIR",
-                    help="profile prefills and 8 decode steps of both "
-                         "serving models and a training step of each trained "
-                         "model; write the operator tables to DIR if given")
+                    help="profile prefills and 8 decode steps of the serving "
+                         "models and a training step of each trained model; "
+                         "write the operator tables to DIR if given")
     args = ap.parse_args()
     name, smi, rates = phase_device()
     import torch
@@ -2038,7 +2444,7 @@ def main():
         phase_profile_pipeline(runner, profile_dir)
     del runner                       # the qwen3-8b weights leave the card
     _free()
-    paths["gemma3-12b kernel prefill"], _ = phase_kernel_prefill(
+    paths["gemma3-12b kernel prefill"], _, _ = phase_kernel_prefill(
         "gemma3-12b", args.profile is not None, profile_dir)
     # each model's weights leave the card before the next one is built
     _free()
@@ -2048,7 +2454,7 @@ def main():
     del runner
     _free()
     print(f"kernel prefill: card {smi}")
-    paths["gemma-7b kernel prefill"], _ = phase_kernel_prefill("gemma-7b")
+    paths["gemma-7b kernel prefill"], _, _ = phase_kernel_prefill("gemma-7b")
     _free()
     paths["resnet50 split inference"] = phase_resnet(smi)
     _free()
@@ -2057,6 +2463,33 @@ def main():
     _free()
     paths["resnet50 training"] = phase_train_resnet(smi, args.profile is not None,
                                                     profile_dir)
+    _free()
+    paths["qwen3-moe split serving"], runner = phase_moe_serving(
+        "qwen3-moe-235b-a22b", smi)
+    paths["qwen3-moe decode pipeline"] = phase_moe_pipeline(runner)
+    if args.profile is not None:
+        phase_profile(runner, profile_dir, "qwen3_moe_")
+    del runner
+    _free()
+    paths["llama4 split serving"], runner = phase_moe_serving(
+        "llama4-maverick-400b-a17b", smi)
+    del runner
+    _free()
+    print(f"pixtral kernel prefill: card {smi}")
+    paths["pixtral-12b kernel prefill"], _, calls = phase_kernel_prefill(
+        "pixtral-12b", args.profile is not None, profile_dir, lengths=(100,),
+        butterfly=(4, 80), new_tokens=8, label="pixtral kernel prefill")
+    if calls != [(1124, 1124, True)] * 40:
+        fail(f"pixtral's kernel prefill made flash calls {sorted(set(calls))}, "
+             f"{len(calls)} in all; expected 40 causal at 1124 x 1124")
+    _free()
+    print(f"whisper kernel prefill: card {smi}")
+    paths["whisper-base kernel prefill"], _, calls = phase_kernel_prefill(
+        "whisper-base", args.profile is not None, profile_dir, lengths=(32,),
+        butterfly=(3, 64), new_tokens=16, label="whisper kernel prefill")
+    if sorted(calls) != sorted([(1500, 1500, False)] * 6 + [(32, 32, True)] * 6):
+        fail(f"whisper's kernel prefill made flash calls {calls}; expected 6 "
+             f"non-causal at 1500 x 1500 (the encoder) and 6 causal at 32 x 32")
 
     # flash over the 2,048-token gemma3-12b prefill's 48 launches, the norm
     # and bincount kernels over their path's launches; every timed shape

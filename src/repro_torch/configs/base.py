@@ -4,8 +4,10 @@ The port keeps its own copy (it imports nothing of ``repro``): every
 architecture is a frozen dataclass registered under its ``--arch`` id.
 Only the families this port runs are registered: the dense transformers
 (``qwen3_8b``, ``qwen3_14b``, ``gemma_7b``, and ``gemma3_12b`` with its
-sliding windows) and the paper's ``resnet50`` (``models/resnet.py``); the
-other families arrive with their slices.
+sliding windows), the MoE family (``qwen3_moe``, ``llama4_maverick``), the
+VLM's patch inputs (``pixtral_12b``), whisper's encoder-decoder
+(``whisper_base``) and the paper's ``resnet50`` (``models/resnet.py``); the
+recurrent families arrive with their slice.
 """
 from __future__ import annotations
 
@@ -207,9 +209,13 @@ def _import_archs():
     # the per-arch modules are imported lazily so `register` runs
     import repro_torch.configs.gemma3_12b  # noqa: F401
     import repro_torch.configs.gemma_7b  # noqa: F401
+    import repro_torch.configs.llama4_maverick  # noqa: F401
+    import repro_torch.configs.pixtral_12b  # noqa: F401
     import repro_torch.configs.qwen3_14b  # noqa: F401
     import repro_torch.configs.qwen3_8b  # noqa: F401
+    import repro_torch.configs.qwen3_moe  # noqa: F401
     import repro_torch.configs.resnet50  # noqa: F401
+    import repro_torch.configs.whisper_base  # noqa: F401
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,6 +1,6 @@
 """GQA attention with qk-norm, RoPE, sliding windows and ring-buffer KV
-caches, full-sequence and one-token decode (port of
-``repro/models/attention.py``).  Scores, masks and softmax run in f32 with
+caches, full-sequence and one-token decode, and whisper's cross attention
+(port of ``repro/models/attention.py``).  Scores, masks and softmax run in f32 with
 ``MASK_VALUE`` for masked slots.  ``use_kernel=True`` sends full-sequence
 attention through ``kernels/ops.flash_attention`` (the Hopper kernel on a
 CUDA tensor).
@@ -150,3 +150,36 @@ def attention_decode(params, x, cache, cache_pos, *, cfg: ModelConfig,
     out = _attend(scores, v, valid[:, None, None, None, :], x.dtype)
     out = out.reshape(B, 1, -1) @ params["wo"]
     return out, {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# cross attention (whisper decoder -> encoder states)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention(params, x, enc_kv, *, cfg: ModelConfig):
+    """x (B,S,d) against ``enc_kv`` = {k, v} of shape (B,F,K,hd), from
+    :func:`encoder_kv`; every frame is visible, and no RoPE (plain, as in
+    the JAX package)."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.rms_eps)
+    scores = _gqa_scores(q, enc_kv["k"])
+    F = enc_kv["k"].shape[1]
+    mask = torch.ones((1, 1, 1, S, F), dtype=torch.bool, device=x.device)
+    out = _attend(scores, enc_kv["v"], mask, x.dtype)
+    return out.reshape(B, S, -1) @ params["wo"]
+
+
+def encoder_kv(params, enc_out, *, cfg: ModelConfig) -> dict:
+    """The cross attention's keys and values of the encoder output
+    (B,F,d): what prefill caches as ``cross_kv`` for decode."""
+    B, F, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = (enc_out @ params["wk"]).reshape(B, F, cfg.num_kv_heads, hd)
+    v = (enc_out @ params["wv"]).reshape(B, F, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, params["k_norm"], cfg.rms_eps)
+    return {"k": k, "v": v}

@@ -67,6 +67,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoid_angles(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings at f32 positions ``pos``
+    (any shape): (..., d_model), sines then cosines."""
+    dim = torch.arange(d_model // 2, dtype=torch.float32, device=pos.device)
+    inv = torch.exp(-math.log(10000.0) * dim / max(d_model // 2 - 1, 1))
+    ang = pos.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoid_positions(seq: int, d_model: int, device=None) -> torch.Tensor:
+    """(seq, d_model) f32 embeddings of positions 0..seq-1."""
+    return sinusoid_angles(torch.arange(seq, dtype=torch.float32,
+                                        device=device), d_model)
+
+
 # ---------------------------------------------------------------------------
 # gated mlp (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------

@@ -1,10 +1,15 @@
-"""Segmented layer stack (port of ``repro/models/transformer.py``, the
-attention + MLP layers of the dense families).
+"""Segmented layer stack (port of ``repro/models/transformer.py``: the
+attention layers, with an MLP or a mixture of experts after them and, in
+whisper's decoder, cross attention between).
 
 A model is a flat list of ``LayerDef``s compressed into ``Segment``s: a
 repeating unit with its params stacked over repeats, as in the JAX package,
 so the weight bridge is a tree map and a layer-range slice is a view.  A
-Python loop over the repeats replaces ``lax.scan``.
+Python loop over the repeats replaces ``lax.scan``.  Each apply function
+returns, as JAX's does, the MoE layers' aux losses ``[load_balance,
+router_z]`` summed over the layers it ran (zeros where there are none).
+The recurrent mixers (mamba, mLSTM, sLSTM) and zamba2's shared block are
+not ported: their configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import apply_mlp, init_mlp, init_rms_norm, rms_norm
 from repro_torch.tree import tree_map
 
@@ -26,7 +32,7 @@ from repro_torch.tree import tree_map
 @dataclass(frozen=True)
 class LayerDef:
     mixer: str                      # attn (mamba | mlstm | slstm not ported)
-    ffn: Optional[str] = "mlp"      # mlp (moe not ported) | None
+    ffn: Optional[str] = "mlp"      # mlp | moe | None
     window: Optional[int] = None
     shared: bool = False            # zamba2 shared-attention params
     cross: bool = False             # whisper decoder cross-attention
@@ -43,12 +49,14 @@ class Segment:
 
 
 def build_layer_defs(cfg: ModelConfig, long_mode: bool = False) -> List[LayerDef]:
-    """The flat per-layer spec of an attention + MLP architecture; the other
-    families raise until their slices are ported."""
+    """The flat per-layer spec of an attention architecture: an MoE layer
+    where ``i % every == every - 1``, cross attention in every layer of an
+    encoder-decoder's decoder.  The recurrent families raise until their
+    slice is ported."""
     if (cfg.xlstm is not None or cfg.hybrid_attn_every is not None
-            or cfg.ssm is not None or cfg.moe is not None or cfg.is_encdec):
+            or cfg.ssm is not None):
         raise NotImplementedError(
-            f"{cfg.name}: only attention + MLP architectures are ported")
+            f"{cfg.name}: only attention architectures are ported")
     defs: List[LayerDef] = []
     for i in range(cfg.num_layers):
         window = None
@@ -59,7 +67,11 @@ def build_layer_defs(cfg: ModelConfig, long_mode: bool = False) -> List[LayerDef
                 window = cfg.long_context_window
         elif long_mode and cfg.long_context_window is not None:
             window = cfg.long_context_window
-        defs.append(LayerDef(mixer="attn", ffn="mlp", window=window))
+        ffn = "mlp"
+        if cfg.moe is not None and (i % cfg.moe.every == cfg.moe.every - 1):
+            ffn = "moe"
+        defs.append(LayerDef(mixer="attn", ffn=ffn, window=window,
+                             cross=cfg.is_encdec))
     return defs
 
 
@@ -154,7 +166,7 @@ def apply_layer_range(segments: Sequence[Segment], stage_params, x, lo: int,
                       hi: int, *, cfg, mode, range_cache, pos,
                       use_kernel: bool = False, first_h=None):
     """Run flat layers [lo, hi) of a full stacked stage; ``range_cache`` is
-    structured per :func:`range_segments`."""
+    structured per :func:`range_segments`.  Returns (x, caches, aux)."""
     segs, params = slice_stage_params(segments, stage_params, lo, hi)
     return apply_stage(segs, params, x, cfg=cfg, mode=mode,
                        stage_cache=range_cache, pos=pos,
@@ -180,23 +192,32 @@ def first_layer_norm1(segments: Sequence[Segment], stage_params, lo: int = 0):
 
 
 def init_layer(gen, ldef: LayerDef, cfg: ModelConfig, dtype, device) -> dict:
-    if ldef.mixer != "attn" or ldef.shared or ldef.cross or ldef.ffn != "mlp":
+    if ldef.mixer != "attn" or ldef.shared or ldef.ffn is None:
         raise NotImplementedError(f"layer {ldef} is not ported")
-    return {
-        "norm1": init_rms_norm(cfg.d_model, dtype, device),
-        "mixer": attn.init_attention(gen, cfg, dtype, device),
-        "norm2": init_rms_norm(cfg.d_model, dtype, device),
-        "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
-    }
+    params = {"norm1": init_rms_norm(cfg.d_model, dtype, device),
+              "mixer": attn.init_attention(gen, cfg, dtype, device)}
+    if ldef.cross:
+        params["norm_cross"] = init_rms_norm(cfg.d_model, dtype, device)
+        params["cross"] = attn.init_attention(gen, cfg, dtype, device)
+    params["norm2"] = init_rms_norm(cfg.d_model, dtype, device)
+    if ldef.ffn == "moe":
+        params["ffn"] = moe_lib.init_moe(gen, cfg, dtype, device)
+    else:
+        params["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    return params
 
 
 def init_segment(gen, seg: Segment, cfg: ModelConfig, dtype, device) -> list:
     """[params per unit position, each leaf stacked over repeats].  Each
     repeat is drawn and copied into its slot, so init holds one layer's
-    temporaries beside the stacked tree."""
+    temporaries beside the stacked tree; a single repeat is a view of its
+    one layer, never a copy (llama4's MoE layer alone is 32 GB)."""
     unit_params = []
     for ldef in seg.unit:
         first = init_layer(gen, ldef, cfg, dtype, device)
+        if seg.repeats == 1:
+            unit_params.append(tree_map(lambda a: a[None], first))
+            continue
         stacked = tree_map(lambda a: torch.empty((seg.repeats,) + tuple(a.shape),
                                                  dtype=a.dtype, device=a.device), first)
         tree_map(lambda s, a: s[0].copy_(a), stacked, first)
@@ -211,11 +232,17 @@ def init_segment(gen, seg: Segment, cfg: ModelConfig, dtype, device) -> list:
 def init_layer_cache(ldef: LayerDef, cfg: ModelConfig, batch: int, length: int,
                      dtype, device) -> dict:
     """Cache template (zeros) for one layer in decode mode: ``length`` rows,
-    or a ring of ``min(length, window)`` rows for a windowed layer."""
+    or a ring of ``min(length, window)`` rows for a windowed layer; a
+    cross-attention layer adds ``cross_kv``, the encoder's keys and values
+    (``encoder_frames`` rows)."""
     if ldef.mixer != "attn":
         raise NotImplementedError(f"cache of layer {ldef} is not ported")
     cache_len = min(length, ldef.window) if ldef.window else length
-    return {"kv": attn.init_kv_cache(cfg, batch, cache_len, dtype, device)}
+    c = {"kv": attn.init_kv_cache(cfg, batch, cache_len, dtype, device)}
+    if ldef.cross:
+        c["cross_kv"] = attn.init_kv_cache(cfg, batch, cfg.encoder_frames,
+                                           dtype, device)
+    return c
 
 
 def init_stage_cache(segments: List[Segment], cfg, batch, length, dtype,
@@ -269,33 +296,59 @@ def to_ring(kv: dict, window: int) -> dict:
 
 
 def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
-                pos, use_kernel: bool = False, h_pre=None):
-    """Returns (x, new_cache).  ``h_pre`` short-circuits the input RMSNorm
-    for a caller that already holds ``rms_norm(x, norm1)``.  Prefill caches
-    of windowed layers come back in ring order (:func:`to_ring`)."""
+                pos, enc_out=None, use_kernel: bool = False,
+                causal: bool = True, h_pre=None):
+    """Returns (x, new_cache, aux): aux is the layer's MoE losses
+    ``[load_balance, router_z]``, or None for an MLP layer.  ``h_pre``
+    short-circuits the input RMSNorm for a caller that already holds
+    ``rms_norm(x, norm1)``.  Prefill caches of windowed layers come back in
+    ring order (:func:`to_ring`).  A cross-attention layer reads the
+    encoder output ``enc_out`` in train and prefill, and its ``cross_kv``
+    cache in decode."""
+    aux = None
     h = h_pre if h_pre is not None else rms_norm(x, p["norm1"], cfg.rms_eps)
+    rope = not cfg.is_encdec          # whisper uses sinusoid embeds, no RoPE
     new_cache = None
     if mode == "decode":
         out, kv = attn.attention_decode(p["mixer"], h, cache["kv"], pos,
-                                        cfg=cfg, window=ldef.window)
+                                        cfg=cfg, window=ldef.window, rope=rope)
         new_cache = {"kv": kv}
     else:
         out, kv = attn.attention_fullseq(p["mixer"], h, cfg=cfg,
                                          window=ldef.window,
-                                         use_kernel=use_kernel)
+                                         use_kernel=use_kernel, causal=causal,
+                                         rope=rope)
         if mode == "prefill":
             new_cache = {"kv": to_ring(kv, ldef.window) if ldef.window else kv}
     x = x + out
+    if ldef.cross:
+        hc = rms_norm(x, p["norm_cross"], cfg.rms_eps)
+        if mode == "decode":
+            ckv = cache["cross_kv"]
+        else:
+            ckv = attn.encoder_kv(p["cross"], enc_out, cfg=cfg)
+        x = x + attn.cross_attention(p["cross"], hc, ckv, cfg=cfg)
+        if new_cache is not None:
+            new_cache["cross_kv"] = ckv
     h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
-    x = x + apply_mlp(p["ffn"], h2, cfg.act)
-    return x, new_cache
+    if ldef.ffn == "moe":
+        out, moe_aux = moe_lib.apply_moe(p["ffn"], h2, cfg=cfg, act=cfg.act)
+        x = x + out
+        aux = torch.stack([moe_aux["load_balance"], moe_aux["router_z"]])
+    else:
+        x = x + apply_mlp(p["ffn"], h2, cfg.act)
+    return x, new_cache, aux
 
 
 def apply_segment(seg: Segment, seg_params, x, *, cfg, mode, seg_cache, pos,
-                  use_kernel: bool = False, first_h=None):
+                  enc_out=None, use_kernel: bool = False, causal: bool = True,
+                  first_h=None):
     """seg_params: per unit position, leaves stacked over repeats.  Decode
     writes the stacked ``seg_cache`` in place and returns it; prefill
-    returns the new caches stacked over repeats; train returns None."""
+    returns the new caches stacked over repeats; train returns None.
+    Returns (x, caches, aux summed over the segment's MoE layers, or
+    None)."""
+    aux_sum = None
     per_rep = []
     for rep in range(seg.repeats):
         caches = []
@@ -303,27 +356,44 @@ def apply_segment(seg: Segment, seg_params, x, *, cfg, mode, seg_cache, pos,
             p = tree_map(lambda a: a[rep], seg_params[i])
             c = None if seg_cache is None else \
                 tree_map(lambda a: a[rep], seg_cache[i])
-            x, nc = apply_layer(ldef, p, x, cfg=cfg, mode=mode, cache=c,
-                                pos=pos, use_kernel=use_kernel,
-                                h_pre=first_h if rep == 0 and i == 0 else None)
+            x, nc, aux = apply_layer(
+                ldef, p, x, cfg=cfg, mode=mode, cache=c, pos=pos,
+                enc_out=enc_out, use_kernel=use_kernel, causal=causal,
+                h_pre=first_h if rep == 0 and i == 0 else None)
+            aux_sum = _add_aux(aux_sum, aux)
             caches.append(nc)
         per_rep.append(caches)
     if mode == "decode":
-        return x, seg_cache
+        return x, seg_cache, aux_sum
     if mode == "prefill":
         return x, [tree_map(lambda *reps: torch.stack(reps), *[c[i] for c in per_rep])
-                   for i in range(len(seg.unit))]
-    return x, None
+                   for i in range(len(seg.unit))], aux_sum
+    return x, None, aux_sum
 
 
 def apply_stage(segments: List[Segment], stage_params, x, *, cfg, mode,
-                stage_cache, pos, use_kernel: bool = False, first_h=None):
-    """Returns (x, new stage caches)."""
+                stage_cache, pos, enc_out=None, use_kernel: bool = False,
+                causal: bool = True, first_h=None):
+    """Returns (x, new stage caches, aux): the f32 ``[load_balance,
+    router_z]`` summed over the stage's MoE layers (zeros without one)."""
+    aux_total = None
     new_caches = []
     for si, seg in enumerate(segments):
         cache = None if stage_cache is None else stage_cache[si]
-        x, nc = apply_segment(seg, stage_params[si], x, cfg=cfg, mode=mode,
-                              seg_cache=cache, pos=pos, use_kernel=use_kernel,
-                              first_h=first_h if si == 0 else None)
+        x, nc, aux = apply_segment(
+            seg, stage_params[si], x, cfg=cfg, mode=mode, seg_cache=cache,
+            pos=pos, enc_out=enc_out, use_kernel=use_kernel, causal=causal,
+            first_h=first_h if si == 0 else None)
         new_caches.append(nc)
-    return x, new_caches
+        aux_total = _add_aux(aux_total, aux)
+    if aux_total is None:
+        aux_total = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    return x, new_caches, aux_total
+
+
+def _add_aux(total, aux):
+    """Sum of aux vectors where None stands for zeros (layers without an
+    MoE add no device work)."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux

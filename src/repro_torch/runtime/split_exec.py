@@ -236,6 +236,14 @@ class SplitModelBank:
 
         if base_cfg.num_layers < 2:
             raise ValueError("need >=2 layers to split")
+        if base_cfg.is_encdec:
+            # the edge half would need the encoder's output for its cross
+            # attention, and nothing ships it: the JAX bank cannot run an
+            # encoder-decoder either
+            raise NotImplementedError(
+                f"{base_cfg.name}: an encoder-decoder has no split bank (its "
+                f"cross-attention layers need the encoder output, which no "
+                f"wire carries)")
         # "entropy" is numerically int8: only byte accounting differs
         if wire_mode not in ("raw", "reduced", "int8", "int4", "entropy"):
             raise ValueError(f"unknown wire_mode {wire_mode!r}")
@@ -257,7 +265,9 @@ class SplitModelBank:
         self._butterfly: Dict[int, dict] = dict(butterfly or {})
 
         # seq bucketing preserves numerics only under pure causal global
-        # attention; batch rows are independent except under MoE
+        # attention (MoE layers still see the padded rows compete for their
+        # capacity, as in the JAX bank); batch rows are independent except
+        # under MoE
         self._seq_bucket_ok = all(d.mixer == "attn" and d.window is None
                                   and not d.cross for d in self._defs)
         self._batch_bucket_ok = all(d.ffn != "moe" for d in self._defs)
@@ -433,9 +443,12 @@ class SplitModelBank:
                      scale=cfg.arch_type == "dense" and cfg.act == "gelu")
 
     def _layers(self, params, x, lo, hi, mode, cache, pos):
-        return tfm.apply_layer_range(
+        """(x, caches) of flat layers [lo, hi); the MoE aux losses are
+        dropped, as the JAX bank drops them."""
+        x, caches, _ = tfm.apply_layer_range(
             list(self.built.stages[0]), params["stages"][0], x, lo, hi,
             cfg=self.base_cfg, mode=mode, range_cache=cache, pos=pos)
+        return x, caches
 
     def _make_edge(self, split: int):
         def edge(params, toks):

@@ -16,9 +16,12 @@ memory to the producer's stream while the consumer still reads it.  One
 Python thread launches both pods' work; on the CPU the pods run one after
 the other.
 
-A model axis inside a pod (tensor-parallel stages, ``overlap_psum``) and
-the MoE, SSM, xLSTM and encoder-decoder families are not ported: they raise
-``NotImplementedError``.
+MoE layers run their local path, as the JAX package's manual path does at
+model-axis degree 1: each microbatch's tokens compete for its experts'
+capacity.  A model axis inside a pod (tensor-parallel stages,
+``overlap_psum``) and the SSM, xLSTM and hybrid families are not ported:
+they raise ``NotImplementedError``; an encoder-decoder raises it too, as
+the JAX package asserts it out of the pipeline's scope.
 """
 from __future__ import annotations
 
@@ -157,10 +160,13 @@ def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,
     if overlap_psum:
         raise NotImplementedError("overlap_psum defers psums over a model "
                                   "axis, which is not ported")
-    if (cfg.moe is not None or cfg.ssm is not None or cfg.xlstm is not None
-            or cfg.hybrid_attn_every is not None or cfg.is_encdec):
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: enc-dec archs are out of the "
+                                  f"decode pipeline's scope")
+    if (cfg.ssm is not None or cfg.xlstm is not None
+            or cfg.hybrid_attn_every is not None):
         raise NotImplementedError(f"{cfg.name}: the decode pipeline is ported "
-                                  f"for attention + MLP layers only")
+                                  f"for attention layers only")
     if not built.has_butterfly or len(built.stages) != 2:
         raise ValueError("the decode pipeline needs a butterfly split "
                          "(cfg.with_butterfly(...))")
@@ -208,28 +214,29 @@ def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,
 
     def edge_prefill(p, toks):
         x = embed(p["embed"], toks, scale=embed_scale)
-        x, caches = tfm.apply_stage(stages0, p["stages"][0], x, cfg=cfg,
-                                    mode="prefill", stage_cache=None, pos=None)
+        x, caches, _ = tfm.apply_stage(stages0, p["stages"][0], x, cfg=cfg,
+                                       mode="prefill", stage_cache=None,
+                                       pos=None)
         return (*edge_wire(p, x), caches)
 
     def cloud_prefill(p, codes, scales):
         x, h = cloud_restore(p, codes, scales)
-        x, caches = tfm.apply_stage(stages1, p["stages"][1], x, cfg=cfg,
-                                    mode="prefill", stage_cache=None, pos=None,
-                                    first_h=h)
+        x, caches, _ = tfm.apply_stage(stages1, p["stages"][1], x, cfg=cfg,
+                                       mode="prefill", stage_cache=None,
+                                       pos=None, first_h=h)
         return greedy(p, x), caches
 
     def edge_step(p, tok, cache, pos):
         x = embed(p["embed"], tok[:, None], scale=embed_scale)
-        x, _ = tfm.apply_stage(stages0, p["stages"][0], x, cfg=cfg,
-                               mode="decode", stage_cache=cache, pos=pos)
+        x, _, _ = tfm.apply_stage(stages0, p["stages"][0], x, cfg=cfg,
+                                  mode="decode", stage_cache=cache, pos=pos)
         return edge_wire(p, x)
 
     def cloud_step(p, codes, scales, cache, pos):
         x, h = cloud_restore(p, codes, scales)
-        x, _ = tfm.apply_stage(stages1, p["stages"][1], x, cfg=cfg,
-                               mode="decode", stage_cache=cache, pos=pos,
-                               first_h=h)
+        x, _, _ = tfm.apply_stage(stages1, p["stages"][1], x, cfg=cfg,
+                                  mode="decode", stage_cache=cache, pos=pos,
+                                  first_h=h)
         return greedy(p, x)
 
     def sync():

@@ -2,7 +2,8 @@
 the same inputs, the split path launching both butterfly kernels, the
 windowed model's kernel prefill launching the flash kernel, the two-pod
 decode pipeline on two streams of one card, the runtime simulator's
-numerics on the card, and training on the card against the CPU.
+numerics on the card, training on the card against the CPU, and the MoE
+layer's routing and whisper's kernel prefill on the card against the CPU.
 
 These tests import no JAX, so a GPU machine with PyTorch alone runs them,
 without the JAX package's conftest:
@@ -26,7 +27,9 @@ f64 product), h and the RMSNorm kernel against the plain norm
 of the same x within rtol 1e-5 (atol 1e-6) in f32 (the mean of squares sums
 in another order) and one bf16 ulp in bf16.  The bincount kernel's codes
 and scales equal reduce_quant's bit for bit and its counts the histogram of
-those codes exactly.
+those codes exactly.  MoE routing on the card equals the CPU's (expert
+ids, capacity slots) in f32 without TF32; outputs and logits, f32 sums in
+another order, within rtol/atol 1e-4.
 """
 import dataclasses
 import math
@@ -506,6 +509,19 @@ def test_flash_bf16_runs_on_the_tensor_cores(cuda, hd):
         "flash_attention_tc_kernel" not in names[torch.float32][0]
 
 
+# this slice's new flash shapes: whisper-base's encoder (1,500 frames,
+# non-causal, 8 heads a key head each at hd 64) and its decoder on a
+# 32-token prompt, and pixtral-12b's 1,024 patches + 100 tokens (causal, G=4)
+@pytest.mark.parametrize("B,S,N,K,hd,causal", [(1, 1500, 8, 8, 64, False),
+                                               (1, 32, 8, 8, 64, True),
+                                               (1, 1124, 32, 8, 128, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_new_family_shapes(cuda, B, S, N, K, hd, causal, dtype):
+    _flash_case(cuda, B, S, S, N, K, hd, dtype, causal, None,
+                np.random.default_rng(S + hd))
+    torch.cuda.synchronize()
+
+
 def test_flash_wrapper_refuses_bad_input(cuda):
     q = torch.zeros((1, 8, 4, 64), device=cuda)
     k = torch.zeros((1, 8, 2, 64), device=cuda)
@@ -838,3 +854,71 @@ def test_checkpoint_round_trips_from_the_card(cuda, tmp_path):
     assert meta == {"step": 4}
     for a, b in zip(tree_leaves((params, opt)), tree_leaves((back, back_opt))):
         assert b.is_cuda and b.dtype == a.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d,E,k,shared", [(256, 4, 2, 0), (4096, 128, 8, 0),
+                                          (5120, 128, 1, 64)])
+def test_moe_dispatch_on_the_card_matches_cpu(cuda, d, E, k, shared):
+    """The MoE layer in f32 on the card and on the CPU from one init: the
+    reduced qwen3-moe layer, and the routers of qwen3-moe-235b-a22b (d 4096,
+    128 experts, top 8) and llama4-maverick (d 5120, 128, top 1, a shared
+    expert) at their published widths with 64-wide experts, on 128 tokens
+    at the default capacity (the wide routers drop choices): expert ids, capacity
+    slots and buffer rows equal, outputs and aux losses within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+    base = get_config("qwen3-moe-235b-a22b").reduced()
+    cfg = dataclasses.replace(base, d_model=d, moe=dataclasses.replace(
+        base.moe, num_experts=E, top_k=k, d_ff_expert=64, shared_expert_ff=shared))
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    card = tree_map(lambda t: t.to(cuda), params)
+    x = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (2, 64, d)).astype(np.float32))
+    cap = moe._capacity(128, cfg.moe)
+    routes = [moe.route(xx.reshape(128, d), p["router"], cfg.moe, cap)
+              for xx, p in ((x, params), (x.to(cuda), card))]
+    for a, b in zip(routes[0][3:], routes[1][3:]):
+        assert torch.equal(a, b.cpu())
+    assert (int((routes[0][4] >= cap).sum()) > 0) == (E == 128)
+    out, aux = moe.apply_moe(params, x, cfg=cfg, act=cfg.act)
+    out_c, aux_c = moe.apply_moe(card, x.to(cuda), cfg=cfg, act=cfg.act)
+    torch.testing.assert_close(out_c.cpu(), out, rtol=1e-4, atol=1e-4)
+    for key in aux:
+        torch.testing.assert_close(aux_c[key].cpu(), aux[key], rtol=1e-4, atol=0)
+
+
+def test_whisper_kernel_prefill_on_the_card_matches_cpu(cuda):
+    """Reduced whisper (2 + 2 layers, 16 frames, f32 without TF32) from one
+    init: the card's kernel prefill launches flash once an encoder layer
+    (non-causal) and once a decoder layer, and its logits and caches, then
+    8 greedy decode steps through the cross_kv cache, stay within 1e-4 of
+    the CPU's (its flash is the plain version)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("whisper-base").reduced()
+    built = M.build(cfg)
+    params = M.init_model(torch.Generator().manual_seed(0), built, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 20))),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (1, cfg.encoder_frames, cfg.d_model)).astype(np.float32))}
+    card = tree_map(lambda t: t.to(cuda), params)
+    n = fa.flash_attention.launches
+    logits_c, caches_c = M.forward_prefill(
+        card, built, {k: v.to(cuda) for k, v in batch.items()}, use_kernel=True)
+    assert fa.flash_attention.launches == n + cfg.encoder_layers + cfg.num_layers
+    logits, caches = M.forward_prefill(params, built, batch, use_kernel=True)
+    torch.testing.assert_close(logits_c.cpu(), logits, rtol=1e-4, atol=1e-4)
+    for a, b in zip(tree_leaves(caches_c), tree_leaves(caches)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    caches_c = M.pad_decode_caches(built, caches_c, 28)
+    caches = M.pad_decode_caches(built, caches, 28)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    for pos in range(20, 28):
+        logits_c, caches_c = M.forward_decode(card, built, tok.to(cuda), caches_c, pos)
+        logits, caches = M.forward_decode(params, built, tok, caches, pos)
+        torch.testing.assert_close(logits_c.cpu(), logits, rtol=1e-4, atol=1e-4)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        assert int(logits_c[:, -1].argmax()) == int(tok)

@@ -14,8 +14,11 @@ and its two kernels' plain versions, against the JAX package on the CPU.
     against the port's on two CPU pods, with the same weights bridged in and
     the same tokens: identical greedy ids for every wire, schedule and
     kernel setting, and equal compile-cache counts;
-  * (d) what the port refuses: a model axis, MoE, fewer than two tokens,
-    a pipelined run with one microbatch.
+    The same for reduced qwen3-moe (its MoE layers on the local path, as
+    JAX's manual path runs them at model-axis degree 1);
+  * (d) what the port refuses: a model axis, an encoder-decoder (JAX
+    asserts it out of scope), fewer than two tokens, a pipelined run with
+    one microbatch.
 """
 import dataclasses
 import os
@@ -31,7 +34,6 @@ import torch
 from repro.kernels import ops as jops, ref as jref
 from repro.serving.pipeline import wire_stats as jwire_stats
 from repro_torch.configs import get_config as tget_config
-from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels import butterfly_kernel, ops, rmsnorm as rmsnorm_kernel
 from repro_torch.models import model as TM
 from repro_torch.models import transformer as tfm
@@ -220,11 +222,8 @@ def test_grow_cache_pads_to_the_template():
 
 
 # ----------------------------------------------------------------------- (d)
-def _moe_built():
-    cfg = dataclasses.replace(
-        tget_config("qwen3-8b").reduced(), arch_type="moe",
-        moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64)).with_butterfly(1, 32)
-    return TM.BuiltModel(cfg=cfg, stages=((), ()))
+def _encdec_built():
+    return TM.build(tget_config("whisper-base").reduced().with_butterfly(1, 32))
 
 
 REFUSALS = {
@@ -232,7 +231,7 @@ REFUSALS = {
     "model axis": (NotImplementedError,
                    dict(pods=(("cpu", "cpu"), ("cpu", "cpu")))),
     "three pods": (NotImplementedError, dict(pods=("cpu",) * 3)),
-    "moe": (NotImplementedError, dict(built=_moe_built)),
+    "enc-dec": (NotImplementedError, dict(built=_encdec_built)),
     "one token": (ValueError, dict(new_tokens=1)),
     "pipelined, one microbatch": (ValueError, dict(num_microbatches=1)),
     "raw wire": (ValueError, dict(wire_mode="raw")),
@@ -283,6 +282,9 @@ PODS = ("cpu", "cpu")
 ARCH = sys.argv[2] if len(sys.argv) > 2 else "qwen3-8b"
 Mmb, mb, S, T, SPLIT, D_R = 2, 2, 8, 4, 1, 32
 jbase, tbase = jget(ARCH).reduced(), tget(ARCH).reduced()
+if ARCH == "qwen3-moe-235b-a22b":
+    # 3 layers, every one MoE (4 experts, top-2) at the default capacity
+    jbase, tbase = (dataclasses.replace(c, num_layers=3) for c in (jbase, tbase))
 if ARCH == "gemma3-12b":
     # 4 layers, one global in two, window 4: S + T = 14 positions wrap the
     # rings of the windowed layers on both pods
@@ -294,6 +296,8 @@ toks = np.random.default_rng(1).integers(
 to_np = lambda t: jax.tree.map(np.asarray, t)
 SETTINGS = [(wm, p, uk) for wm in ("int8", "int4") for p in (True, False)
             for uk in (False, True)]
+if ARCH == "qwen3-moe-235b-a22b":
+    SETTINGS = SETTINGS[:4]          # the wires differ only before routing
 
 def same(j, t, what):
     j = np.asarray(j)
@@ -353,3 +357,14 @@ def test_windowed_pipeline_matches_jax_two_pods(entry):
     butterfly after layer 1), S=8, T=6, so the windowed layers' ring caches
     wrap on both pods: greedy ids identical to JAX's for every setting."""
     _parity(entry, "gemma3-12b")
+
+
+@pytest.mark.subprocess
+def test_moe_pipeline_matches_jax_two_pods():
+    """The same on reduced qwen3-moe (3 layers, 4 experts top-2, default
+    capacity, butterfly after layer 1): each microbatch's prefill and
+    decode ticks route as JAX's manual path routes them at model-axis
+    degree 1, so greedy ids are identical, pipelined and serial, with and
+    without ``use_kernel`` (the int8 wire; int4 changes nothing past the
+    wire, which the qwen3 and gemma3 cases hold)."""
+    _parity("make_decode_pipeline", "qwen3-moe-235b-a22b")
