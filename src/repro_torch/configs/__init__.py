@@ -1,8 +1,18 @@
 from repro_torch.configs.base import (
     ButterflyConfig,
+    INPUT_SHAPES,
+    InputShape,
     ModelConfig,
+    MoEConfig,
+    SSMConfig,
+    XLSTMConfig,
     get_config,
     list_archs,
+    supports_shape,
 )
 
-__all__ = ["ButterflyConfig", "ModelConfig", "get_config", "list_archs"]
+__all__ = [
+    "ButterflyConfig", "INPUT_SHAPES", "InputShape", "ModelConfig",
+    "MoEConfig", "SSMConfig", "XLSTMConfig", "get_config", "list_archs",
+    "supports_shape",
+]

@@ -2,12 +2,9 @@
 
 The port keeps its own copy (it imports nothing of ``repro``): every
 architecture is a frozen dataclass registered under its ``--arch`` id.
-Only the families this port runs are registered: the dense transformers
-(``qwen3_8b``, ``qwen3_14b``, ``gemma_7b``, and ``gemma3_12b`` with its
-sliding windows), the MoE family (``qwen3_moe``, ``llama4_maverick``), the
-VLM's patch inputs (``pixtral_12b``), whisper's encoder-decoder
-(``whisper_base``) and the paper's ``resnet50`` (``models/resnet.py``); the
-recurrent families arrive with their slice.
+Every architecture of the JAX package is registered (``configs/all.py``
+imports them and lists the ``ASSIGNED`` ones), with the paper's
+``resnet50`` (``models/resnet.py``).
 """
 from __future__ import annotations
 
@@ -207,15 +204,7 @@ def register(name: str):
 
 def _import_archs():
     # the per-arch modules are imported lazily so `register` runs
-    import repro_torch.configs.gemma3_12b  # noqa: F401
-    import repro_torch.configs.gemma_7b  # noqa: F401
-    import repro_torch.configs.llama4_maverick  # noqa: F401
-    import repro_torch.configs.pixtral_12b  # noqa: F401
-    import repro_torch.configs.qwen3_14b  # noqa: F401
-    import repro_torch.configs.qwen3_8b  # noqa: F401
-    import repro_torch.configs.qwen3_moe  # noqa: F401
-    import repro_torch.configs.resnet50  # noqa: F401
-    import repro_torch.configs.whisper_base  # noqa: F401
+    import repro_torch.configs.all  # noqa: F401
 
 
 def get_config(name: str) -> ModelConfig:
@@ -229,3 +218,13 @@ def get_config(name: str) -> ModelConfig:
 def list_archs() -> list[str]:
     _import_archs()
     return sorted(_REGISTRY)
+
+
+def supports_shape(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:
+    """Which (arch x shape) pairs run; mirrors DESIGN.md section 5."""
+    if shape.name == "long_500k":
+        ok = cfg.arch_type in ("ssm", "hybrid") or cfg.xlstm is not None or \
+            cfg.long_context_window is not None
+        if not ok:
+            return False, "pure full-attention arch: long_500k skipped (DESIGN.md 5)"
+    return True, ""

@@ -14,7 +14,7 @@
 // flash_attention
 //   replaces src/repro/kernels/flash_attention.py:flash_attention_kernel
 //   (the online-softmax _attn_kernel, pl.pallas_call at :99).
-//   q (B,S,N,hd), k/v (B,T,K,hd), f32 or bf16, hd in {32, 64, 128, 256};
+//   q (B,S,N,hd), k/v (B,T,K,hd), f32 or bf16, hd in {32, 64, 112, 128, 256};
 //   query head h reads kv head h / (N/K), with K/V never repeated.  Query
 //   row i sits at absolute position qpos = i + T - S; key t is visible when
 //   (not causal or t <= qpos) and (no window or t > qpos - window).  Scores
@@ -61,7 +61,11 @@
 //   * Loads by TMA (cp.async.bulk.tensor, rank-4 maps of (B, rows, heads,
 //     hd), so one head's rows are strided by heads * hd) into swizzled
 //     shared memory: 128B swizzle in column blocks of 64 hd (64B swizzle in
-//     one block of 32 at hd = 32), each block rows x 128 bytes.  Q comes
+//     one block of 32 at hd = 32), each block rows x 128 bytes.  An hd that
+//     is no multiple of 64 (zamba2's 112) is staged as the next multiple
+//     (128): the maps keep the true hd, so TMA zero-fills the columns past
+//     it and the store drops them, zero columns add nothing to q.k or P.V,
+//     and the scale stays 1/sqrt(hd) of the true hd.  Q comes
 //     once; K and V tiles of BK keys go through a ring of 2 stages, K and V
 //     each with a "full" mbarrier (expect_tx: the tile's bytes) and an
 //     "empty" mbarrier on which all 256 consumer threads arrive once the
@@ -323,6 +327,7 @@ cudaError_t with_head_dim(int hd, F&& f) {
   switch (hd) {
     case 32: return f(std::integral_constant<int, 32>{});
     case 64: return f(std::integral_constant<int, 64>{});
+    case 112: return f(std::integral_constant<int, 112>{});
     case 128: return f(std::integral_constant<int, 128>{});
     case 256: return f(std::integral_constant<int, 256>{});
     default: return cudaErrorInvalidValue;
@@ -344,6 +349,13 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 // and a second block could leave a consumer waiting for registers forever.
 constexpr int kOneBlockSmem = 120 * 1024;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The head dim a bf16 tile stages: hd itself up to 64, else hd rounded up
+// to whole 64-column swizzle blocks (zero-filled past hd by TMA).
+template <int HD>
+constexpr int staged_hd() {
+  return HD <= 64 ? HD : (HD + 63) / 64 * 64;
+}
 
 template <int HD>
 struct Cfg {
@@ -902,25 +914,28 @@ template <int HD>
 bool encode_maps(Maps* m, const void* q, const void* k, const void* v, void* out, int B,
                  int S, int T_len, int N, int K) {
   EncodeTiled enc = encode_tiled();
+  constexpr int BK = Cfg<staged_hd<HD>()>::BK;
   return enc != nullptr && encode_map(enc, &m->q, q, B, S, N, HD, 64) &&
-         encode_map(enc, &m->k, k, B, T_len, K, HD, Cfg<HD>::BK) &&
-         encode_map(enc, &m->v, v, B, T_len, K, HD, Cfg<HD>::BK) &&
+         encode_map(enc, &m->k, k, B, T_len, K, HD, BK) &&
+         encode_map(enc, &m->v, v, B, T_len, K, HD, BK) &&
          encode_map(enc, &m->o, out, B, S, N, HD, 64);
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int S,
                    int T_len, int N, int K, int causal, int window, cudaStream_t stream) {
+  constexpr int HDS = staged_hd<HD>();
   Maps m;
   if (!encode_maps<HD>(&m, q, k, v, out, B, S, T_len, N, K)) return cudaErrorInvalidValue;
-  auto kern = flash_attention_tc_kernel<HD>;
+  auto kern = flash_attention_tc_kernel<HDS>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Cfg<HD>::kLaunchSmem);
+                                         Cfg<HDS>::kLaunchSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, B * N);
+  // the true hd's scale, also where the tile stages more columns
   const float scale_log2 = kLog2e / sqrtf((float)HD);
-  kern<<<grid, kThreads, Cfg<HD>::kLaunchSmem, stream>>>(m.q, m.k, m.v, m.o, S, T_len, N, K,
-                                                          scale_log2, causal, window);
+  kern<<<grid, kThreads, Cfg<HDS>::kLaunchSmem, stream>>>(m.q, m.k, m.v, m.o, S, T_len, N, K,
+                                                           scale_log2, causal, window);
   return cudaGetLastError();
 }
 

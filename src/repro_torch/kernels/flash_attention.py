@@ -21,7 +21,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels._launch import DTYPE_CODE, aligned, check, raise_on, \
     stream
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

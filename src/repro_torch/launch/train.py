@@ -64,9 +64,6 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, vocab_size=args.vocab)
     if args.butterfly_layer is not None:
         cfg = cfg.with_butterfly(args.butterfly_layer, args.d_r)
-    if cfg.num_patches or cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: the patch and enc-dec input "
-                                  f"families are not ported")
     built = M.build(cfg)
     params = M.init_model(torch.Generator(device=device).manual_seed(0), built,
                           device=device)
@@ -81,6 +78,20 @@ def main(argv=None):
     t0 = time.time()
     for i, raw in zip(range(args.steps), stream):
         batch = {k: dev_lib.as_tensor(v, device) for k, v in raw.items()}
+        dt = dev_lib.torch_dtype(cfg.dtype)
+        if cfg.num_patches:
+            # the stub vision frontend's zero patches, placed before the
+            # tokens; no target is scored over them
+            batch["patches"] = torch.zeros(
+                (args.batch, cfg.num_patches, cfg.d_model), dtype=dt, device=device)
+            batch["targets"] = torch.cat(
+                [torch.full((args.batch, cfg.num_patches), -1,
+                            dtype=batch["targets"].dtype, device=device),
+                 batch["targets"]], dim=1)
+        if cfg.is_encdec:
+            batch["frames"] = torch.zeros(
+                (args.batch, cfg.encoder_frames, cfg.d_model), dtype=dt,
+                device=device)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if i % args.log_every == 0 or i == args.steps - 1:
             tput = (i + 1) * args.batch * args.seq / (time.time() - t0)

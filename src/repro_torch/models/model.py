@@ -1,6 +1,7 @@
-"""Top-level model build/init/apply for the attention families (port of
-``repro/models/model.py``): dense, MoE, the VLM's patch inputs and
-whisper's encoder-decoder.
+"""Top-level model build/init/apply for every family (port of
+``repro/models/model.py``): dense, MoE, the VLM's patch inputs, whisper's
+encoder-decoder, and the recurrent families (xLSTM, and zamba2's Mamba2
+backbone with its one shared attention block, ``params["shared_attn"]``).
 
   build(cfg)                                  -> BuiltModel
   init_model(gen, built, device=...)          -> params
@@ -36,8 +37,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import butterfly as bf_lib
 from repro_torch.core.wire_codec import rate_bits
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import embed, init_embedding, init_rms_norm, \
-    rms_norm, sinusoid_angles, sinusoid_positions, unembed
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.common import embed, init_embedding, init_mlp, \
+    init_rms_norm, rms_norm, sinusoid_angles, sinusoid_positions, unembed
 from repro_torch.tree import tree_leaves
 
 
@@ -84,6 +86,11 @@ def init_model(gen: torch.Generator, built: BuiltModel, *,
     if cfg.butterfly is not None:
         params["butterfly"] = bf_lib.init_butterfly(gen, cfg.d_model,
                                                     cfg.butterfly, dtype, device)
+    if cfg.hybrid_attn_every is not None:
+        # zamba2: one attention + MLP param set, read by every shared layer
+        params["shared_attn"] = {
+            "mixer": attn_lib.init_attention(gen, cfg, dtype, device),
+            "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)}
     if cfg.is_encdec:
         params["encoder"] = {
             "segments": [tfm.init_segment(gen, seg, cfg, dtype, device)
@@ -161,7 +168,7 @@ def _run_stages(params, built: BuiltModel, x, *, mode, caches, pos,
         x, nc, aux = tfm.apply_stage(
             list(segs), params["stages"][stage_idx], x, cfg=cfg, mode=mode,
             stage_cache=stage_cache, pos=pos, enc_out=enc_out,
-            use_kernel=use_kernel)
+            shared_params=params.get("shared_attn"), use_kernel=use_kernel)
         new_caches.append(nc)
         aux_total = aux if aux_total is None else aux_total + aux
     return x, new_caches, aux_total, rate
@@ -200,7 +207,8 @@ def forward_prefill(params, built: BuiltModel, batch: dict,
 def pad_decode_caches(built: BuiltModel, caches, length: int):
     """Zero-pad prefill caches to decode capacity ``length``: global caches
     to ``length`` rows, ring caches to exactly ``min(length, window)``, even
-    when the prompt was shorter than the window."""
+    when the prompt was shorter than the window; recurrent state passes
+    through."""
     cfg = built.cfg
     batch = tree_leaves(caches)[0].shape[1]           # leaves: (reps, B, S, ..)
     dtype = dev_lib.torch_dtype(cfg.dtype)

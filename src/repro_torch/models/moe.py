@@ -66,31 +66,43 @@ def _capacity(tokens: int, mcfg: MoEConfig) -> int:
     return max(cap, 1)
 
 
-def route(x_flat, router, mcfg: MoEConfig, capacity: int):
+def route(x_flat, router, mcfg: MoEConfig, capacity: int, forced=None):
     """f32 routing of (T, d) tokens: returns ``(logits, probs, gate, eids,
     pos, dst)``.  ``eids`` (T, k) are the top-k experts, highest
     probability first and the lower expert id first on a tie (as
     ``lax.top_k``: a stable descending sort); ``gate`` their renormalised
     probabilities; ``pos`` each choice's slot within its expert, in token
     order, then choice order; ``dst`` its row of the (E*C, d) buffer, or
-    E*C (the spare row) where ``pos >= capacity``."""
+    E*C (the spare row) where ``pos >= capacity``.
+
+    ``forced``, an ``(eids, pos)`` pair of another run's routes, replaces
+    the computed ones (the gates are then these experts' renormalised
+    probabilities), so that a reference run can take the routes another
+    path took; routes equal to the computed ones give the same result, bit
+    for bit.  None computes them."""
     T = x_flat.shape[0]
     E, k = mcfg.num_experts, mcfg.top_k
     logits = x_flat.float() @ router                              # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    sorted_p, order_p = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, eids = sorted_p[:, :k], order_p[:, :k]
-    gate = gate / gate.sum(dim=-1, keepdim=True)
+    if forced is not None:
+        eids, pos = forced
+        gate = torch.gather(probs, 1, eids)
+        gate = gate / gate.sum(dim=-1, keepdim=True)
+    else:
+        sorted_p, order_p = torch.sort(probs, dim=-1, descending=True,
+                                       stable=True)
+        gate, eids = sorted_p[:, :k], order_p[:, :k]
+        gate = gate / gate.sum(dim=-1, keepdim=True)
 
-    flat_e = eids.reshape(-1)                                     # (T*k,)
-    order = torch.argsort(flat_e, stable=True)
-    se = flat_e[order]
-    group_start = torch.searchsorted(se, torch.arange(E, device=x_flat.device))
-    ar = torch.arange(T * k, device=x_flat.device)
-    pos_sorted = ar - group_start[se]
-    inv = torch.empty_like(order)
-    inv[order] = ar
-    pos = pos_sorted[inv].reshape(T, k)
+        flat_e = eids.reshape(-1)                                 # (T*k,)
+        order = torch.argsort(flat_e, stable=True)
+        se = flat_e[order]
+        group_start = torch.searchsorted(se, torch.arange(E, device=x_flat.device))
+        ar = torch.arange(T * k, device=x_flat.device)
+        pos_sorted = ar - group_start[se]
+        inv = torch.empty_like(order)
+        inv[order] = ar
+        pos = pos_sorted[inv].reshape(T, k)
     dst = torch.where(pos < capacity, eids * capacity + pos, E * capacity)
     return logits, probs, gate, eids, pos, dst
 

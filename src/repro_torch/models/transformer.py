@@ -1,6 +1,9 @@
-"""Segmented layer stack (port of ``repro/models/transformer.py``: the
-attention layers, with an MLP or a mixture of experts after them and, in
-whisper's decoder, cross attention between).
+"""Segmented layer stack (port of ``repro/models/transformer.py``).
+
+Layer kinds: mixer in {attn, mamba, mlstm, slstm} x ffn in {mlp, moe,
+None}; ``shared=True`` marks zamba2's shared attention block, whose mixer
+and MLP are stored once at the top of the param tree (``shared_attn``) and
+read by every shared layer; ``cross`` adds whisper-style cross attention.
 
 A model is a flat list of ``LayerDef``s compressed into ``Segment``s: a
 repeating unit with its params stacked over repeats, as in the JAX package,
@@ -8,8 +11,8 @@ so the weight bridge is a tree map and a layer-range slice is a view.  A
 Python loop over the repeats replaces ``lax.scan``.  Each apply function
 returns, as JAX's does, the MoE layers' aux losses ``[load_balance,
 router_z]`` summed over the layers it ran (zeros where there are none).
-The recurrent mixers (mamba, mLSTM, sLSTM) and zamba2's shared block are
-not ported: their configs raise ``NotImplementedError``.
+A recurrent layer's cache is its state (``models/ssm.py``,
+``models/xlstm.py``): leaves with no sequence axis.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import apply_mlp, init_mlp, init_rms_norm, rms_norm
 from repro_torch.tree import tree_map
 
@@ -31,7 +36,7 @@ from repro_torch.tree import tree_map
 
 @dataclass(frozen=True)
 class LayerDef:
-    mixer: str                      # attn (mamba | mlstm | slstm not ported)
+    mixer: str                      # attn | mamba | mlstm | slstm
     ffn: Optional[str] = "mlp"      # mlp | moe | None
     window: Optional[int] = None
     shared: bool = False            # zamba2 shared-attention params
@@ -49,16 +54,32 @@ class Segment:
 
 
 def build_layer_defs(cfg: ModelConfig, long_mode: bool = False) -> List[LayerDef]:
-    """The flat per-layer spec of an attention architecture: an MoE layer
-    where ``i % every == every - 1``, cross attention in every layer of an
-    encoder-decoder's decoder.  The recurrent families raise until their
-    slice is ported."""
-    if (cfg.xlstm is not None or cfg.hybrid_attn_every is not None
-            or cfg.ssm is not None):
-        raise NotImplementedError(
-            f"{cfg.name}: only attention architectures are ported")
+    """The flat per-layer spec for an architecture: xLSTM's sLSTM where
+    ``i % slstm_every == slstm_every - 1`` (mLSTM elsewhere), zamba2's
+    shared attention where ``i % hybrid_attn_every == hybrid_attn_every - 1``
+    (mamba elsewhere), an MoE layer where ``i % every == every - 1``, cross
+    attention in every layer of an encoder-decoder's decoder.
+
+    ``long_mode`` — the long_500k sub-quadratic variant: every attention layer
+    runs with a bounded window (cfg.long_context_window)."""
     defs: List[LayerDef] = []
     for i in range(cfg.num_layers):
+        if cfg.xlstm is not None:
+            every = cfg.xlstm.slstm_every
+            mixer = "slstm" if (i % every == every - 1) else "mlstm"
+            defs.append(LayerDef(mixer=mixer, ffn=None))
+            continue
+        if cfg.hybrid_attn_every is not None:
+            if i % cfg.hybrid_attn_every == cfg.hybrid_attn_every - 1:
+                window = cfg.long_context_window if long_mode else None
+                defs.append(LayerDef(mixer="attn", ffn="mlp", shared=True,
+                                     window=window))
+            else:
+                defs.append(LayerDef(mixer="mamba", ffn=None))
+            continue
+        if cfg.arch_type == "ssm" and cfg.ssm is not None:
+            defs.append(LayerDef(mixer="mamba", ffn=None))
+            continue
         window = None
         if cfg.sliding_window is not None:
             if cfg.global_every is None or (i % cfg.global_every != cfg.global_every - 1):
@@ -164,13 +185,17 @@ def slice_stage_params(segments: Sequence[Segment], stage_params, lo: int, hi: i
 
 def apply_layer_range(segments: Sequence[Segment], stage_params, x, lo: int,
                       hi: int, *, cfg, mode, range_cache, pos,
-                      use_kernel: bool = False, first_h=None):
+                      shared_params=None, use_kernel: bool = False,
+                      first_h=None):
     """Run flat layers [lo, hi) of a full stacked stage; ``range_cache`` is
-    structured per :func:`range_segments`.  Returns (x, caches, aux)."""
+    structured per :func:`range_segments`.  ``shared_params`` is the whole
+    shared block (never sliced by layer range).  Returns (x, caches,
+    aux)."""
     segs, params = slice_stage_params(segments, stage_params, lo, hi)
     return apply_stage(segs, params, x, cfg=cfg, mode=mode,
                        stage_cache=range_cache, pos=pos,
-                       use_kernel=use_kernel, first_h=first_h)
+                       shared_params=shared_params, use_kernel=use_kernel,
+                       first_h=first_h)
 
 
 def first_layer_norm1(segments: Sequence[Segment], stage_params, lo: int = 0):
@@ -192,18 +217,29 @@ def first_layer_norm1(segments: Sequence[Segment], stage_params, lo: int = 0):
 
 
 def init_layer(gen, ldef: LayerDef, cfg: ModelConfig, dtype, device) -> dict:
-    if ldef.mixer != "attn" or ldef.shared or ldef.ffn is None:
-        raise NotImplementedError(f"layer {ldef} is not ported")
-    params = {"norm1": init_rms_norm(cfg.d_model, dtype, device),
-              "mixer": attn.init_attention(gen, cfg, dtype, device)}
-    if ldef.cross:
-        params["norm_cross"] = init_rms_norm(cfg.d_model, dtype, device)
-        params["cross"] = attn.init_attention(gen, cfg, dtype, device)
-    params["norm2"] = init_rms_norm(cfg.d_model, dtype, device)
-    if ldef.ffn == "moe":
-        params["ffn"] = moe_lib.init_moe(gen, cfg, dtype, device)
+    """One layer's params: ``norm1`` always; a shared layer keeps only its
+    norms, its mixer and MLP being the model's ``shared_attn``."""
+    params = {"norm1": init_rms_norm(cfg.d_model, dtype, device)}
+    if ldef.mixer == "attn":
+        if not ldef.shared:
+            params["mixer"] = attn.init_attention(gen, cfg, dtype, device)
+        if ldef.cross:
+            params["norm_cross"] = init_rms_norm(cfg.d_model, dtype, device)
+            params["cross"] = attn.init_attention(gen, cfg, dtype, device)
+    elif ldef.mixer == "mamba":
+        params["mixer"] = ssm_lib.init_mamba(gen, cfg, dtype, device)
+    elif ldef.mixer == "mlstm":
+        params["mixer"] = xlstm_lib.init_mlstm(gen, cfg, dtype, device)
+    elif ldef.mixer == "slstm":
+        params["mixer"] = xlstm_lib.init_slstm(gen, cfg, dtype, device)
     else:
-        params["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
+        raise ValueError(ldef.mixer)
+    if ldef.ffn is not None and ldef.mixer == "attn":
+        params["norm2"] = init_rms_norm(cfg.d_model, dtype, device)
+        if ldef.ffn == "moe":
+            params["ffn"] = moe_lib.init_moe(gen, cfg, dtype, device)
+        elif not ldef.shared:
+            params["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
     return params
 
 
@@ -234,9 +270,14 @@ def init_layer_cache(ldef: LayerDef, cfg: ModelConfig, batch: int, length: int,
     """Cache template (zeros) for one layer in decode mode: ``length`` rows,
     or a ring of ``min(length, window)`` rows for a windowed layer; a
     cross-attention layer adds ``cross_kv``, the encoder's keys and values
-    (``encoder_frames`` rows)."""
-    if ldef.mixer != "attn":
-        raise NotImplementedError(f"cache of layer {ldef} is not ported")
+    (``encoder_frames`` rows).  A recurrent layer's cache is its zero
+    state, whatever ``length``."""
+    if ldef.mixer == "mamba":
+        return ssm_lib.init_ssm_state(cfg, batch, dtype, device)
+    if ldef.mixer == "mlstm":
+        return xlstm_lib.init_mlstm_state(cfg, batch, dtype, device)
+    if ldef.mixer == "slstm":
+        return xlstm_lib.init_slstm_state(cfg, batch, dtype, device)
     cache_len = min(length, ldef.window) if ldef.window else length
     c = {"kv": attn.init_kv_cache(cfg, batch, cache_len, dtype, device)}
     if ldef.cross:
@@ -265,7 +306,8 @@ def pad_to_template(cache, template):
     """Zero-pad each leaf of a prefill-shaped cache to its decode template's
     shape (a tree of the same structure, e.g. on the meta device).  A ring
     cache comes out exactly ``min(capacity, window)`` rows long, as its slot
-    is ``pos % T``."""
+    is ``pos % T``; recurrent state, which has no sequence axis, already
+    has its template's shape and passes through."""
     def pad(leaf, t):
         if leaf.shape == t.shape:
             return leaf
@@ -296,17 +338,36 @@ def to_ring(kv: dict, window: int) -> dict:
 
 
 def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
-                pos, enc_out=None, use_kernel: bool = False,
-                causal: bool = True, h_pre=None):
+                pos, enc_out=None, shared_params=None,
+                use_kernel: bool = False, causal: bool = True, h_pre=None):
     """Returns (x, new_cache, aux): aux is the layer's MoE losses
     ``[load_balance, router_z]``, or None for an MLP layer.  ``h_pre``
     short-circuits the input RMSNorm for a caller that already holds
     ``rms_norm(x, norm1)``.  Prefill caches of windowed layers come back in
     ring order (:func:`to_ring`).  A cross-attention layer reads the
     encoder output ``enc_out`` in train and prefill, and its ``cross_kv``
-    cache in decode."""
+    cache in decode.  A shared layer runs ``shared_params``' mixer and
+    MLP.  A recurrent layer's prefill cache is its final state; in decode
+    its new state is written into ``cache`` in place, as attention writes
+    its key and value rows."""
     aux = None
+    if ldef.shared:
+        p = dict(p, mixer=shared_params["mixer"], ffn=shared_params["ffn"])
     h = h_pre if h_pre is not None else rms_norm(x, p["norm1"], cfg.rms_eps)
+    if ldef.mixer != "attn":
+        fullseq, decode = {
+            "mamba": (ssm_lib.mamba_fullseq, ssm_lib.mamba_decode),
+            "mlstm": (xlstm_lib.mlstm_fullseq, xlstm_lib.mlstm_decode),
+            "slstm": (xlstm_lib.slstm_fullseq, xlstm_lib.slstm_decode),
+        }[ldef.mixer]
+        if mode == "decode":
+            out, st = decode(p["mixer"], h, cache, cfg=cfg)
+            for name, leaf in st.items():
+                cache[name].copy_(leaf)
+            return x + out, cache, None
+        out, st = fullseq(p["mixer"], h, cfg=cfg,
+                          return_state=mode == "prefill")
+        return x + out, st, None
     rope = not cfg.is_encdec          # whisper uses sinusoid embeds, no RoPE
     new_cache = None
     if mode == "decode":
@@ -341,8 +402,8 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
 
 
 def apply_segment(seg: Segment, seg_params, x, *, cfg, mode, seg_cache, pos,
-                  enc_out=None, use_kernel: bool = False, causal: bool = True,
-                  first_h=None):
+                  enc_out=None, shared_params=None, use_kernel: bool = False,
+                  causal: bool = True, first_h=None):
     """seg_params: per unit position, leaves stacked over repeats.  Decode
     writes the stacked ``seg_cache`` in place and returns it; prefill
     returns the new caches stacked over repeats; train returns None.
@@ -358,7 +419,8 @@ def apply_segment(seg: Segment, seg_params, x, *, cfg, mode, seg_cache, pos,
                 tree_map(lambda a: a[rep], seg_cache[i])
             x, nc, aux = apply_layer(
                 ldef, p, x, cfg=cfg, mode=mode, cache=c, pos=pos,
-                enc_out=enc_out, use_kernel=use_kernel, causal=causal,
+                enc_out=enc_out, shared_params=shared_params,
+                use_kernel=use_kernel, causal=causal,
                 h_pre=first_h if rep == 0 and i == 0 else None)
             aux_sum = _add_aux(aux_sum, aux)
             caches.append(nc)
@@ -372,8 +434,8 @@ def apply_segment(seg: Segment, seg_params, x, *, cfg, mode, seg_cache, pos,
 
 
 def apply_stage(segments: List[Segment], stage_params, x, *, cfg, mode,
-                stage_cache, pos, enc_out=None, use_kernel: bool = False,
-                causal: bool = True, first_h=None):
+                stage_cache, pos, enc_out=None, shared_params=None,
+                use_kernel: bool = False, causal: bool = True, first_h=None):
     """Returns (x, new stage caches, aux): the f32 ``[load_balance,
     router_z]`` summed over the stage's MoE layers (zeros without one)."""
     aux_total = None
@@ -382,7 +444,8 @@ def apply_stage(segments: List[Segment], stage_params, x, *, cfg, mode,
         cache = None if stage_cache is None else stage_cache[si]
         x, nc, aux = apply_segment(
             seg, stage_params[si], x, cfg=cfg, mode=mode, seg_cache=cache,
-            pos=pos, enc_out=enc_out, use_kernel=use_kernel, causal=causal,
+            pos=pos, enc_out=enc_out, shared_params=shared_params,
+            use_kernel=use_kernel, causal=causal,
             first_h=first_h if si == 0 else None)
         new_caches.append(nc)
         aux_total = _add_aux(aux_total, aux)

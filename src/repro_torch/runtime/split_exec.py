@@ -444,10 +444,12 @@ class SplitModelBank:
 
     def _layers(self, params, x, lo, hi, mode, cache, pos):
         """(x, caches) of flat layers [lo, hi); the MoE aux losses are
-        dropped, as the JAX bank drops them."""
+        dropped, as the JAX bank drops them.  Both halves read the whole
+        shared block (zamba2's), never a layer-range slice of it."""
         x, caches, _ = tfm.apply_layer_range(
             list(self.built.stages[0]), params["stages"][0], x, lo, hi,
-            cfg=self.base_cfg, mode=mode, range_cache=cache, pos=pos)
+            cfg=self.base_cfg, mode=mode, range_cache=cache, pos=pos,
+            shared_params=params.get("shared_attn"))
         return x, caches
 
     def _make_edge(self, split: int):
@@ -584,7 +586,9 @@ class SplitRunner:
 
     def pad_decode_cache(self, cache, stage: int, length: int):
         """Pad a prefill-shaped (B=1, seq=S) stage cache to decode capacity
-        ``length`` (zeros past the prompt)."""
+        ``length`` (zeros past the prompt).  A leaf that already has its
+        decode shape (recurrent state, a full ring) is returned as it is,
+        so the decode steps that update the result in place update it."""
         return tfm.pad_to_template(
             cache, self.bank._cache_template(stage, self.split, 1, length))
 
@@ -598,7 +602,7 @@ class SplitRunner:
         its serial reference with ``pipelined=False``) running views of the
         bank's shared backbone.  ``pods`` is a pair of devices, edge then
         cloud; None puts both on the bank's device (two streams of one
-        card).  Returns ``run(tokens, timings=None) ->
+        card).  Returns ``run(tokens, timings=None, states=None) ->
         (num_microbatches * microbatch, new_tokens)`` greedy ids.  The built
         function and its split-view params are kept in the bank's function
         cache under the wire signature, and each run counts its key as the
@@ -629,9 +633,10 @@ class SplitRunner:
             bank._fns[key] = (fn, params)
         fn, params = bank._fns[key]
 
-        def run(tokens, timings: Optional[dict] = None):
+        def run(tokens, timings: Optional[dict] = None,
+                states: Optional[dict] = None):
             bank.note_key(key)
-            return fn(params, tokens, timings)
+            return fn(params, tokens, timings, states)
 
         return run
 

@@ -18,10 +18,12 @@ the other.
 
 MoE layers run their local path, as the JAX package's manual path does at
 model-axis degree 1: each microbatch's tokens compete for its experts'
-capacity.  A model axis inside a pod (tensor-parallel stages,
-``overlap_psum``) and the SSM, xLSTM and hybrid families are not ported:
-they raise ``NotImplementedError``; an encoder-decoder raises it too, as
-the JAX package asserts it out of the pipeline's scope.
+capacity.  The recurrent families run as the others: their state rides in
+the stage caches, and zamba2's shared attention block is placed on both
+pods.  A model axis inside a pod (tensor-parallel stages,
+``overlap_psum``) is not ported and raises ``NotImplementedError``; an
+encoder-decoder raises it too, as the JAX package asserts it out of the
+pipeline's scope.
 """
 from __future__ import annotations
 
@@ -107,9 +109,10 @@ def _handoff(t: torch.Tensor, src: Pod, dst: Pod) -> torch.Tensor:
 
 def pod_params(built, params, pods) -> tuple:
     """(edge params, cloud params): what each stage reads, in the layout of
-    the full tree, on its pod's device.  A leaf already on its pod's device
-    is shared, not copied, so on one card both pods use the caller's one
-    copy of the weights."""
+    the full tree, on its pod's device; zamba2's shared block goes to both,
+    as layers on either side of the split read it.  A leaf already on its
+    pod's device is shared, not copied, so on one card both pods use the
+    caller's one copy of the weights."""
     cfg = built.cfg
     head = "embed" if cfg.tie_embeddings else "head"
     edge = {"embed": params["embed"], "stages": [params["stages"][0], None],
@@ -117,6 +120,8 @@ def pod_params(built, params, pods) -> tuple:
     cloud = {"final_norm": params["final_norm"], head: params[head],
              "stages": [None, params["stages"][1]],
              "butterfly": {"w_restore": params["butterfly"]["w_restore"]}}
+    if "shared_attn" in params:
+        edge["shared_attn"] = cloud["shared_attn"] = params["shared_attn"]
     return tuple(tree_map(lambda a, d=pod.device: a.to(d), p)
                  for p, pod in zip((edge, cloud), pods))
 
@@ -134,7 +139,9 @@ def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,
     device: column 0 is the token greedily decoded from the prefill logits,
     the rest come from per-token decode steps through the split.  A
     ``timings`` dict, when given, receives the prefill and decode wall
-    times in ms (the pods are synchronised for it).
+    times in ms (the pods are synchronised for it); a ``states`` dict
+    receives each microbatch's final stage caches, ``states["edge"]`` and
+    ``states["cloud"]`` (lists of M stage caches, on their pods).
 
     Schedule (``pipelined=True``, needs >= 2 microbatches): at tick t the
     edge runs the embed + stage-0 decode step for microbatch ``t % M``,
@@ -148,8 +155,10 @@ def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,
     per-step functions, so their greedy ids are equal, bit for bit.
 
     The traced JAX program also computes work whose result it discards:
-    the cloud's tick 0 on zero codes and the edge's drain tick.  This eager
-    port skips both, which changes no result.
+    the cloud's tick 0 on zero codes and the edge's drain tick, both with
+    their cache writes gated off, so that neither advances a recurrent
+    (mamba, mLSTM, sLSTM) state.  This eager port skips both ticks, which
+    changes no result and no state.
 
     ``wire_mode``: "int8", nibble-packed "int4", or "entropy" (numerically
     int8).  ``use_kernel``: the fused reduce+quant on the edge and the
@@ -163,10 +172,6 @@ def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: enc-dec archs are out of the "
                                   f"decode pipeline's scope")
-    if (cfg.ssm is not None or cfg.xlstm is not None
-            or cfg.hybrid_attn_every is not None):
-        raise NotImplementedError(f"{cfg.name}: the decode pipeline is ported "
-                                  f"for attention layers only")
     if not built.has_butterfly or len(built.stages) != 2:
         raise ValueError("the decode pipeline needs a butterfly split "
                          "(cfg.with_butterfly(...))")
@@ -216,27 +221,30 @@ def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,
         x = embed(p["embed"], toks, scale=embed_scale)
         x, caches, _ = tfm.apply_stage(stages0, p["stages"][0], x, cfg=cfg,
                                        mode="prefill", stage_cache=None,
-                                       pos=None)
+                                       pos=None,
+                                       shared_params=p.get("shared_attn"))
         return (*edge_wire(p, x), caches)
 
     def cloud_prefill(p, codes, scales):
         x, h = cloud_restore(p, codes, scales)
         x, caches, _ = tfm.apply_stage(stages1, p["stages"][1], x, cfg=cfg,
                                        mode="prefill", stage_cache=None,
-                                       pos=None, first_h=h)
+                                       pos=None, first_h=h,
+                                       shared_params=p.get("shared_attn"))
         return greedy(p, x), caches
 
     def edge_step(p, tok, cache, pos):
         x = embed(p["embed"], tok[:, None], scale=embed_scale)
         x, _, _ = tfm.apply_stage(stages0, p["stages"][0], x, cfg=cfg,
-                                  mode="decode", stage_cache=cache, pos=pos)
+                                  mode="decode", stage_cache=cache, pos=pos,
+                                  shared_params=p.get("shared_attn"))
         return edge_wire(p, x)
 
     def cloud_step(p, codes, scales, cache, pos):
         x, h = cloud_restore(p, codes, scales)
         x, _, _ = tfm.apply_stage(stages1, p["stages"][1], x, cfg=cfg,
                                   mode="decode", stage_cache=cache, pos=pos,
-                                  first_h=h)
+                                  first_h=h, shared_params=p.get("shared_attn"))
         return greedy(p, x)
 
     def sync():
@@ -246,7 +254,8 @@ def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,
 
     placed: dict = {}
 
-    def decode_fn(params, tokens, timings: Optional[dict] = None):
+    def decode_fn(params, tokens, timings: Optional[dict] = None,
+                  states: Optional[dict] = None):
         if placed.get("params") is not params:
             placed.update(params=params, pods=pod_params(built, params,
                                                          (edge, cloud)))
@@ -323,6 +332,8 @@ def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,
             sync()
             timings["decode_ms"] = (time.perf_counter() - t1) * 1e3
             timings["ticks"] = n_ticks
+        if states is not None:
+            states.update(edge=c0, cloud=c1)
         return ids
 
     return decode_fn

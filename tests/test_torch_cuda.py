@@ -509,12 +509,16 @@ def test_flash_bf16_runs_on_the_tensor_cores(cuda, hd):
         "flash_attention_tc_kernel" not in names[torch.float32][0]
 
 
-# this slice's new flash shapes: whisper-base's encoder (1,500 frames,
+# the later families' flash shapes: whisper-base's encoder (1,500 frames,
 # non-causal, 8 heads a key head each at hd 64) and its decoder on a
-# 32-token prompt, and pixtral-12b's 1,024 patches + 100 tokens (causal, G=4)
+# 32-token prompt, pixtral-12b's 1,024 patches + 100 tokens (causal, G=4),
+# and zamba2-7b's shared attention (32 heads, MHA, hd 112) on its 2,048- and
+# 100-token prompts
 @pytest.mark.parametrize("B,S,N,K,hd,causal", [(1, 1500, 8, 8, 64, False),
                                                (1, 32, 8, 8, 64, True),
-                                               (1, 1124, 32, 8, 128, True)])
+                                               (1, 1124, 32, 8, 128, True),
+                                               (1, 2048, 32, 32, 112, True),
+                                               (1, 100, 32, 32, 112, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_new_family_shapes(cuda, B, S, N, K, hd, causal, dtype):
     _flash_case(cuda, B, S, S, N, K, hd, dtype, causal, None,
@@ -922,3 +926,51 @@ def test_whisper_kernel_prefill_on_the_card_matches_cpu(cuda):
         torch.testing.assert_close(logits_c.cpu(), logits, rtol=1e-4, atol=1e-4)
         tok = logits[:, -1].argmax(-1, keepdim=True)
         assert int(logits_c[:, -1].argmax()) == int(tok)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m"])
+def test_recurrent_model_on_the_card_matches_cpu(cuda, arch):
+    """Reduced zamba2 and xLSTM (f32 without TF32) with a butterfly after
+    layer 1, from one init: the card's kernel prefill (flash in zamba2's
+    shared layer, the fused wire kernels), then 8 greedy decode steps, stay
+    within 1e-4 of the CPU's, logits and recurrent states; the card's
+    pipelined and serial two-pod decode agree on ids and states, bit for
+    bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.runtime.split_exec import SplitModelBank
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), num_layers=4)
+    built = M.build(cfg.with_butterfly(1, 16))
+    params = M.init_model(torch.Generator().manual_seed(0), built, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)))
+    card = tree_map(lambda t: t.to(cuda), params)
+    n = fa.flash_attention.launches
+    logits_c, caches_c = M.forward_prefill(card, built, {"tokens": toks.to(cuda)},
+                                           use_kernel=True)
+    assert fa.flash_attention.launches == n + (2 if arch == "zamba2-7b" else 0)
+    logits, caches = M.forward_prefill(params, built, {"tokens": toks}, use_kernel=True)
+    torch.testing.assert_close(logits_c.cpu(), logits, rtol=1e-4, atol=1e-4)
+    caches_c = M.pad_decode_caches(built, caches_c, 24)
+    caches = M.pad_decode_caches(built, caches, 24)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    for pos in range(16, 24):
+        logits_c, caches_c = M.forward_decode(card, built, tok.to(cuda), caches_c,
+                                              pos, use_kernel=True)
+        logits, caches = M.forward_decode(params, built, tok, caches, pos,
+                                          use_kernel=True)
+        torch.testing.assert_close(logits_c.cpu(), logits, rtol=1e-4, atol=1e-4)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    for a, b in zip(tree_leaves(caches_c), tree_leaves(caches)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+    bank = SplitModelBank(cfg, 16, seed=0, device=cuda)
+    out = []
+    for pipelined in (True, False):
+        states = {}
+        ids = bank.runner(1).decode_pipeline(None, 2, 16, 2, 4, pipelined=pipelined,
+                                             use_kernel=True)(toks.repeat(2, 1), None,
+                                                              states)
+        out.append((ids, tree_leaves(states)))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))

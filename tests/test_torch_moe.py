@@ -11,6 +11,9 @@ weights carried across by ``repro_torch.bridge``.
     ``test_moe.py`` within its 2e-4 (5e-4 for the dispatch property);
   * ties: a zero router makes every probability equal, and the port picks
     the lower expert id first, as ``lax.top_k`` does;
+  * forced routes (``route``'s ``forced``, which the card's reference wire
+    uses to route as the kernel path did) equal to the computed ones give
+    the same output and aux losses, bit for bit;
   * a bf16 tree: the f32 router survives the bridge and the layer, the
     expert ids equal JAX's;
   * interleaved llama4 (reduced, 4 layers, ``every=2``: a [dense, moe]
@@ -177,6 +180,43 @@ def test_dispatch_conservation(top_k, seed):
     out, *_ = _both(jcfg, tcfg, jp, tp, x)
     np.testing.assert_allclose(out, _dense_oracle(tp, x, tcfg.moe),
                                rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("capacity_factor", [100.0, 0.5])
+def test_forced_routes_equal_to_the_computed_ones_change_nothing(
+        capacity_factor, monkeypatch):
+    """``route(..., forced=(eids, pos))`` with a run's own routes gives that
+    run's output and aux losses bit for bit (with and without dropped
+    choices); other forced routes are taken as given."""
+    _, tcfg = _cfgs(top_k=2, num_experts=4, capacity_factor=capacity_factor)
+    _, tp = _layer(_cfgs(top_k=2, num_experts=4)[0])
+    x = torch.from_numpy(_x((2, 16, tcfg.d_model), 6, 0.5))
+    routes, route = [], tmoe.route
+
+    def record(x_flat, router, mcfg, capacity, forced=None):
+        out = route(x_flat, router, mcfg, capacity, forced)
+        routes.append((out[3], out[4]))
+        return out
+    monkeypatch.setattr(tmoe, "route", record)
+    out, aux = tmoe.apply_moe(tp, x, cfg=tcfg, act=tcfg.act)
+    (eids, pos), = routes
+    if capacity_factor < 2:
+        assert int((pos >= tmoe._capacity(32, tcfg.moe)).sum()) > 0
+
+    def forcing(given):
+        return lambda x_flat, router, mcfg, capacity, forced=None: route(
+            x_flat, router, mcfg, capacity, given)
+    monkeypatch.setattr(tmoe, "route", forcing((eids, pos)))
+    again, aux2 = tmoe.apply_moe(tp, x, cfg=tcfg, act=tcfg.act)
+    assert torch.equal(out, again)
+    assert all(torch.equal(aux[k], aux2[k]) for k in aux)
+    other = (eids + 1) % tcfg.moe.num_experts
+    *_, e, p, _ = route(x.reshape(-1, tcfg.d_model), tp["router"], tcfg.moe,
+                        8, forced=(other, pos))
+    assert torch.equal(e, other) and torch.equal(p, pos)
+    monkeypatch.setattr(tmoe, "route", forcing((other, pos)))
+    moved, _ = tmoe.apply_moe(tp, x, cfg=tcfg, act=tcfg.act)
+    assert not torch.equal(moved, out)
 
 
 def test_shared_expert_matches_jax():

@@ -414,21 +414,29 @@ def _steps(out):
             for m in map(STEP_LINE.search, out.splitlines()) if m]
 
 
-def test_launcher_matches_jax(tmp_path, monkeypatch, capsys):
+@pytest.mark.parametrize("arch", [None, "pixtral-12b", "whisper-base"])
+def test_launcher_matches_jax(arch, tmp_path, monkeypatch, capsys):
     """``repro_torch.launch.train --device cpu``, its init replaced by the
     params JAX's launcher draws (its key 0), logs what JAX's launcher logs
     with the same flags: the same header, steps 0/4/8/11, losses within 2e-4
     and grad norms within 0.011 as printed (4 and 2 decimals); its
-    checkpoint holds the step count and arch."""
-    monkeypatch.setattr(sys, "argv", ["train", *LAUNCH_ARGS])
+    checkpoint holds the step count and arch.  The default arch (reduced
+    qwen3-8b), and reduced pixtral (zero patches before the tokens, their
+    targets -1) and whisper (zero frames), as JAX's launcher feeds them."""
+    args = LAUNCH_ARGS + ([] if arch is None else ["--arch", arch, "--reduced"])
+    monkeypatch.setattr(sys, "argv", ["train", *args])
     runpy.run_module("repro.launch.train", run_name="__main__")
     jout = capsys.readouterr().out
-    jc, _ = _cfgs()
+    if arch is None:
+        jc, _ = _cfgs()
+    else:
+        jc = dataclasses.replace(jget_config(arch).reduced(),
+                                 vocab_size=64).with_butterfly(1, 16)
     jparams, _ = JM.init_model(jax.random.key(0), JM.build(jc))
     tparams = bridge.to_torch(jax.tree.map(np.asarray, jparams), device="cpu")
     monkeypatch.setattr(TM, "init_model", lambda *a, **k: tparams)
     from repro_torch.launch import train as tlaunch
-    tlaunch.main([*LAUNCH_ARGS, "--device", "cpu",
+    tlaunch.main([*args, "--device", "cpu",
                   "--checkpoint", str(tmp_path / "out")])
     tout = capsys.readouterr().out
     assert tout.splitlines()[0] == jout.splitlines()[0]
