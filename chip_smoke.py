@@ -165,6 +165,22 @@ result line):
                the reference bound held as zamba2's, the pipeline,
                and the sLSTM layers' share of a 128-token prefill (a
                sequential loop over S, as in the reference).
+ 20. split pipeline - after phase 8, on phase 5's qwen3-8b bank: the
+               paper's prefill pipeline (make_split_pipeline) with both pods
+               on this card, each on its own stream, 4 microbatches of 4 x
+               128 tokens, in every wire (raw, reduced, int8, int4,
+               entropy): pipelined == serial on one stream, bit for bit;
+               entropy == int8; int8 within 5% of forward_train's last
+               position with the same greedy tokens; exact crossings; no
+               kernel launched, as in the reference (see
+               phase_split_pipeline);
+ 21. dry run and launchers - the dry run's FLOPs and bytes of a qwen3-8b
+               plain prefill of 1 x 128 tokens on meta equal those counted
+               on the card, beside the prefill's wall; then serve (engine
+               and --split), split_serving and dryrun as subprocesses on
+               the card, while the reduced f32 split pipeline runs on the
+               card and on the CPU (gemma3, qwen3-moe, zamba2, xLSTM; see
+               phase_launchers).
 Each model's weights leave the card before the next one is built, and
 each phase prints its peak device memory.
 With ``--profile [DIR]`` it profiles one qwen3-8b prefill and 8 decode steps
@@ -178,8 +194,8 @@ prefills and decode in phases 18 and 19 (torch.profiler: wall time,
 device-busy share, top kernels; the
 operator tables go to DIR when one is given).  It then
 prints the kernels' JSON line (launches by path, the paths of phases
-9-19 included, the training paths with none; the times of flash attention and of the norm and bincount
-kernels per launch, averaged over their path's launches; the two butterfly
+9-20 included, the training and split-pipeline paths with none; the
+times of flash attention and of the norm and bincount kernels per launch, averaged over their path's launches; the two butterfly
 kernels' at 128 rows; every timed shape under "by_shape") and, last, the
 result line.
 """
@@ -2685,6 +2701,339 @@ def phase_recurrent(arch: str, smi: str, profile: bool = False,
     return paths
 
 
+# -------------------------------------------------------------------- 20, 21
+# the paper's prefill pipeline (serving.pipeline.make_split_pipeline) on
+# phase 5's qwen3-8b bank, both pods on this card: 4 microbatches of 4 x 128
+# tokens through every wire
+SPLIT_PIPE = dict(Mmb=4, mb=4, S=128)
+SPLIT_WIRES = ("raw", "reduced", "int8", "int4", "entropy")
+# the reduced f32 card-vs-CPU run of the same pipeline, butterfly after
+# layer 1 at d_r 16, 3 microbatches of 2 x 32 tokens
+SPLIT_PARITY = {"gemma3-12b": dict(num_layers=4, global_every=2, sliding_window=4),
+                "qwen3-moe-235b-a22b": dict(num_layers=3),
+                "zamba2-7b": dict(num_layers=4), "xlstm-125m": dict(num_layers=4)}
+SPLIT_PARITY_RTOL = 1e-4
+# a quantized code whose |r / scale| lies this near a half may round the
+# other way where the f32 sums that make r add in another order
+TIE = 1e-3
+
+
+class _Wire:
+    """Records the wire of every split-pipeline microbatch run inside the
+    block (``serving.pipeline.quantize``: r, its codes and scales).  Given
+    ``forced``, another run's recorded ``_Wire``, each microbatch takes that
+    run's codes and scales, which must equal its own but for codes rounded
+    the other way at a rounding tie (counted in ``ties``), scales within
+    SPLIT_PARITY_RTOL; the wrapper comes off on exit."""
+
+    def __init__(self, forced: Optional["_Wire"] = None):
+        self._forced = forced
+
+    def __enter__(self):
+        from repro_torch.serving import pipeline
+        self._mod, self._quantize = pipeline, pipeline.quantize
+        self.calls, self.ties = [], 0
+
+        def quantize(r, bits=8):
+            import torch
+            codes, scales = self._quantize(r, bits)
+            if self._forced is not None:
+                _, fc, fs = self._forced.calls[len(self.calls)]
+                fc, fs = fc.to(codes.device), fs.to(scales.device)
+                torch.testing.assert_close(scales, fs, rtol=SPLIT_PARITY_RTOL,
+                                           atol=0)
+                q = (r.float() / scales).abs()
+                tie = ((q - q.floor()) - 0.5).abs() < TIE
+                diff = codes != fc
+                if bool((diff & ~tie).any()) or \
+                        int((codes.int() - fc.int()).abs().max()) > 1:
+                    fail("split parity: a wire code differs from the CPU's away "
+                         "from a rounding tie")
+                self.ties += int(diff.sum())
+                codes, scales = fc, fs
+            self.calls.append((r, codes, scales))
+            return codes, scales
+        pipeline.quantize = quantize
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.quantize = self._quantize
+
+
+def _split_parity():
+    """The reduced f32 pipeline (no TF32) from one CPU init on two CPU pods
+    and on two streams of the card, every wire, for windowed gemma3 (4
+    layers), qwen3-moe (3), zamba2 and xLSTM (4): every MoE route equal,
+    and the card's logits within SPLIT_PARITY_RTOL (atol 1e-5) of the CPU's
+    with the card's wire taken from the CPU run (``_Wire``: equal but for
+    codes at rounding ties, which are counted)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.pipeline import make_split_pipeline
+    from repro_torch.tree import tree_map
+    Mmb, mb, S = 3, 2, 32
+    for arch, over in SPLIT_PARITY.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+        built = M.build(cfg.with_butterfly(1, 16))
+        params = M.init_model(torch.Generator().manual_seed(0), built, device="cpu")
+        pg = tree_map(lambda t: t.cuda(), params)
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (Mmb * mb, S))
+        worst, ties, routes = 0.0, 0, 0
+        for wm in SPLIT_WIRES:
+            out = []
+            for dev, p in (("cpu", params), ("cuda", pg)):
+                fn = make_split_pipeline(built, (dev, dev), Mmb, S, mb, wm)
+                with _Wire(None if dev == "cpu" else out[0][2]) as w, \
+                        _Routes() as r:
+                    logits = fn(p, toks).cpu()
+                out.append((logits, r, w))
+            (lc, rc, _), (lg, rg, wg) = out
+            if len(rc.eids) != len(rg.eids) or not all(
+                    torch.equal(a, b.cpu()) for a, b in zip(rc.eids, rg.eids)):
+                fail(f"split parity {arch} {wm}: the card routes a choice to "
+                     f"another expert than the CPU")
+            torch.testing.assert_close(lg, lc, rtol=SPLIT_PARITY_RTOL, atol=1e-5)
+            worst = max(worst, float((lg - lc).abs().max()))
+            ties += wg.ties
+            routes += sum(e.numel() for e in rc.eids)
+        print(f"split parity: reduced {cfg.name} ({cfg.num_layers} layers, f32, "
+              f"no TF32), {Mmb} x {mb} x {S} tokens, {len(SPLIT_WIRES)} wires: "
+              f"card vs CPU logits max |d| {worst:.3g}, {routes} routes equal, "
+              f"{ties} codes at rounding ties taken from the CPU")
+
+
+def phase_split_pipeline(runner):
+    """Phase 20: ``make_split_pipeline`` on phase 5's qwen3-8b bank (36
+    layers, bf16, the int8 butterfly after layer 4 at d_r 64; nothing new
+    loaded) with both pods on this card, each on its own stream, at
+    SPLIT_PIPE, in every wire.  Each wire's pipelined logits equal a serial
+    run on one stream, bit for bit; entropy's equal int8's (rANS is
+    lossless over the codes); int8's lie within phase 5's 5% of the
+    single-model forward_train's last position on the same tokens, with the
+    same greedy tokens; raw, reduced and int4 have no such oracle and print
+    their gap to int8's.  Each run crosses Mmb wires, their dtype and bytes
+    those of wire_stats, and Mmb logit rows back, and launches no kernel,
+    as in the reference.  Returns the path's launches (all 0)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serving.pipeline import make_split_pipeline, wire_stats
+    Mmb, mb, S = SPLIT_PIPE["Mmb"], SPLIT_PIPE["mb"], SPLIT_PIPE["S"]
+    built, params = runner.stage_view()
+    cfg = built.cfg
+    prompts = _prompts(Mmb * mb, (S,) * (Mmb * mb))
+    toks = torch.tensor(np.stack(prompts), dtype=torch.int64, device="cuda")
+    runs = {(wm, p): make_split_pipeline(built, ("cuda", "cuda"), Mmb, S, mb, wm,
+                                         pipelined=p)
+            for wm in SPLIT_WIRES for p in (True, False)}
+    t0 = time.perf_counter()
+    for fn in runs.values():                         # warm-up at the same shapes
+        fn(params, toks)
+    torch.cuda.synchronize()
+    print(f"split pipeline: {cfg.name}, split {cfg.butterfly.layer}, d_r "
+          f"{cfg.butterfly.d_r}, Mmb {Mmb} x mb {mb}, S {S}, both pods on "
+          f"{torch.cuda.get_device_name(0)} (two streams); warm-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    out, walls, crossed = {}, {}, {}
+    for key, fn in runs.items():
+        crossings = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out[key] = fn(params, toks, crossings)
+        torch.cuda.synchronize()
+        walls[key] = (time.perf_counter() - t) * 1e3
+        crossed[key] = crossings
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(launches.values()):
+        fail(f"split pipeline: kernels launched {launches}; the reference's "
+             f"pipeline reaches none")
+    act = 2 if cfg.dtype == "bfloat16" else 4
+    for (wm, p), logits in out.items():
+        if logits.shape != (Mmb * mb, cfg.vocab_size) or \
+                logits.dtype != torch.float32 or not torch.isfinite(logits).all():
+            fail(f"split pipeline {wm}: logits {tuple(logits.shape)} "
+                 f"{logits.dtype}, not finite f32 (Mmb*mb, V)")
+        stats = wire_stats(cfg, mb, S, 4 if wm == "int4" else None)
+        dt = getattr(torch, cfg.dtype)
+        want = {"raw": (dt, stats["raw_boundary_bytes"]),
+                "reduced": (dt, mb * S * cfg.butterfly.d_r * act)}.get(
+            wm, (torch.int8, stats["wire_bytes"]))
+        wires = [c for c in crossed[wm, p] if c[0] == "edge->cloud"]
+        back = [c for c in crossed[wm, p] if c[0] == "cloud->edge"]
+        if len(wires) != Mmb or len(back) != Mmb or \
+                any((c[1], c[3]) != want for c in wires) or \
+                any(c[3] != mb * cfg.vocab_size * 4 for c in back):
+            fail(f"split pipeline {wm}: crossings {crossed[wm, p]}, expected "
+                 f"{Mmb} wires of {want} and {Mmb} logit rows")
+    for wm in SPLIT_WIRES:
+        if not torch.equal(out[wm, True], out[wm, False]):
+            fail(f"split pipeline {wm}: pipelined logits differ from serial")
+    if not torch.equal(out["entropy", True], out["int8", True]):
+        fail("split pipeline: the entropy wire's logits differ from int8's")
+    ref = M.forward_train(params, built, {"tokens": toks})[0][:, -1]
+    delta, limit = _hold_logits("split pipeline int8 vs forward_train",
+                                out["int8", True], ref)
+    agree = int((out["int8", True].argmax(-1) == ref.argmax(-1)).sum())
+    if agree != Mmb * mb:
+        fail(f"split pipeline: int8's greedy tokens agree with forward_train's "
+             f"on {agree} of {Mmb * mb} rows")
+    print(f"split pipeline: pipelined == serial (one stream), bit for bit, in "
+          f"every wire; entropy == int8; int8 vs forward_train max|d| "
+          f"{delta:.4g} (limit {limit:.4g}), greedy {agree}/{Mmb * mb}; "
+          f"crossings {Mmb} wires + {Mmb} logit rows a run; launches {launches}")
+    for wm in ("raw", "reduced", "int4"):
+        print(f"split pipeline: {wm} vs int8 logits max|d| "
+              f"{float((out[wm, True] - out['int8', True]).abs().max()):.4g} "
+              f"(no oracle, no bound)")
+    for wm in SPLIT_WIRES:
+        c = crossed[wm, True][0]
+        print(f"split pipeline: {wm:8s} wire {c[3]} B a microbatch "
+              f"({str(c[1]).replace('torch.', '')} {c[2]}); prefill wall "
+              f"{walls[wm, True] / Mmb:.3f} ms a microbatch pipelined, "
+              f"{walls[wm, False] / Mmb:.3f} serial")
+    print(f"split pipeline: peak device memory {peak_gb:.2f} GB")
+    return launches
+
+
+def phase_dryrun_counts(runner, smi: str):
+    """Phase 21a: the dry run's counts of a full-width qwen3-8b plain
+    prefill of 1 x 128 tokens (phase 5's bank: 36 layers, bf16, no
+    butterfly) on meta tensors equal those under the same counting mode on
+    the card; its roofline terms beside the prefill's wall on the card
+    (median of 5) and the peak device memory."""
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import model as M
+    bank = runner.bank
+    shape = InputShape("prefill_128", 128, 1, "prefill")
+    meta, meta_mem = dryrun.count_step(bank.built, shape, "meta")
+    card, card_mem = dryrun.count_step(bank.built, shape, "cuda",
+                                       params=bank.params)
+    if (meta.flops, meta.bytes) != (card.flops, card.bytes):
+        fail(f"dry run: meta counts {meta.flops} FLOPs {meta.bytes} B, on the "
+             f"card {card.flops} FLOPs {card.bytes} B")
+    rep = roofline.analyze(bank.base_cfg.name, shape.name, meta,
+                           dryrun.model_flops(bank.base_cfg, shape), meta_mem)
+    batch = dryrun.make_batch(bank.built, shape, torch.device("cuda"))
+    M.forward_prefill(bank.params, bank.built, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(5):
+        t = time.perf_counter()
+        M.forward_prefill(bank.params, bank.built, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    print(f"dry run: qwen3-8b plain prefill 1 x 128: meta == card counts, "
+          f"{meta.flops} FLOPs, {meta.bytes} B over {meta.ops} aten ops "
+          f"({card.ops} on the card)")
+    print(f"dry run: roofline compute {rep.compute_s * 1e3:.4f} ms, memory "
+          f"{rep.memory_s * 1e3:.4f} ms ({rep.bottleneck}), useful "
+          f"{rep.useful_ratio:.3f}; measured wall {statistics.median(walls):.3f} "
+          f"ms (median of 5, {smi}); traced peak "
+          f"{meta_mem['peak_memory_in_bytes'] / 1e9:.2f} GB, the card's "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def phase_launchers(smi: str):
+    """Phase 21b: the launchers as a user runs them, as subprocesses on the
+    default device (the card), all at once: ``launch.serve`` in engine mode
+    and with ``--split`` on checkpoints saved here from the reduced
+    config's weights (seed 5), ``examples.split_serving`` and
+    ``launch.dryrun --arch qwen3-8b --shape decode_32k``; meanwhile the
+    reduced card-vs-CPU run of the split pipeline (``_split_parity``).
+    Each must exit 0; serve prints one line a prompt, and --split's ids are
+    the greedy tokens of the single-model forward_train on the same
+    weights; split_serving's max |err| < 5e-3 (the JAX example test's
+    bound) with int8 crossings."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.models import model as M
+    from repro_torch.training.checkpoint import save_checkpoint
+    prompts = ["the quick brown fox", "once upon a time", "edge and cloud",
+               "butterfly wire"]
+    cfg = get_config("qwen3-8b").reduced()
+    cfg = dataclasses.replace(cfg, vocab_size=max(cfg.vocab_size, tok.VOCAB_SIZE))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    py = [sys.executable, "-m"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = {}
+        for name, c in (("engine", cfg), ("split", cfg.with_butterfly(1, 32))):
+            built = M.build(c)
+            params = M.init_model(torch.Generator(device="cuda").manual_seed(5),
+                                  built, device="cuda")
+            ckpt[name] = save_checkpoint(f"{tmp}/{name}", params, step=1,
+                                         metadata={"arch": c.name})
+        cmds = {
+            "serve": py + ["repro_torch.launch.serve", "--checkpoint",
+                           ckpt["engine"], "--max-new-tokens", "8",
+                           "--prompts", *prompts],
+            "serve --split": py + ["repro_torch.launch.serve", "--split",
+                                   "--checkpoint", ckpt["split"],
+                                   "--prompts", *prompts],
+            "split_serving": py + ["repro_torch.examples.split_serving"],
+            "dryrun": py + ["repro_torch.launch.dryrun", "--arch", "qwen3-8b",
+                            "--shape", "decode_32k", "--out", f"{tmp}/dryrun"],
+        }
+        t = time.perf_counter()
+        procs = {k: subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE)
+                 for k, cmd in cmds.items()}
+        try:
+            _split_parity()
+            outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t
+        for k, p in procs.items():
+            if p.returncode != 0:
+                fail(f"launcher {k} exited {p.returncode}:\n{outs[k][1][-3000:]}")
+        if not Path(f"{tmp}/dryrun/qwen3-8b_decode_32k_1.json").is_file():
+            fail("the dry run wrote no record")
+    lines = {k: o[0].splitlines() for k, o in outs.items()}
+    for k in ("serve", "serve --split"):
+        rows = [l for l in lines[k] if " -> " in l]
+        if len(rows) != len(prompts) or not lines[k][0].startswith("restored"):
+            fail(f"launcher {k} printed {lines[k]}")
+    ids = [int(l.split()[-1]) for l in lines["serve --split"] if " -> " in l]
+    built = M.build(cfg.with_butterfly(1, 32))
+    params = M.init_model(torch.Generator(device="cuda").manual_seed(5), built,
+                          device="cuda")
+    toks = torch.tensor(np.stack([np.resize(tok.encode(p), 32) for p in prompts]),
+                        device="cuda")
+    want = M.forward_train(params, built, {"tokens": toks})[0][:, -1].argmax(-1)
+    if ids != want.tolist():
+        fail(f"serve --split ids {ids}, forward_train's greedy tokens "
+             f"{want.tolist()}")
+    err = float(next(l for l in lines["split_serving"] if "max |err|" in l).split()[-1])
+    n_int8 = int(next(l for l in lines["split_serving"]
+                      if "int8 crossings" in l).split()[-1])
+    if not (err < 5e-3 and n_int8 >= 1):
+        fail(f"split_serving: max |err| {err}, {n_int8} int8 crossings")
+    print(f"launchers: serve (engine), serve --split, split_serving and dryrun "
+          f"as subprocesses on {smi}, all exited 0 in {wall:.1f} s together "
+          f"(the split parity run included)")
+    print(f"launchers: serve {lines['serve'][1:]}")
+    print(f"launchers: serve --split ids {ids} == forward_train's greedy tokens")
+    print(f"launchers: split_serving max |err| {err:.3g}, {n_int8} int8 "
+          f"crossings; dryrun: {lines['dryrun'][0]}")
+
+
 # --------------------------------------------------------------------- profile
 def _profiled(label: str, fn, out_dir: Optional[Path]):
     """Run ``fn`` twice: once bare for its host wall time, once under
@@ -2799,6 +3148,9 @@ def main():
     paths["qwen3-8b runtime simulator"], prompts = phase_runtime(runner)
     paths["bincount entry point"] = phase_bincount_entry(runner, prompts)
     phase_runtime_cli()
+    paths["qwen3-8b split pipeline"] = phase_split_pipeline(runner)
+    phase_dryrun_counts(runner, smi)
+    phase_launchers(smi)
     profile_dir = Path(args.profile) if args.profile else None
     if args.profile is not None:
         phase_profile(runner, profile_dir)

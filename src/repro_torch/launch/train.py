@@ -4,8 +4,10 @@ flags and the same log lines, plus ``--device``).
 Trains a (reduced or custom) config on the synthetic LM stream on one
 device: ``cuda`` by default, ``cpu`` on request; it raises, never falls
 back, when the device is missing.  ``--checkpoint`` saves in the JAX
-package's ``.npz`` format (``training.checkpoint``).  ``--lower-only`` (the
-JAX package's XLA dry run on the production mesh) is not ported.
+package's ``.npz`` format (``training.checkpoint``).  ``--lower-only`` traces the
+full config's train step at ``train_4k`` on meta tensors
+(``launch/dryrun.py``) and writes its record to ``build/dryrun/``; its
+``--multi-pod`` needs the model axis, which is not ported.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b --reduced \\
@@ -41,9 +43,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.lower_only:
-        raise NotImplementedError(
-            "--lower-only is the JAX package's XLA ahead-of-time dry run on "
-            "the production mesh; the port has no counterpart yet")
+        if args.multi_pod:
+            raise NotImplementedError(
+                "--multi-pod needs a mesh with a model axis, which the port "
+                "has not yet (ROADMAP section 1, item 2)")
+        from repro_torch.launch.dryrun import OUT_DIR, run_pair
+        run_pair(args.arch, "train_4k", OUT_DIR)
+        return
 
     import torch
 

@@ -133,7 +133,12 @@ def moe_dispatch(x_flat, router, wg, wu, wd, *, mcfg: MoEConfig, act: str,
         out = out + gate[:, j, None].to(x_flat.dtype) * out_buf[dst[:, j]]
 
     me = probs.mean(dim=0)                                        # (E,)
-    frac = torch.bincount(eids.reshape(-1), minlength=E).float() / (T * k)
+    # the choices an expert got (a scatter, not bincount, whose output size
+    # depends on the data, so that the dry run can trace it on meta)
+    flat = eids.reshape(-1)
+    counts = torch.zeros(E, dtype=flat.dtype, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    frac = counts.float() / (T * k)
     lb_loss = E * torch.sum(me * frac)
     z_loss = torch.logsumexp(logits, dim=-1).square().mean()
     return out, lb_loss, z_loss

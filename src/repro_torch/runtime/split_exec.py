@@ -593,6 +593,20 @@ class SplitRunner:
             cache, self.bank._cache_template(stage, self.split, 1, length))
 
     # ------------------------------------------------------ pipelined decode
+    def stage_view(self):
+        """(built, params): the model cut at this split into two stages, as
+        ``M.build(cfg.with_butterfly(split, d_r))`` lays it out, its params
+        views of the bank's shared backbone plus this split's butterfly."""
+        segs = list(self.built.stages[0])
+        N = self.bank.base_cfg.num_layers
+        s0, p0 = tfm.slice_stage_params(segs, self.params["stages"][0],
+                                        0, self.split)
+        s1, p1 = tfm.slice_stage_params(segs, self.params["stages"][0],
+                                        self.split, N)
+        params = dict(self.params)
+        params["stages"] = [p0, p1]
+        return M.BuiltModel(cfg=self.cfg, stages=(tuple(s0), tuple(s1))), params
+
     def decode_pipeline(self, pods, num_microbatches: int, prompt_len: int,
                         microbatch: int, new_tokens: int, *,
                         pipelined: bool = True, use_kernel: bool = False,
@@ -617,15 +631,7 @@ class SplitRunner:
                bool(pipelined), bool(use_kernel), bool(overlap_psum)) \
             + bank._wire_sig
         if key not in bank._fns:
-            segs = list(self.built.stages[0])
-            N = bank.base_cfg.num_layers
-            s0, p0 = tfm.slice_stage_params(segs, self.params["stages"][0],
-                                            0, self.split)
-            s1, p1 = tfm.slice_stage_params(segs, self.params["stages"][0],
-                                            self.split, N)
-            params = dict(self.params)
-            params["stages"] = [p0, p1]
-            built = M.BuiltModel(cfg=self.cfg, stages=(tuple(s0), tuple(s1)))
+            built, params = self.stage_view()
             fn = spl.make_decode_pipeline(
                 built, pods, num_microbatches, prompt_len, microbatch,
                 new_tokens, wire_mode=bank.wire_mode, pipelined=pipelined,

@@ -1,12 +1,13 @@
 """The paper's deployment as a two-stage pipeline over two pods (port of
-``repro/serving/pipeline.py``: ``wire_stats``, ``_grow_cache`` and
-``make_decode_pipeline`` at model-axis degree 1).
+``repro/serving/pipeline.py``: ``wire_stats``, ``make_split_pipeline``,
+``_grow_cache`` and ``make_decode_pipeline`` at model-axis degree 1).
 
 Pod 0 ("edge") runs the embedding, layers [0, j) and the reduction unit with
 the wire quantization; only the codes and their f32 scales cross to pod 1
 ("cloud"), which restores them, runs layers [j, N) and the LM head; the
-greedy token crosses back.  The JAX package runs its pods on the ``pod``
-axis of a mesh and crosses with ``lax.ppermute``.  Here a pod is a
+last-token logits (the prefill pipeline) or the greedy token (decode)
+cross back.  The JAX package runs its pods on the ``pod`` axis of a mesh
+and crosses with ``lax.ppermute``.  Here a pod is a
 ``torch.device`` with its own CUDA stream (both pods may name the same
 card), and each crossing is a handoff: the consumer's stream waits on an
 event the producer's stream records, the tensor moves with
@@ -35,7 +36,8 @@ import torch
 
 from repro_torch import device as dev_lib
 from repro_torch.core import butterfly as bf_lib
-from repro_torch.core.quantization import pack_int4, unpack_int4, wire_bytes
+from repro_torch.core.quantization import (dequantize, pack_int4, quantize,
+                                           unpack_int4, wire_bytes)
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed, rms_norm, unembed
@@ -124,6 +126,155 @@ def pod_params(built, params, pods) -> tuple:
         edge["shared_attn"] = cloud["shared_attn"] = params["shared_attn"]
     return tuple(tree_map(lambda a, d=pod.device: a.to(d), p)
                  for p, pod in zip((edge, cloud), pods))
+
+
+WIRE_MODES = ("raw", "reduced", "int8", "int4", "entropy")
+
+
+def make_split_pipeline(built, pods, num_microbatches: int, seq_len: int,
+                        microbatch: int, wire_mode: str = "int8",
+                        pipelined: bool = True):
+    """Returns ``pipeline_fn(params, tokens, crossings=None) -> logits``.
+
+    ``pods``: two devices, pod 0 the edge and pod 1 the cloud (the JAX
+    version's ``mesh`` with a ``pod`` axis of 2).  tokens:
+    (num_microbatches * microbatch, seq_len); the result is the
+    (num_microbatches * microbatch, V) f32 last-token logits on the edge
+    pod's device.  A ``crossings`` list, when given, receives
+    ``(direction, dtype, shape, nbytes)`` for every crossing between the
+    pods, in order: ``"edge->cloud"`` for a microbatch's wire (the dtype
+    and shape of what it carries; its bytes with the scales included) and
+    ``"cloud->edge"`` for its logits.  They are what the JAX version's
+    collective-permutes carry, less its zero scales beside the raw and
+    reduced wires.
+
+    Per microbatch the edge embeds (gemma's scale), runs stage 0 in
+    ``mode="train"`` and puts on the wire, by ``wire_mode``:
+      "raw"     the (mb, S, d_model) activation in the model's dtype;
+      "reduced" ``x @ w_reduce``, (mb, S, d_r) in the model's dtype;
+      "int8"    ``quantize(x @ w_reduce)``'s codes and f32 row scales;
+      "int4"    the same at 4 bits, nibble-packed two codes a byte;
+      "entropy" int8's numerics (rANS is lossless over the codes; only
+                the byte count outside the pipeline changes).
+    The cloud unpacks, dequantizes and restores (``@ w_restore``; raw goes
+    straight in), runs stage 1, the final norm on the last position and
+    the LM head through the tied table or the head, without a softcap, as
+    the JAX version does.  MoE layers take their local path: each
+    microbatch's tokens compete for its experts' capacity.
+
+    Schedule (``pipelined=True``): at tick t of Mmb + 1 the edge runs
+    microbatch t while the cloud runs microbatch t - 1, on the pods'
+    streams; only the wire and the logits cross, by handoff.  The traced
+    JAX program also runs the cloud's tick 0 on zero codes and the edge's
+    last tick on the last microbatch again, both discarded; this eager port
+    skips them, which changes no result.  ``pipelined=False`` is the serial
+    reference: each microbatch runs edge -> wire -> cloud -> back before
+    the next, on one stream when both pods name one device.
+    """
+    cfg = built.cfg
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: enc-dec archs are out of the "
+                                  f"split pipeline's scope")
+    if not built.has_butterfly or len(built.stages) != 2:
+        raise ValueError("the split pipeline needs a butterfly split "
+                         "(cfg.with_butterfly(...))")
+    if wire_mode not in WIRE_MODES:
+        raise ValueError(f"unknown wire mode {wire_mode!r}; one of {WIRE_MODES}")
+    if wire_mode == "int4" and cfg.butterfly.d_r % 2:
+        raise ValueError("int4 wire packs two codes per byte: d_r must be even")
+    edge, cloud = make_pods(pods)
+    if not pipelined and edge.device == cloud.device:
+        cloud = edge
+    S, Mmb, mb = int(seq_len), int(num_microbatches), int(microbatch)
+    bits = 4 if wire_mode == "int4" else cfg.butterfly.wire_bits
+    dt = dev_lib.torch_dtype(cfg.dtype)
+    stages0, stages1 = list(built.stages[0]), list(built.stages[1])
+    embed_scale = cfg.arch_type == "dense" and cfg.act == "gelu"
+
+    def stage_edge(p, toks):
+        x = embed(p["embed"], toks, scale=embed_scale)
+        x, _, _ = tfm.apply_stage(stages0, p["stages"][0], x, cfg=cfg,
+                                  mode="train", stage_cache=None, pos=None,
+                                  shared_params=p.get("shared_attn"))
+        if wire_mode == "raw":
+            return (x,)
+        r = x @ p["butterfly"]["w_reduce"]
+        if wire_mode == "reduced":
+            return (r,)
+        codes, scales = quantize(r, bits)
+        return (pack_int4(codes) if wire_mode == "int4" else codes), scales
+
+    def stage_cloud(p, wire):
+        if wire_mode == "raw":
+            x = wire[0]
+        elif wire_mode == "reduced":
+            x = wire[0] @ p["butterfly"]["w_restore"]
+        else:
+            codes = unpack_int4(wire[0]) if wire_mode == "int4" else wire[0]
+            x = dequantize(codes, wire[1], dt) @ p["butterfly"]["w_restore"]
+        x, _, _ = tfm.apply_stage(stages1, p["stages"][1], x, cfg=cfg,
+                                  mode="train", stage_cache=None, pos=None,
+                                  shared_params=p.get("shared_attn"))
+        x = rms_norm(x[:, -1:], p["final_norm"], cfg.rms_eps)
+        table = p["embed"] if cfg.tie_embeddings else p["head"]
+        return unembed(table, x)[:, 0]                      # (mb, V) f32
+
+    placed: dict = {}
+
+    def pipeline_fn(params, tokens, crossings: Optional[list] = None):
+        if placed.get("params") is not params:
+            placed.update(params=params, pods=pod_params(built, params,
+                                                         (edge, cloud)))
+        p_edge, p_cloud = placed["pods"]
+        toks = dev_lib.as_tensor(tokens, edge.device, torch.int64)
+        if tuple(toks.shape) != (Mmb * mb, S):
+            raise ValueError(f"tokens {tuple(toks.shape)}, expected "
+                             f"{(Mmb * mb, S)}")
+        used = (edge,) if cloud is edge else (edge, cloud)
+        caller = [torch.cuda.current_stream(pod.device)
+                  for pod in used if pod.stream is not None]
+        for pod, s in zip(used, caller):
+            pod.stream.wait_stream(s)            # params and tokens are ready
+
+        def cross(t, src, dst, direction):
+            out = tuple(_handoff(a, src, dst) for a in t)
+            if crossings is not None:
+                crossings.append((direction, t[0].dtype, tuple(t[0].shape),
+                                  sum(a.numel() * a.element_size() for a in t)))
+            return out
+
+        def run_edge(k):
+            with edge.active():
+                wire = stage_edge(p_edge, toks[k * mb:(k + 1) * mb])
+            return cross(wire, edge, cloud, "edge->cloud")
+
+        logits = []
+
+        def run_cloud(wire):
+            with cloud.active():
+                out = stage_cloud(p_cloud, wire)
+            logits.append(cross((out,), cloud, edge, "cloud->edge")[0])
+
+        if pipelined:
+            wire = None
+            for t in range(Mmb + 1):
+                sent = run_edge(t) if t < Mmb else None
+                if t >= 1:
+                    run_cloud(wire)
+                wire = sent
+        else:
+            for k in range(Mmb):
+                run_cloud(run_edge(k))
+
+        with edge.active():
+            out = torch.cat(logits)
+        for pod, s in zip(used, caller):
+            s.wait_stream(pod.stream)
+        if caller:
+            out.record_stream(caller[0])
+        return out
+
+    return pipeline_fn
 
 
 def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,

@@ -3,9 +3,10 @@
 Every module of ``src/repro_torch`` and ``chip_smoke.py`` imports neither
 ``jax`` nor anything of ``repro``; the port imports and runs with JAX
 unimportable; an entry point asked for the default device raises when
-CUDA is absent (the simulator's numerics and the training entry points
-too, while the simulator's timing-only runs need no device); ``chip_smoke.py`` fails, printing no result, without a GPU
-or away from the repository."""
+CUDA is absent (the simulator's numerics, the training entry points and
+the serving launchers too, while the simulator's timing-only runs and the
+dry run need no device); ``chip_smoke.py`` fails, printing no result,
+without a GPU or away from the repository."""
 import ast
 import os
 import shutil
@@ -114,10 +115,11 @@ runpy.run_module("repro_torch.launch.runtime_sim", run_name="__main__")
         assert proc.returncode != 0 and err in proc.stderr, proc.stderr
 
 
-def test_training_needs_a_gpu():
+def test_training_needs_a_gpu(tmp_path):
     """``init_train_state``, the training launcher and both training
     examples default to the card and raise without one; the launcher's
-    ``--lower-only`` (the JAX package's XLA dry run) is not ported."""
+    ``--lower-only`` traces on meta tensors and needs no device, and its
+    ``--multi-pod`` (a model axis) is not ported."""
     code = BLOCKED + """
 import dataclasses
 from repro_torch.configs import get_config
@@ -140,7 +142,8 @@ print("ok")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
-    for extra, err in (([], "CUDA"), (["--lower-only"], "NotImplementedError")):
+    for extra, err in (([], "CUDA"), (["--lower-only", "--multi-pod"],
+                                      "NotImplementedError")):
         argv = ["train", "--steps", "1"] + extra
         proc = _run(BLOCKED + f"""
 import runpy
@@ -148,6 +151,35 @@ sys.argv = {argv!r}
 runpy.run_module("repro_torch.launch.train", run_name="__main__")
 """)
         assert proc.returncode != 0 and err in proc.stderr, proc.stderr
+    proc = _run(BLOCKED + """
+import runpy
+sys.argv = ["train", "--lower-only"]
+runpy.run_module("repro_torch.launch.train", run_name="__main__")
+""", cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert (tmp_path / "build" / "dryrun" / "qwen3-8b_train_4k_1.json").exists()
+
+
+def test_serving_launchers_need_a_gpu_and_the_dry_run_none(tmp_path):
+    """``launch.serve`` (engine mode and ``--split``) and the split_serving
+    example default to the card and raise without one; the dry run traces
+    on meta tensors and touches no device."""
+    for module, argv in (("repro_torch.launch.serve", ["serve"]),
+                         ("repro_torch.launch.serve", ["serve", "--split"]),
+                         ("repro_torch.examples.split_serving", ["split_serving"])):
+        proc = _run(BLOCKED + f"""
+import runpy
+sys.argv = {argv!r}
+runpy.run_module({module!r}, run_name="__main__")
+""")
+        assert proc.returncode != 0 and "CUDA" in proc.stderr, proc.stderr
+    proc = _run(BLOCKED + """
+import runpy
+sys.argv = ["dryrun", "--arch", "qwen3-8b", "--shape", "decode_32k"]
+runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+""", cwd=tmp_path)
+    assert proc.returncode == 0 and proc.stdout.startswith("OK "), proc.stderr
+    assert (tmp_path / "build" / "dryrun" / "qwen3-8b_decode_32k_1.json").exists()
 
 
 @pytest.mark.parametrize("isolated", [False, True],

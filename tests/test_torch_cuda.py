@@ -2,8 +2,10 @@
 the same inputs, the split path launching both butterfly kernels, the
 windowed model's kernel prefill launching the flash kernel, the two-pod
 decode pipeline on two streams of one card, the runtime simulator's
-numerics on the card, training on the card against the CPU, and the MoE
-layer's routing and whisper's kernel prefill on the card against the CPU.
+numerics on the card, training on the card against the CPU, the MoE
+layer's routing and whisper's kernel prefill on the card against the CPU,
+the two-pod prefill pipeline on two streams against one, and the dry
+run's counts on the card against those on meta tensors.
 
 These tests import no JAX, so a GPU machine with PyTorch alone runs them,
 without the JAX package's conftest:
@@ -711,6 +713,63 @@ def test_two_stream_pipeline_matches_serial(cuda):
             assert tuple(b - a for a, b in zip(n0, counts())) == (n, n, 0, 0)
         assert ids[0].shape == (Mmb * mb, T) and ids[0].device.type == "cuda"
         assert torch.equal(ids[0], ids[1]), (bank.wire_mode, use_kernel)
+
+
+@pytest.mark.parametrize("wire_mode", ["raw", "reduced", "int8", "int4", "entropy"])
+def test_two_stream_split_pipeline_matches_serial(cuda, wire_mode):
+    """The prefill pipeline (``make_split_pipeline``) on reduced qwen3 (3
+    layers, bf16, d_r=32 after layer 2) with both pods on the card, each on
+    its own stream: its logits equal a serial run on one stream, bit for
+    bit; Mmb wires and Mmb logit rows cross; no kernel launches, as in the
+    reference."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.pipeline import make_split_pipeline
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), num_layers=3,
+                              dtype="bfloat16").with_butterfly(2, 32)
+    built = M.build(cfg)
+    params = M.init_model(torch.Generator(device=cuda).manual_seed(0), built,
+                          device=cuda)
+    Mmb, mb, S = 3, 4, 16
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (Mmb * mb, S))).to(cuda)
+    kernels = (butterfly_kernel.reduce_quant, butterfly_kernel.dequant_restore,
+               butterfly_kernel.dequant_restore_norm, fa.flash_attention,
+               rmsnorm_kernel.rmsnorm)
+    n0 = [k.launches for k in kernels]
+    out, crossings = [], []
+    for pipelined in (True, False):
+        fn = make_split_pipeline(built, (cuda, cuda), Mmb, S, mb, wire_mode,
+                                 pipelined=pipelined)
+        out.append(fn(params, toks, crossings))
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == n0
+    assert out[0].shape == (Mmb * mb, cfg.vocab_size) and out[0].is_cuda
+    assert torch.isfinite(out[0]).all() and torch.equal(out[0], out[1])
+    assert sorted(c[0] for c in crossings) == \
+        ["cloud->edge"] * 2 * Mmb + ["edge->cloud"] * 2 * Mmb
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma3-12b", "qwen3-moe-235b-a22b",
+                                  "whisper-base", "zamba2-7b", "xlstm-125m"])
+def test_dry_run_counts_on_the_card_equal_meta(cuda, arch, kind):
+    """The dry run's FLOPs, bytes and argument, output and peak live bytes
+    of a reduced step (butterfly after layer 1, 2 x 32 tokens) counted on
+    the card equal those counted on meta tensors."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    cfg = get_config(arch).reduced()
+    if arch == "qwen3-moe-235b-a22b":
+        cfg = dataclasses.replace(cfg, num_layers=3)
+    built = M.build(cfg.with_butterfly(1, 16))
+    shape = InputShape("t", 32, 2, kind)
+    runs = []
+    for device in ("meta", "cuda"):
+        counter, memory = dryrun.count_step(built, shape, device)
+        runs.append((counter.flops, counter.bytes, memory))
+    assert runs[0] == runs[1]
 
 
 def test_simulation_entropy_wire_serves_the_int8_ids(cuda):
