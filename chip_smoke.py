@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-On one H100 80GB HBM3 it takes about four minutes (eight with
+On one H100 80GB HBM3 it takes about six minutes (ten with
 ``--profile``), the kernels' build included.
 
 Phases, each fatal on failure (the script exits non-zero and prints no
@@ -181,6 +181,20 @@ result line):
                the card, while the reduced f32 split pipeline runs on the
                card and on the CPU (gemma3, qwen3-moe, zamba2, xLSTM; see
                phase_launchers).
+ 22. model axis - once phase 5's bank is freed (its degree-1 split
+               pipeline, decode pipeline and served requests kept on the
+               host first), two spawned model ranks share this card over
+               gloo, each holding half of both pods' heads, kv heads and
+               d_ff columns of qwen3-8b at full width: the reduced f32
+               card-vs-CPU run at (pod=2, model=2) for dense qwen3,
+               qwen3-moe and zamba2; the split pipeline (int8, 2 x 4 x 128)
+               within phase 5's bound of degree 1; the decode pipeline with
+               the kernels (pipelined == serial, overlap_psum on == off,
+               16 + 16 launches a rank a run); the bank at edge_mp=1,
+               cloud_mp=2 serving 4 prompts of 64-128 tokens, 8 tokens
+               each, held step by step to degree 1 (see phase_model_axis);
+               a gloo all_reduce's time, degree 2's walls beside degree
+               1's, each rank's peak.
 Each model's weights leave the card before the next one is built, and
 each phase prints its peak device memory.
 With ``--profile [DIR]`` it profiles one qwen3-8b prefill and 8 decode steps
@@ -194,7 +208,8 @@ prefills and decode in phases 18 and 19 (torch.profiler: wall time,
 device-busy share, top kernels; the
 operator tables go to DIR when one is given).  It then
 prints the kernels' JSON line (launches by path, the paths of phases
-9-20 included, the training and split-pipeline paths with none; the
+9-22 included (phase 22's summed over its two ranks), the training and
+split-pipeline paths with none; the
 times of flash attention and of the norm and bincount kernels per launch, averaged over their path's launches; the two butterfly
 kernels' at 128 rows; every timed shape under "by_shape") and, last, the
 result line.
@@ -3034,6 +3049,374 @@ def phase_launchers(smi: str):
           f"crossings; dryrun: {lines['dryrun'][0]}")
 
 
+# -------------------------------------------------------------------------- 22
+# the model axis inside a pod: two model ranks, one process each, share this
+# card over gloo (NCCL refuses two ranks on one device); each holds both
+# pods' shards of its rank, and the wire crosses inside the process
+MODEL_AXIS = dict(mp=2, Mmb=2, mb=4, S=128, T=8, lengths=(64, 80, 100, 128),
+                  new_tokens=8)
+# the reduced card-vs-CPU run at (pod=2, model=2): f32, no TF32
+MODEL_AXIS_PARITY = dict(Mmb=2, mb=2, S=32, T=4, rtol=1e-4, atol=1e-5)
+
+
+def _checksum(params) -> list:
+    """Sums in f64 of the embedding's first rows and the last layer's wq and
+    w_down (drawn after every other layer): the same seed gives the same
+    weights in every process."""
+    stage = params["stages"][0][0][0]
+    return [float(a.double().sum()) for a in
+            (params["embed"][:4096], stage["mixer"]["wq"][-1],
+             stage["ffn"]["w_down"][-1])]
+
+
+def _serve_recorded(runner, engine, prompts, new_tokens):
+    """Phase 5's cache handoff, each request recording its per-step logits:
+    (cloud logits, ids, per-step logits, wire bytes) per prompt."""
+    import torch
+    reqs, cloud, wire = [], [], []
+    for toks in prompts:
+        payload, scales, c0 = runner.edge_half(runner.params, toks[None])
+        payload_h, scales_h = payload.cpu(), scales.cpu()          # the wire
+        logits, c1 = runner.cloud_half(runner.params, payload_h.cuda(),
+                                       scales_h.cuda())
+        wire.append(payload_h.numel() * payload_h.element_size() +
+                    scales_h.numel() * scales_h.element_size())
+        cloud.append(logits[0].float().cpu().clone())
+        reqs.append(engine.submit_prefilled(len(toks), [c0, c1], logits[0],
+                                            max_new_tokens=new_tokens,
+                                            record_logits=True))
+    engine.run()
+    torch.cuda.synchronize()
+    return [dict(cloud=c, ids=list(r.generated),
+                 steps=[torch.tensor(h) for h in r.logits_history], wire=w)
+            for r, c, w in zip(reqs, cloud, wire)]
+
+
+def model_axis_references(runner):
+    """Phase 22's degree-1 side, on phase 5's qwen3-8b bank in this process:
+    the split pipeline's int8 logits and its prefill wall a microbatch, the
+    decode pipeline's ids (kernels, pipelined) and its tick, and the bank's
+    served requests, all at phase 22's shapes; host copies."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.pipeline import make_split_pipeline
+    c = MODEL_AXIS
+    Mmb, mb, S, T = c["Mmb"], c["mb"], c["S"], c["T"]
+    prompts = _prompts(Mmb * mb, (S,) * (Mmb * mb))
+    toks = torch.tensor(np.stack(prompts), dtype=torch.int64, device="cuda")
+    built, params = runner.stage_view()
+    split = make_split_pipeline(built, ("cuda", "cuda"), Mmb, S, mb, "int8")
+    split(params, toks)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = split(params, toks)
+    torch.cuda.synchronize()
+    split_ms = (time.perf_counter() - t) * 1e3 / Mmb
+    decode = runner.decode_pipeline(None, Mmb, S, mb, T, use_kernel=True)
+    decode(toks)
+    timings: dict = {}
+    ids = decode(toks, timings)
+    serve = _prompts(len(c["lengths"]), c["lengths"])
+    engine = runner.make_engine(max_batch=4, max_len=256, seed=0)
+    _serve_recorded(runner, engine, serve, 2)                      # warm-up
+    served = _serve_recorded(runner, engine, serve, c["new_tokens"])
+    return dict(prompts=prompts, serve=serve, checksum=_checksum(runner.params),
+                d_r=runner.bank.d_r,
+                split=logits.cpu(), split_ms=split_ms, ids=ids.cpu(),
+                tick_ms=timings["decode_ms"] / timings["ticks"],
+                prefill_ms=timings["prefill_ms"] / Mmb, served=served)
+
+
+def _collective_ms(group, rows: int, reps: int = 20) -> float:
+    """Median wall of one gloo all_reduce of a (rows, 4096) bf16 tensor on
+    the card, the host synchronised around each call."""
+    import torch
+    import torch.distributed as dist
+    x = torch.ones((rows, D), dtype=torch.bfloat16, device="cuda")
+    times = []
+    for i in range(reps + 3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dist.all_reduce(x, group=group)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _axis_family(kind: str):
+    """Phase 22's reduced f32 configs: dense qwen3, qwen3-moe at 4 experts
+    top-2, zamba2 at 4 layers (its shared block sharded)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    if kind == "moe":
+        cfg = get_config("qwen3-moe-235b-a22b").reduced()
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=2))
+    elif kind == "zamba2":
+        cfg = dataclasses.replace(get_config("zamba2-7b").reduced(), num_layers=4)
+    else:
+        cfg = get_config("qwen3-8b").reduced()
+    return dataclasses.replace(cfg, dtype="float32").with_butterfly(1, 16)
+
+
+def _model_axis_parity(mp: int) -> list:
+    """The reduced families at (pod=2, model=mp) on the card and on the CPU
+    from one CPU init: split-pipeline logits, decode-pipeline ids (kernels
+    on the card, their plain versions on the CPU) and every MoE route."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serving.pipeline import (make_decode_pipeline,
+                                              make_split_pipeline)
+    from repro_torch.tree import tree_map
+    c = MODEL_AXIS_PARITY
+    out = []
+    for kind in ("dense", "moe", "zamba2"):
+        built = M.build(_axis_family(kind))
+        params = M.init_model(torch.Generator().manual_seed(0), built,
+                              device="cpu")
+        toks = np.random.default_rng(1).integers(
+            0, built.cfg.vocab_size, (c["Mmb"] * c["mb"], c["S"]))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            pods = ((f"{dev}:0" if dev == "cuda" else dev,) * mp,) * 2
+            p = params if dev == "cpu" else tree_map(lambda t: t.cuda(), params)
+            with _Routes() as r:
+                logits = make_split_pipeline(built, pods, c["Mmb"], c["S"],
+                                             c["mb"])(p, toks)
+                ids = make_decode_pipeline(built, pods, c["Mmb"], c["S"],
+                                           c["mb"], c["T"], use_kernel=True)(p, toks)
+            runs[dev] = (logits.cpu(), ids.cpu(), [e.cpu() for e in r.eids])
+        (lc, ic, ec), (lg, ig, eg) = runs["cpu"], runs["cuda"]
+        torch.testing.assert_close(lg, lc, rtol=c["rtol"], atol=c["atol"])
+        if not torch.equal(ig, ic):
+            raise AssertionError(f"{kind}: decode ids {ig.tolist()} on the card, "
+                                 f"{ic.tolist()} on the CPU")
+        if len(ec) != len(eg) or not all(torch.equal(a, b) for a, b in zip(ec, eg)):
+            raise AssertionError(f"{kind}: the card routes a choice to another "
+                                 f"expert than the CPU")
+        out.append(dict(kind=kind, max_err=float((lg - lc).abs().max()),
+                        routes=sum(e.numel() for e in ec)))
+    return out
+
+
+def _model_axis_rank(rank, device, refs):
+    """One model rank of phase 22 (spawned; see phase_model_axis)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import parallel
+    from repro_torch.runtime.split_exec import SplitModelBank
+    from repro_torch.serving.pipeline import make_pods, make_split_pipeline
+    c = MODEL_AXIS
+    mp, Mmb, mb, S, T = c["mp"], c["Mmb"], c["mb"], c["S"], c["T"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"parity": _model_axis_parity(mp)}
+    cfg = get_config("qwen3-8b")
+    t0 = time.perf_counter()
+    bank = SplitModelBank(cfg, max(16, cfg.d_model // 64), wire_mode="int8",
+                          seed=0, device="cuda")
+    runner = bank.runner(cfg.num_layers // 8)
+    torch.cuda.synchronize()
+    out.update(init_s=time.perf_counter() - t0, checksum=_checksum(bank.params))
+    peak = {"bank": torch.cuda.max_memory_allocated() / 1e9}
+    pods = ((f"cuda:{torch.cuda.current_device()}",) * mp,) * 2
+    toks = torch.tensor(np.stack(refs["prompts"]), dtype=torch.int64,
+                        device="cuda")
+
+    # the split (prefill) pipeline, int8: no kernel, as in the reference
+    built, params = runner.stage_view()
+    split = make_split_pipeline(built, pods, Mmb, S, mb, "int8")
+    split(params, toks)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out["split"] = split(params, toks).cpu()
+    torch.cuda.synchronize()
+    out["split_ms"] = (time.perf_counter() - t) * 1e3 / Mmb
+    out["split_launches"] = _counts()
+    peak["split pipeline"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # the decode pipeline with the kernels, pipelined and serial, overlap_psum
+    # off and on
+    runner.decode_pipeline(pods, Mmb, S, mb, 2, use_kernel=True)(toks)
+    out["decode"] = {}
+    for pipelined in (True, False):
+        for overlap in (False, True):
+            run = runner.decode_pipeline(pods, Mmb, S, mb, T,
+                                         pipelined=pipelined, use_kernel=True,
+                                         overlap_psum=overlap)
+            timings: dict = {}
+            _zero_counts()
+            ids = run(toks, timings)
+            torch.cuda.synchronize()
+            out["decode"][pipelined, overlap] = dict(
+                ids=ids.cpu(), launches=_counts(),
+                tick_ms=timings["decode_ms"] / timings["ticks"],
+                prefill_ms=timings["prefill_ms"] / Mmb)
+
+    peak["decode pipeline"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # the bank, edge at degree 1 and cloud at degree mp, through the engine
+    hetero = bank.runner(runner.split, edge_mp=1, cloud_mp=mp)
+    engine = hetero.make_engine(max_batch=4, max_len=256, seed=0)
+    serve = [np.asarray(p) for p in refs["serve"]]
+    _serve_recorded(hetero, engine, serve, 2)                      # warm-up
+    _zero_counts()
+    out["served"] = _serve_recorded(hetero, engine, serve, c["new_tokens"])
+    out["served_launches"] = _counts()
+    out["served_steps"] = c["new_tokens"] - 1
+
+    group = make_pods(pods)[1].pctx.group
+    out["all_reduce_ms"] = {rows: _collective_ms(group, rows)
+                            for rows in (mb, mb * S)}
+    peak["bank serving"] = torch.cuda.max_memory_allocated() / 1e9
+    out.update(peak_gb=peak, held_gb=torch.cuda.memory_allocated() / 1e9)
+    out["kv_heads"] = engine.cache[1][0][0]["kv"]["k"].shape[3]
+    return out
+
+
+def _hold_served(what: str, got: dict, want: dict) -> int:
+    """Degree mp's served request against degree 1's: each step's logits
+    within 5% of the reference's largest while the ids agree, and the ids
+    equal unless the reference's top two at a step lie within that bound
+    (then the rest is not compared).  Returns the steps compared."""
+    import torch
+    # the first row is the cloud half's logits, which give id 0
+    rows = list(zip(got["steps"], want["steps"]))
+    for j, (g, w) in enumerate(rows):
+        _hold_logits(f"{what} step {j}", g, w)
+        if got["ids"][j] != want["ids"][j]:
+            top = w.float().topk(2).values
+            if float(top[0] - top[1]) > _limit(w):
+                fail(f"{what}: id {j} is {got['ids'][j]}, degree 1's "
+                     f"{want['ids'][j]}, whose top two are further apart "
+                     f"than the bound")
+            return j + 1
+    return len(rows)
+
+
+def phase_model_axis(refs, smi: str):
+    """Phase 22: the model axis inside a pod on one card.  Two model ranks,
+    one spawned process each, share the card over gloo; each builds phase
+    5's qwen3-8b bank from seed 0 (the same weights, checked) and runs at
+    (pod=2, model=2), half the heads, kv heads and d_ff columns of both
+    pods a rank:
+      * the split pipeline, int8, 2 microbatches of 4 x 128: logits within
+        phase 5's 5% of degree 1's largest, the same greedy tokens unless
+        degree 1's top two lie within that bound, equal on both ranks;
+      * the decode pipeline with the kernels, 2 x 4 x 128, T = 8, pipelined
+        and serial, overlap_psum off and on: pipelined ids == serial ids and
+        overlap_psum on == off, bit for bit, on both ranks, and exactly
+        Mmb + Mmb * (T - 1) launches of reduce_quant and restore_norm per
+        rank a run;
+      * the bank at edge_mp=1, cloud_mp=2: 4 prompts of 64-128 tokens
+        through edge_half -> host wire -> cloud_half into the engine, 8
+        tokens each, held step by step to degree 1's (see _hold_served),
+        exact wire bytes, reduce_quant and dequant_restore once a prefill
+        and once a decode step per rank;
+    and first the reduced card-vs-CPU run (see _model_axis_parity).  Prints
+    one gloo all_reduce at a decode row and a prefill microbatch, the tick
+    and microbatch walls beside degree 1's, and each rank's peak.  Returns
+    the launches summed over the ranks."""
+    import torch
+    from repro_torch.models import parallel
+    c = MODEL_AXIS
+    mp, Mmb, mb, T = c["mp"], c["Mmb"], c["mb"], c["T"]
+    t0 = time.perf_counter()
+    ranks = parallel.spawn(_model_axis_rank, mp, (refs,),
+                           devices=f"cuda:{torch.cuda.current_device()}")
+    wall = time.perf_counter() - t0
+    print(f"model axis: (pod=2, model={mp}), {mp} ranks on {smi} over gloo; "
+          f"{wall:.1f} s with the spawn; qwen3-8b init {ranks[0]['init_s']:.1f} s "
+          f"a rank")
+    for r, out in enumerate(ranks):
+        if out["checksum"] != refs["checksum"]:
+            fail(f"model axis: rank {r}'s weights {out['checksum']} are not "
+                 f"degree 1's {refs['checksum']}")
+    for row in ranks[0]["parity"]:
+        print(f"model axis: reduced {row['kind']} f32 card vs CPU at (2, {mp}): "
+              f"split logits max|d| {row['max_err']:.3g} (rtol "
+              f"{MODEL_AXIS_PARITY['rtol']}), decode ids equal, "
+              f"{row['routes']} MoE routes equal")
+    launches = {k: 0 for k in _counts()}
+    per_run = Mmb + Mmb * (T - 1)
+    for r, out in enumerate(ranks):
+        if any(out["split_launches"].values()):
+            fail(f"model axis: the split pipeline launched {out['split_launches']}")
+        got = out["split"]
+        if not torch.equal(got, ranks[0]["split"]):
+            fail("model axis: the ranks' split-pipeline logits differ")
+        for k in range(Mmb * mb):
+            _hold_logits(f"model axis: split pipeline row {k} vs degree 1",
+                         got[k], refs["split"][k], witness=0.0, greedy=True)
+        runs = out["decode"]
+        base = runs[True, False]["ids"]
+        for key, run in runs.items():
+            want = dict.fromkeys(run["launches"], 0)
+            want["butterfly_reduce_quant"] = want["butterfly_dequant_restore_norm"] = per_run
+            if run["launches"] != want:
+                fail(f"model axis rank {r}: decode pipeline {key} launched "
+                     f"{run['launches']}, expected {want}")
+            if not torch.equal(run["ids"], base) or \
+                    not torch.equal(run["ids"], ranks[0]["decode"][True, False]["ids"]):
+                fail(f"model axis rank {r}: decode pipeline (pipelined, "
+                     f"overlap_psum) = {key} ids differ from (True, False)'s")
+            for name, v in run["launches"].items():
+                launches[name] += v
+        steps = out["served_steps"]
+        want = dict.fromkeys(out["served_launches"], 0)
+        want["butterfly_reduce_quant"] = want["butterfly_dequant_restore"] = \
+            len(c["lengths"]) + steps
+        if out["served_launches"] != want:
+            fail(f"model axis rank {r}: the bank launched "
+                 f"{out['served_launches']}, expected {want}")
+        for name, v in out["served_launches"].items():
+            launches[name] += v
+        for i, (s, g, w) in enumerate(zip(refs["serve"], out["served"],
+                                          refs["served"])):
+            if g["wire"] != len(s) * (refs["d_r"] + 4):
+                fail(f"model axis: {g['wire']} wire bytes for S={len(s)}")
+            if g["ids"] != ranks[0]["served"][i]["ids"]:
+                fail("model axis: the ranks' served ids differ")
+            n = _hold_served(f"model axis rank {r}: S={len(s)}", g, w)
+            if r == 0:
+                print(f"model axis: bank edge_mp=1 cloud_mp={mp} S={len(s)} ids "
+                      f"{g['ids']} (degree 1 {w['ids']}), {n} steps held to "
+                      f"degree 1's logits")
+    split_d = float((ranks[0]["split"] - refs["split"]).abs().max())
+    agree = float((ranks[0]["decode"][True, False]["ids"] == refs["ids"]).float().mean())
+    print(f"model axis: split pipeline int8 max|degree 2 - degree 1| "
+          f"{split_d:.4g} (limit {_limit(refs['split']):.4g}); decode ids "
+          f"pipelined == serial and overlap_psum on == off on both ranks, "
+          f"{agree:.3f} of them equal to degree 1's; kv heads a rank "
+          f"{ranks[0]['kv_heads']}")
+    print(f"model axis: launches a rank a decode run {per_run} reduce_quant + "
+          f"{per_run} restore_norm; bank {len(c['lengths'])} + "
+          f"{ranks[0]['served_steps']} reduce_quant and dequant_restore")
+    for key, run in ranks[0]["decode"].items():
+        print(f"model axis: decode pipeline pipelined={key[0]} overlap_psum="
+              f"{key[1]}: {run['tick_ms']:.3f} ms a tick, prefill "
+              f"{run['prefill_ms']:.3f} ms a microbatch")
+    print(f"model axis: degree 2 vs degree 1 on {smi}: decode tick "
+          f"{ranks[0]['decode'][True, False]['tick_ms']:.3f} vs "
+          f"{refs['tick_ms']:.3f} ms, decode-pipeline prefill "
+          f"{ranks[0]['decode'][True, False]['prefill_ms']:.3f} vs "
+          f"{refs['prefill_ms']:.3f} ms a microbatch, split-pipeline "
+          f"microbatch {ranks[0]['split_ms']:.3f} vs {refs['split_ms']:.3f} ms")
+    for rows, ms in ranks[0]["all_reduce_ms"].items():
+        print(f"model axis: gloo all_reduce of ({rows}, {D}) bf16 on the card: "
+              f"{ms:.3f} ms (rank 0, median of 20)")
+    for r, out in enumerate(ranks):
+        print(f"model axis: rank {r} peak device memory after "
+              + ", ".join(f"{k} {v:.2f}" for k, v in out["peak_gb"].items())
+              + f" GB; {out['held_gb']:.2f} GB held at the end (the whole "
+              f"backbone: the degree-1 edge needs it, the shards are views)")
+    return launches
+
+
 # --------------------------------------------------------------------- profile
 def _profiled(label: str, fn, out_dir: Optional[Path]):
     """Run ``fn`` twice: once bare for its host wall time, once under
@@ -3155,7 +3538,11 @@ def main():
     if args.profile is not None:
         phase_profile(runner, profile_dir)
         phase_profile_pipeline(runner, profile_dir)
+    axis_refs = model_axis_references(runner)
     del runner                       # the qwen3-8b weights leave the card
+    _free()
+    paths["qwen3-8b model axis, 2 ranks"] = phase_model_axis(axis_refs, smi)
+    del axis_refs
     _free()
     paths["gemma3-12b kernel prefill"], _, _ = phase_kernel_prefill(
         "gemma3-12b", args.profile is not None, profile_dir)

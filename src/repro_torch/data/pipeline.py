@@ -11,7 +11,7 @@ Image dataset   — the synthetic classification task for the ResNet/butterfly
 
 Both pipelines are deterministic in seed and yield numpy; the caller moves
 a batch to its device.  The JAX package's ``shard_batch`` (device placement
-over a mesh) waits for the port's multi-device slice.
+over a mesh's data axes) is not ported.
 """
 from __future__ import annotations
 

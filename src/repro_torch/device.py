@@ -3,6 +3,7 @@ raise, rather than fall back, when CUDA is absent."""
 from __future__ import annotations
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def resolve(device) -> torch.device:
@@ -29,3 +30,20 @@ def as_tensor(a, device, dtype=None) -> torch.Tensor:
     if not isinstance(a, torch.Tensor):
         a = torch.tensor(a)
     return a.to(device=device, dtype=dtype)
+
+
+class OnMeta(TorchDispatchMode):
+    """Makes every tensor an op creates a meta tensor, and skips the random
+    fills, which need a generator of the tensor's device: ``init_model``
+    on the CPU, run inside it, lays out the params without allocating."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = torch.device("meta")
+        if torch.Tag.nondeterministic_seeded in func.tags:
+            if func._schema.is_mutable:
+                return args[0]
+            if "generator" in kwargs:
+                kwargs["generator"] = None
+        return func(*args, **kwargs)

@@ -16,7 +16,9 @@ nothing is allocated at full scale and no device is touched:
 A :class:`roofline.CostCounter` sees every aten op.  The eager trace runs
 every layer, so XLA's two-point scan correction has no counterpart, and a
 card has no collectives to parse.  ``--multi-pod`` and ``--both-meshes``
-need the model axis, which is not ported.  ``device="cpu"`` or ``"cuda"``
+need the automatic (GSPMD) regime over a production mesh, which is not
+ported (the manual model axis is: ``models/parallel.py``).
+``device="cpu"`` or ``"cuda"``
 runs the same trace on real tensors (random weights), which the tests and
 the card use to check the meta counts.
 
@@ -32,7 +34,6 @@ import time
 from typing import Optional
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import device as dev_lib
 from repro_torch.configs import INPUT_SHAPES, get_config, supports_shape
@@ -49,27 +50,10 @@ from repro_torch.tree import tree_leaves
 OUT_DIR = "build/dryrun"
 
 
-class _OnMeta(TorchDispatchMode):
-    """Makes every tensor an op creates a meta tensor, and skips the random
-    fills, which need a generator of the tensor's device: ``init_model``
-    on the CPU, run inside it, lays out the params without allocating."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = dict(kwargs or {})
-        if "device" in kwargs:
-            kwargs["device"] = torch.device("meta")
-        if torch.Tag.nondeterministic_seeded in func.tags:
-            if func._schema.is_mutable:
-                return args[0]
-            if "generator" in kwargs:
-                kwargs["generator"] = None
-        return func(*args, **kwargs)
-
-
 def init_params(built, device: str = "meta"):
     """The model's params from seed 0: on ``meta`` their layout only."""
     if device == "meta":
-        with _OnMeta():
+        with dev_lib.OnMeta():
             return M.init_model(torch.Generator().manual_seed(0), built,
                                 device="cpu")
     device = dev_lib.resolve(device)
@@ -211,8 +195,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.multi_pod or args.both_meshes:
         raise NotImplementedError(
-            "--multi-pod and --both-meshes need a mesh with a model axis, "
-            "which the port has not yet (ROADMAP section 1, item 2)")
+            "--multi-pod and --both-meshes need the automatic (GSPMD) "
+            "regime over a multi-pod mesh, which the port has not yet "
+            "(ROADMAP section 1)")
 
     archs = ASSIGNED if (args.all or args.arch is None) else [args.arch]
     shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) else [args.shape]

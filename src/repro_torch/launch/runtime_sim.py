@@ -15,7 +15,11 @@ byte-for-byte (``--replay-trace``).
 The numerics run on ``--device`` (``cuda`` by default: the Hopper kernels on
 the card; ``cpu`` runs the kernels' plain versions) and raise, never fall
 back, when that device is missing; ``--no-numerics`` touches no device.
-The model axis (``--edge-mp``/``--cloud-mp`` above 1) is not ported.
+A model axis (``--edge-mp``/``--cloud-mp`` above 1) divides the cost model's
+stage times in timing-only mode, with no process started, as in the JAX
+package; with numerics the launcher spawns ``max(edge_mp, cloud_mp)`` ranks
+on ``--device`` (``models/parallel.spawn``), each runs the simulation with
+its shards, and rank 0 alone prints and writes the artifacts.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.runtime_sim --network 3g --devices 4 --requests 16
@@ -40,6 +44,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import sys
 
 
 def parse_ramp(spec: str):
@@ -152,10 +158,10 @@ def main():
                          "(default: paper's TX2 -> 1080Ti pairing)")
     ap.add_argument("--edge-mp", type=int, default=1,
                     help="model-axis degree of the edge half's stage "
-                         "(DESIGN.md section 11); not ported: only 1")
+                         "(DESIGN.md section 11); with numerics, one "
+                         "process a rank")
     ap.add_argument("--cloud-mp", type=int, default=1,
-                    help="model-axis degree of the cloud half's stage; not "
-                         "ported: only 1")
+                    help="model-axis degree of the cloud half's stage")
     ap.add_argument("--max-concurrent", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-numerics", action="store_true",
@@ -195,11 +201,27 @@ def main():
                          "cache entry (numerics mode; host-dependent, so "
                          "excluded from virtual-clock artifacts)")
     args = ap.parse_args()
-    if args.edge_mp > 1 or args.cloud_mp > 1:
-        raise NotImplementedError(
-            f"--edge-mp {args.edge_mp} / --cloud-mp {args.cloud_mp}: the "
-            f"model axis is not ported; degree 1 only")
+    ranks = max(args.edge_mp, args.cloud_mp)
+    if ranks > 1 and not args.no_numerics:
+        from repro_torch import device as dev_lib
+        from repro_torch.models import parallel
+        parallel.spawn(_rank, ranks, (args,),
+                       devices=dev_lib.resolve(args.device))
+        return
+    _simulate(args)
 
+
+def _rank(rank: int, device, args) -> None:
+    """One model rank of a numerics run: rank 0 prints and writes."""
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+        args = argparse.Namespace(**dict(
+            vars(args), json=None, trace_out=None, metrics_out=None,
+            record_trace=None))
+    _simulate(args)
+
+
+def _simulate(args) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.profiler import GTX_1080TI, JETSON_TX2
     from repro_torch.runtime.faults import FaultSchedule

@@ -7,7 +7,7 @@ back, when the device is missing.  ``--checkpoint`` saves in the JAX
 package's ``.npz`` format (``training.checkpoint``).  ``--lower-only`` traces the
 full config's train step at ``train_4k`` on meta tensors
 (``launch/dryrun.py``) and writes its record to ``build/dryrun/``; its
-``--multi-pod`` needs the model axis, which is not ported.
+``--multi-pod`` needs training across ranks, which is not ported.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b --reduced \\
@@ -45,8 +45,8 @@ def main(argv=None):
     if args.lower_only:
         if args.multi_pod:
             raise NotImplementedError(
-                "--multi-pod needs a mesh with a model axis, which the port "
-                "has not yet (ROADMAP section 1, item 2)")
+                "--multi-pod needs training across ranks over a multi-pod "
+                "mesh, which the port has not yet (ROADMAP section 1)")
         from repro_torch.launch.dryrun import OUT_DIR, run_pair
         run_pair(args.arch, "train_4k", OUT_DIR)
         return

@@ -11,6 +11,7 @@ and is a ring buffer: position ``p`` lives in slot ``p % T``.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -22,19 +23,68 @@ from repro_torch.models.common import apply_rope, dense_init, rms_norm
 MASK_VALUE = -1e30
 
 
+def _padded_heads(cfg: ModelConfig) -> int:
+    """The q-head count ``init_attention`` lays out.  With
+    ``REPRO_ATTN_PAD_HEADS=1`` (as in the JAX package) a count that 16
+    does not divide is padded to the next multiple of 16 that the kv-head
+    count divides, so that a 16-way model axis takes whole heads; the
+    padded heads are dead (their ``wo`` rows are zero).  Otherwise the
+    config's count."""
+    if os.environ.get("REPRO_ATTN_PAD_HEADS", "0") != "1":
+        return cfg.num_heads
+    n = cfg.num_heads
+    if n % 16 == 0:
+        return n
+    p = ((n + 15) // 16) * 16
+    while p % cfg.num_kv_heads:
+        p += 16
+    return p
+
+
 def init_attention(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """``wq`` (d, H*hd), ``wk``/``wv`` (d, K*hd), ``wo`` (H*hd, d), and the
+    qk-norm weights.  Under padded heads (:func:`_padded_heads`) ``wq``
+    has the padded count's columns and ``wo`` gains zero rows, inserted
+    per kv group so that each q head stays with its kv head."""
     hd = cfg.resolved_head_dim
+    n_pad = _padded_heads(cfg)
     params = {
-        "wq": dense_init(gen, cfg.d_model, cfg.num_heads * hd, dtype, device),
+        "wq": dense_init(gen, cfg.d_model, n_pad * hd, dtype, device),
         "wk": dense_init(gen, cfg.d_model, cfg.num_kv_heads * hd, dtype, device),
         "wv": dense_init(gen, cfg.d_model, cfg.num_kv_heads * hd, dtype, device),
-        "wo": dense_init(gen, cfg.num_heads * hd, cfg.d_model, dtype, device,
-                         scale=1.0 / (cfg.num_heads * hd)),
+        "wo": pad_wo(dense_init(gen, cfg.num_heads * hd, cfg.d_model, dtype,
+                                device, scale=1.0 / (cfg.num_heads * hd)),
+                     cfg, n_pad),
     }
     if cfg.qk_norm:
         params["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
         params["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
     return params
+
+
+def pad_wo(wo, cfg: ModelConfig, n_pad: int):
+    """``wo`` (H*hd, d) with the dead heads' zero rows of ``n_pad`` q heads
+    placed at the end of each kv group's heads (``wo`` itself when
+    ``n_pad`` is the config's head count)."""
+    if n_pad == cfg.num_heads:
+        return wo
+    hd, K = cfg.resolved_head_dim, cfg.num_kv_heads
+    G, G_pad = cfg.num_heads // K, n_pad // K
+    wo = wo.reshape(K, G, hd, cfg.d_model)
+    pad = wo.new_zeros((K, G_pad - G, hd, cfg.d_model))
+    return torch.cat([wo, pad], dim=1).reshape(n_pad * hd, cfg.d_model)
+
+
+def tp_attention_specs(cfg: ModelConfig) -> dict:
+    """Megatron-style specs of one attention param set over a model axis
+    (each leaf's sharded dim, or None): q/k/v column-parallel (whole heads
+    a rank), ``wo`` row-parallel, its partial outputs summed by
+    ``transformer.apply_layer``; the qk-norm weights replicated."""
+    specs = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+    if cfg.qk_norm:
+        specs["q_norm"] = None
+        specs["k_norm"] = None
+    return specs
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, length: int, dtype,

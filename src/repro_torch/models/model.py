@@ -99,6 +99,34 @@ def init_model(gen: torch.Generator, built: BuiltModel, *,
     return params
 
 
+def tp_param_specs(built: BuiltModel, *, with_butterfly=None) -> dict:
+    """Spec tree (each leaf's sharded dim, or None) matching
+    :func:`init_model`'s params, with every stage layer tensor-parallel over
+    the model axis (attention heads, d_ff columns, experts; see
+    ``transformer.tp_layer_specs``) and zamba2's shared block sharded the
+    same way; embeddings, norms, LM head and butterfly replicated.  What a
+    tensor-parallel stage's params are cut by (``parallel.shard_params``).
+    An encoder-decoder has no tensor-parallel stages and raises."""
+    cfg = built.cfg
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: enc-dec archs have no "
+                                  f"tensor-parallel stages")
+    dt = dev_lib.torch_dtype(cfg.dtype)
+    if with_butterfly is None:
+        with_butterfly = built.has_butterfly
+    specs: dict = {"embed": None, "final_norm": None,
+                   "stages": [tfm.tp_stage_specs(list(segs), cfg, dt)
+                              for segs in built.stages]}
+    if not cfg.tie_embeddings:
+        specs["head"] = None
+    if with_butterfly:
+        specs["butterfly"] = {"w_reduce": None, "w_restore": None}
+    if cfg.hybrid_attn_every is not None:
+        specs["shared_attn"] = {"mixer": attn_lib.tp_attention_specs(cfg),
+                                "ffn": tfm.tp_mlp_specs()}
+    return specs
+
+
 def _embed_inputs(params, built: BuiltModel, batch: dict, pos=None):
     """Token (+ stub modality) embeddings -> (B, S, d).  An encoder-decoder
     adds the sinusoid at positions 0..S-1, or in decode at ``pos`` (an int
@@ -131,7 +159,7 @@ def _encode(params, built: BuiltModel, batch: dict, use_kernel: bool):
     sin = sinusoid_positions(frames.shape[1], cfg.d_model, frames.device)
     x = frames.to(dtype) + sin[None].to(dtype)
     for si, seg in enumerate(built.enc_segments):
-        x, _, _ = tfm.apply_segment(
+        x, _, _, _ = tfm.apply_segment(
             seg, params["encoder"]["segments"][si], x, cfg=cfg, mode="train",
             seg_cache=None, pos=None, causal=False, use_kernel=use_kernel)
     return rms_norm(x, params["encoder"]["final_norm"], cfg.rms_eps)

@@ -11,8 +11,13 @@ row.  Router math runs in f32, and the router weight stays f32 in a bf16
 model.  The load-balance and router-z aux losses come back scaled by their
 coefficients.
 
-Only the JAX package's local path is ported (one rank holds every expert:
-no ``shard_map``, no decode broadcast, no experts over the pod axis).
+The JAX package's local path and its manual path are ported.  Under
+tensor parallelism (a ``ParallelContext`` in the manual regime) every model
+rank routes all tokens identically into the same capacity slots (the f32
+router is replicated), computes only its ``E/mp`` experts, those from
+``e_offset = rank * E/mp``, and the partial combines are summed over the
+ranks.  The automatic regime (MoE's own ``shard_map`` with data axes, the
+decode broadcast, experts over the pod axis) is not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.common import apply_mlp, dense_init, glu_act, init_mlp
+from repro_torch.models.parallel import LOCAL, ParallelContext, model_psum
 
 # the f32 draw of one chunk of experts holds at most this many elements, so
 # initialising a (128, 5120, 8192) bf16 expert weight never makes its whole
@@ -108,23 +114,29 @@ def route(x_flat, router, mcfg: MoEConfig, capacity: int, forced=None):
 
 
 def moe_dispatch(x_flat, router, wg, wu, wd, *, mcfg: MoEConfig, act: str,
-                 capacity: int):
-    """``_moe_shard`` of the JAX package with every expert held here:
-    (T, d) tokens -> ((T, d) output, load-balance loss, router-z loss),
-    the losses unscaled."""
+                 capacity: int, e_offset: int = 0):
+    """``_moe_shard`` of the JAX package: (T, d) tokens -> ((T, d) output,
+    load-balance loss, router-z loss), the losses unscaled.  ``wg``/``wu``/
+    ``wd`` hold the experts ``[e_offset, e_offset + E_local)``; a choice of
+    another expert, or past its expert's capacity, adds nothing here."""
     T, d = x_flat.shape
     E, k = mcfg.num_experts, mcfg.top_k
-    logits, probs, gate, eids, _, dst = route(x_flat, router, mcfg, capacity)
+    E_local = wg.shape[0]
+    logits, probs, gate, eids, pos, dst = route(x_flat, router, mcfg, capacity)
+    if E_local != E:
+        local_e = eids - e_offset
+        keep = (pos < capacity) & (local_e >= 0) & (local_e < E_local)
+        dst = torch.where(keep, local_e * capacity + pos, E_local * capacity)
 
-    # dispatch: k scatters of (T, d) into E*C rows and one spare
-    buf = x_flat.new_zeros((E * capacity + 1, d))
+    # dispatch: k scatters of (T, d) into E_local*C rows and one spare
+    buf = x_flat.new_zeros((E_local * capacity + 1, d))
     for j in range(k):
         buf[dst[:, j]] = x_flat
-    buf = buf[:-1].reshape(E, capacity, d)
+    buf = buf[:-1].reshape(E_local, capacity, d)
 
     # the experts' GLU, batched over experts
     h = glu_act(torch.bmm(buf, wg), act) * torch.bmm(buf, wu)
-    out_buf = torch.bmm(h, wd).reshape(E * capacity, d)
+    out_buf = torch.bmm(h, wd).reshape(E_local * capacity, d)
     out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))])     # dropped: 0
 
     # combine: k gathers weighted by the gates
@@ -144,18 +156,26 @@ def moe_dispatch(x_flat, router, wg, wu, wd, *, mcfg: MoEConfig, act: str,
     return out, lb_loss, z_loss
 
 
-def apply_moe(params, x, *, cfg: ModelConfig, act: str):
+def apply_moe(params, x, *, cfg: ModelConfig, act: str,
+              pctx: ParallelContext = LOCAL):
     """x (B, S, d) -> (out, aux): every one of the B*S tokens competes for
     the same capacity, ``ceil(B*S*k/E * capacity_factor)`` slots an
     expert; aux holds ``load_balance`` and ``router_z`` (0-d f32, times
-    their coefficients).  The shared expert, when there is one, adds its
-    GLU of every token."""
+    their coefficients, the same on every model rank).  Under tensor
+    parallelism the params hold this rank's ``E/mp`` experts and the
+    routed output is summed over the ranks.  The shared expert, when there
+    is one, is replicated and adds its GLU of every token."""
     mcfg = cfg.moe
     B, S, d = x.shape
+    mp = pctx.mp_size if pctx.manual else 1
+    if mcfg.num_experts % mp:
+        raise ValueError(f"model axis {mp} must divide num_experts "
+                         f"({mcfg.num_experts})")
     out, lb, zl = moe_dispatch(
         x.reshape(B * S, d), params["router"], params["wg"], params["wu"],
-        params["wd"], mcfg=mcfg, act=act, capacity=_capacity(B * S, mcfg))
-    out = out.reshape(B, S, d)
+        params["wd"], mcfg=mcfg, act=act, capacity=_capacity(B * S, mcfg),
+        e_offset=pctx.rank * (mcfg.num_experts // mp) if mp > 1 else 0)
+    out = model_psum(out, pctx).reshape(B, S, d)
     aux = {"load_balance": lb * mcfg.load_balance_coef,
            "router_z": zl * mcfg.router_z_coef}
     if mcfg.shared_expert_ff:

@@ -21,12 +21,14 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import device as dev_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import apply_mlp, init_mlp, init_rms_norm, rms_norm
+from repro_torch.models.parallel import LOCAL, ParallelContext, model_psum
 from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
@@ -185,15 +187,15 @@ def slice_stage_params(segments: Sequence[Segment], stage_params, lo: int, hi: i
 
 def apply_layer_range(segments: Sequence[Segment], stage_params, x, lo: int,
                       hi: int, *, cfg, mode, range_cache, pos,
-                      shared_params=None, use_kernel: bool = False,
-                      first_h=None):
+                      pctx: ParallelContext = LOCAL, shared_params=None,
+                      use_kernel: bool = False, first_h=None):
     """Run flat layers [lo, hi) of a full stacked stage; ``range_cache`` is
     structured per :func:`range_segments`.  ``shared_params`` is the whole
     shared block (never sliced by layer range).  Returns (x, caches,
     aux)."""
     segs, params = slice_stage_params(segments, stage_params, lo, hi)
     return apply_stage(segs, params, x, cfg=cfg, mode=mode,
-                       stage_cache=range_cache, pos=pos,
+                       stage_cache=range_cache, pos=pos, pctx=pctx,
                        shared_params=shared_params, use_kernel=use_kernel,
                        first_h=first_h)
 
@@ -209,6 +211,72 @@ def first_layer_norm1(segments: Sequence[Segment], stage_params, lo: int = 0):
         _, si, r0, _ = span
         return stage_params[si][0]["norm1"][r0]
     raise ValueError(f"layer {lo} out of range")
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel (model-axis) sharding specs
+# ---------------------------------------------------------------------------
+
+
+def check_tp_divisibility(defs: Sequence[LayerDef], cfg: ModelConfig,
+                          mp: int) -> None:
+    """Model-parallel stages shard whole attention heads, whole d_ff columns
+    and whole experts: raise ValueError when ``mp`` cannot divide them.
+    Mixers with no tensor-parallel decomposition (mamba, mLSTM, sLSTM)
+    replicate and run on every rank, so they impose no constraint."""
+    if mp <= 1:
+        return
+    for ldef in defs:
+        if ldef.mixer != "attn":
+            continue
+        if ldef.cross:
+            raise ValueError("tensor-parallel stages do not support "
+                             "cross-attention layers")
+        if attn._padded_heads(cfg) % mp or cfg.num_kv_heads % mp:
+            raise ValueError(
+                f"model axis {mp} must divide heads "
+                f"({attn._padded_heads(cfg)}) and kv heads "
+                f"({cfg.num_kv_heads})")
+        if (ldef.ffn == "mlp" or ldef.shared) and cfg.d_ff % mp:
+            raise ValueError(f"model axis {mp} must divide d_ff ({cfg.d_ff})")
+        if ldef.ffn == "moe" and cfg.moe.num_experts % mp:
+            raise ValueError(f"model axis {mp} must divide num_experts "
+                             f"({cfg.moe.num_experts})")
+
+
+def tp_mlp_specs() -> dict:
+    return {"w_gate": 1, "w_up": 1, "w_down": 0}
+
+
+def tp_layer_specs(ldef: LayerDef, cfg: ModelConfig, dtype) -> dict:
+    """Spec tree (each leaf's sharded dim, or None) of one layer's params
+    with attention heads, d_ff and experts sharded over the model axis and
+    everything else replicated; the structure is :func:`init_layer`'s.
+    MoE's router and shared expert stay replicated: their outputs are
+    whole, so only the routed experts' partials are summed."""
+    with dev_lib.OnMeta():              # the layer's layout, no data
+        layout = init_layer(torch.Generator(), ldef, cfg, dtype, "cpu")
+    specs = tree_map(lambda _: None, layout)
+    if ldef.mixer == "attn" and not ldef.shared:
+        specs["mixer"] = attn.tp_attention_specs(cfg)
+    if ldef.mixer == "attn" and ldef.ffn == "mlp" and not ldef.shared:
+        specs["ffn"] = tp_mlp_specs()
+    elif ldef.mixer == "attn" and ldef.ffn == "moe":
+        specs["ffn"].update(wg=0, wu=0, wd=0)      # the expert dim
+    return specs
+
+
+def _prepend_none(spec_tree):
+    """The specs of a leaf stacked over repeats: every sharded dim moves
+    up by one."""
+    return tree_map(lambda d: d + 1, spec_tree)
+
+
+def tp_stage_specs(segments: Sequence[Segment], cfg: ModelConfig, dtype):
+    """Spec tree of a whole stage's stacked params (the leading repeats dim
+    unsharded)."""
+    return [[_prepend_none(tp_layer_specs(ldef, cfg, dtype))
+             for ldef in seg.unit] for seg in segments]
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +370,24 @@ def init_stage_cache(segments: List[Segment], cfg, batch, length, dtype,
     return out
 
 
+def stage_cache_spec(segments: List[Segment], cfg, head_axis=None) -> list:
+    """Spec tree of a stage's stacked caches (each leaf's sharded dim, or
+    None).  ``head_axis`` (any name, e.g. ``"model"``) shards the attention
+    kv-head dim, which tensor-parallel stages keep with their head shard;
+    cross-attention caches and recurrent state stay replicated."""
+    out = []
+    for seg in segments:
+        unit = []
+        for ldef in seg.unit:
+            c = tree_map(lambda _: None, init_layer_cache(
+                ldef, cfg, 1, 1, torch.float32, "meta"))
+            if ldef.mixer == "attn" and head_axis is not None:
+                c["kv"] = {"k": 3, "v": 3}
+            unit.append(c)
+        out.append(unit)
+    return out
+
+
 def pad_to_template(cache, template):
     """Zero-pad each leaf of a prefill-shaped cache to its decode template's
     shape (a tree of the same structure, e.g. on the meta device).  A ring
@@ -338,10 +424,12 @@ def to_ring(kv: dict, window: int) -> dict:
 
 
 def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
-                pos, enc_out=None, shared_params=None,
-                use_kernel: bool = False, causal: bool = True, h_pre=None):
-    """Returns (x, new_cache, aux): aux is the layer's MoE losses
-    ``[load_balance, router_z]``, or None for an MLP layer.  ``h_pre``
+                pos, pctx: ParallelContext = LOCAL, enc_out=None,
+                shared_params=None, use_kernel: bool = False,
+                causal: bool = True, h_pre=None, pending=None,
+                defer_psum: bool = False):
+    """Returns (x, new_cache, aux, pending_out): aux is the layer's MoE
+    losses ``[load_balance, router_z]``, or None for an MLP layer.  ``h_pre``
     short-circuits the input RMSNorm for a caller that already holds
     ``rms_norm(x, norm1)``.  Prefill caches of windowed layers come back in
     ring order (:func:`to_ring`).  A cross-attention layer reads the
@@ -349,8 +437,20 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
     cache in decode.  A shared layer runs ``shared_params``' mixer and
     MLP.  A recurrent layer's prefill cache is its final state; in decode
     its new state is written into ``cache`` in place, as attention writes
-    its key and value rows."""
-    aux = None
+    its key and value rows.
+
+    Under tensor parallelism (``pctx``) ``wo`` and ``w_down`` are
+    row-sharded, so attention's and the MLP's outputs are this rank's
+    partial sums, reduced with :func:`model_psum` (an MoE layer reduces its
+    own); the kv cache stays this rank's whole-head slice.  Recurrent
+    mixers replicate.  ``pending``/``defer_psum`` implement psum overlap:
+    with ``defer_psum`` an attention+MLP layer returns its MLP output
+    unreduced as ``pending_out`` (None where nothing is pending), and the
+    next layer adds ``model_psum(pending)`` to x at its top, before norm1:
+    the same value, one layer later, in the same order of additions."""
+    aux, pending_out = None, None
+    if pending is not None:
+        x = x + model_psum(pending, pctx)
     if ldef.shared:
         p = dict(p, mixer=shared_params["mixer"], ffn=shared_params["ffn"])
     h = h_pre if h_pre is not None else rms_norm(x, p["norm1"], cfg.rms_eps)
@@ -364,10 +464,10 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
             out, st = decode(p["mixer"], h, cache, cfg=cfg)
             for name, leaf in st.items():
                 cache[name].copy_(leaf)
-            return x + out, cache, None
+            return x + out, cache, None, None
         out, st = fullseq(p["mixer"], h, cfg=cfg,
                           return_state=mode == "prefill")
-        return x + out, st, None
+        return x + out, st, None, None
     rope = not cfg.is_encdec          # whisper uses sinusoid embeds, no RoPE
     new_cache = None
     if mode == "decode":
@@ -381,7 +481,7 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
                                          rope=rope)
         if mode == "prefill":
             new_cache = {"kv": to_ring(kv, ldef.window) if ldef.window else kv}
-    x = x + out
+    x = x + model_psum(out, pctx)
     if ldef.cross:
         hc = rms_norm(x, p["norm_cross"], cfg.rms_eps)
         if mode == "decode":
@@ -393,22 +493,31 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
             new_cache["cross_kv"] = ckv
     h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
     if ldef.ffn == "moe":
-        out, moe_aux = moe_lib.apply_moe(p["ffn"], h2, cfg=cfg, act=cfg.act)
+        out, moe_aux = moe_lib.apply_moe(p["ffn"], h2, cfg=cfg, act=cfg.act,
+                                         pctx=pctx)
         x = x + out
         aux = torch.stack([moe_aux["load_balance"], moe_aux["router_z"]])
     else:
-        x = x + apply_mlp(p["ffn"], h2, cfg.act)
-    return x, new_cache, aux
+        part = apply_mlp(p["ffn"], h2, cfg.act)
+        if defer_psum:
+            pending_out = part
+        else:
+            x = x + model_psum(part, pctx)
+    return x, new_cache, aux, pending_out
 
 
 def apply_segment(seg: Segment, seg_params, x, *, cfg, mode, seg_cache, pos,
-                  enc_out=None, shared_params=None, use_kernel: bool = False,
-                  causal: bool = True, first_h=None):
+                  pctx: ParallelContext = LOCAL, enc_out=None,
+                  shared_params=None, use_kernel: bool = False,
+                  causal: bool = True, first_h=None,
+                  overlap_psum: bool = False, pending=None):
     """seg_params: per unit position, leaves stacked over repeats.  Decode
     writes the stacked ``seg_cache`` in place and returns it; prefill
     returns the new caches stacked over repeats; train returns None.
-    Returns (x, caches, aux summed over the segment's MoE layers, or
-    None)."""
+    ``overlap_psum`` threads a deferred MLP partial (``pending``) through
+    the layers (see :func:`apply_layer`); the caller flushes the one
+    returned.  Returns (x, caches, aux summed over the segment's MoE
+    layers or None, pending)."""
     aux_sum = None
     per_rep = []
     for rep in range(seg.repeats):
@@ -417,38 +526,47 @@ def apply_segment(seg: Segment, seg_params, x, *, cfg, mode, seg_cache, pos,
             p = tree_map(lambda a: a[rep], seg_params[i])
             c = None if seg_cache is None else \
                 tree_map(lambda a: a[rep], seg_cache[i])
-            x, nc, aux = apply_layer(
-                ldef, p, x, cfg=cfg, mode=mode, cache=c, pos=pos,
+            x, nc, aux, pending = apply_layer(
+                ldef, p, x, cfg=cfg, mode=mode, cache=c, pos=pos, pctx=pctx,
                 enc_out=enc_out, shared_params=shared_params,
                 use_kernel=use_kernel, causal=causal,
-                h_pre=first_h if rep == 0 and i == 0 else None)
+                h_pre=first_h if rep == 0 and i == 0 else None,
+                pending=pending, defer_psum=overlap_psum)
             aux_sum = _add_aux(aux_sum, aux)
             caches.append(nc)
         per_rep.append(caches)
     if mode == "decode":
-        return x, seg_cache, aux_sum
+        return x, seg_cache, aux_sum, pending
     if mode == "prefill":
         return x, [tree_map(lambda *reps: torch.stack(reps), *[c[i] for c in per_rep])
-                   for i in range(len(seg.unit))], aux_sum
-    return x, None, aux_sum
+                   for i in range(len(seg.unit))], aux_sum, pending
+    return x, None, aux_sum, pending
 
 
 def apply_stage(segments: List[Segment], stage_params, x, *, cfg, mode,
-                stage_cache, pos, enc_out=None, shared_params=None,
-                use_kernel: bool = False, causal: bool = True, first_h=None):
+                stage_cache, pos, pctx: ParallelContext = LOCAL, enc_out=None,
+                shared_params=None, use_kernel: bool = False,
+                causal: bool = True, first_h=None,
+                overlap_psum: bool = False):
     """Returns (x, new stage caches, aux): the f32 ``[load_balance,
-    router_z]`` summed over the stage's MoE layers (zeros without one)."""
+    router_z]`` summed over the stage's MoE layers (zeros without one).
+    A partial still pending at the stage's end (``overlap_psum``) is
+    reduced and added there."""
     aux_total = None
     new_caches = []
+    pending = None
     for si, seg in enumerate(segments):
         cache = None if stage_cache is None else stage_cache[si]
-        x, nc, aux = apply_segment(
+        x, nc, aux, pending = apply_segment(
             seg, stage_params[si], x, cfg=cfg, mode=mode, seg_cache=cache,
-            pos=pos, enc_out=enc_out, shared_params=shared_params,
+            pos=pos, pctx=pctx, enc_out=enc_out, shared_params=shared_params,
             use_kernel=use_kernel, causal=causal,
-            first_h=first_h if si == 0 else None)
+            first_h=first_h if si == 0 else None,
+            overlap_psum=overlap_psum, pending=pending)
         new_caches.append(nc)
         aux_total = _add_aux(aux_total, aux)
+    if pending is not None:
+        x = x + model_psum(pending, pctx)          # stage-end flush
     if aux_total is None:
         aux_total = torch.zeros((2,), dtype=torch.float32, device=x.device)
     return x, new_caches, aux_total

@@ -366,8 +366,9 @@ class EdgeDevice:
         """Mobile-only / fallback runs the same hosted model (split is a
         no-op for numerics when both halves share a device); one engine per
         device, reused across its serial requests.  It lives on the DEVICE:
-        run it at the edge degree so local inference never builds the
-        cloud's mesh."""
+        run it at the edge degree, so local inference runs on the edge's
+        model axis (its group of ranks, or whole on each rank at degree 1),
+        never the cloud's."""
         if self._local_engine is None:
             runner = self.runner(self.numerics_split)
             self._local_engine = runner.make_engine(

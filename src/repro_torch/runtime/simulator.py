@@ -489,8 +489,9 @@ class SimConfig:
     # classic configuration, built through the same path
     topology: Optional[Sequence[CellSpec]] = None
     # model-axis degree of each half's stage (DESIGN.md section 11): timing
-    # divides by the degree; the port's bank runs degree 1 only and raises
-    # NotImplementedError above it
+    # divides by the degree; with numerics a degree above 1 runs on that
+    # many torch.distributed ranks, each running this simulation
+    # (launch/runtime_sim spawns them)
     edge_mp: int = 1
     cloud_mp: int = 1
     background_load: Optional[Callable[[float], float]] = None

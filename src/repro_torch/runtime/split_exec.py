@@ -1,7 +1,6 @@
 """Split execution over one shared backbone, and the runtime's analytic
-timing (port of ``repro/runtime/split_exec.py``: ``CostModel``, and
-``SplitModelBank`` and ``SplitRunner`` at model-axis degree 1; a degree
-above 1 raises ``NotImplementedError``).
+timing (port of ``repro/runtime/split_exec.py``: ``CostModel``,
+``SplitModelBank`` and ``SplitRunner``).
 
 Numerics and time are decoupled on purpose: the bank computes the real
 logits, tokens and caches, while the simulator's durations come from
@@ -15,7 +14,19 @@ through the butterfly unit's fused wrappers (``core/butterfly.py`` ->
 ``kernels/ops.py``): the Hopper kernels on the card, their plain versions on
 the CPU.  The unfused codec runs only in :meth:`SplitRunner.reference_prefill`.
 
-The JAX bank jits one function per ``(kind, split)`` at bucket-padded
+Each half runs at a model-axis degree (``edge_mp``, ``cloud_mp``).  The JAX
+bank wraps a degree-``mp`` half in a ``shard_map`` over ``mp`` devices; the
+port runs it as ``mp`` processes (``models/parallel.spawn``), a group of
+``mp`` consecutive ranks of the ``torch.distributed`` world, each with its
+rank's views of the backbone (attention heads, d_ff columns and experts
+sharded; ``model.tp_param_specs``) and its own kv heads in the caches.  A
+degree must divide the world; a degree-1 half runs whole on every rank.
+Every rank of a group returns the same logits, codes and tokens.  A cache
+that moves from one half's degree to another's (the edge's stage-0 cache
+into a cloud engine) is cut, or gathered and cut, to the receiving
+degree's heads (:meth:`SplitRunner.to_degree`).
+
+The JAX bank jits one function per ``(kind, split, mp)`` at bucket-padded
 ``(B, S)`` shapes.  PyTorch runs eagerly, but the port keeps the same
 padding and the same compile-cache keys and hit/miss counts, so the
 runtime's ``bank_jit_cache_*`` counters read the same from either package.
@@ -37,6 +48,7 @@ from repro_torch.core.planner import wire_mode_bytes
 from repro_torch.core.profiler import HardwareProfile
 from repro_torch.core.quantization import pack_int4, unpack_int4
 from repro_torch.models import model as M
+from repro_torch.models import parallel
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed, rms_norm, unembed
 from repro_torch.serving import pipeline as spl
@@ -198,13 +210,6 @@ class CostModel:
 # ---------------------------------------------------------------------------
 
 
-def _check_degree(**degrees) -> None:
-    for name, mp in degrees.items():
-        if int(mp) != 1:
-            raise NotImplementedError(
-                f"{name}={mp}: the model axis is not ported; degree 1 only")
-
-
 def _next_bucket(n: int, lo: int = 8) -> int:
     b = lo
     while b < n:
@@ -218,7 +223,9 @@ class SplitModelBank:
     ``params``/``butterfly`` take ready trees (``butterfly`` maps split ->
     {"w_reduce", "w_restore"}), which is how ``repro_torch.bridge`` feeds
     JAX weights in; otherwise the bank initialises on ``device`` from
-    ``seed``.  ``edge_mp``/``cloud_mp`` must be 1.  ``profiler`` (a
+    ``seed``.  ``edge_mp``/``cloud_mp`` are the default model-axis degrees
+    of the halves (a runner may override them per half); a degree above 1
+    runs on that many ranks (see the module note).  ``profiler`` (a
     ``runtime.metrics.JitProfiler``) times every keyed dispatch of the bank
     and of its engines."""
 
@@ -226,7 +233,6 @@ class SplitModelBank:
                  seed: int = 0, device="cuda", params: Optional[dict] = None,
                  butterfly: Optional[Dict[int, dict]] = None,
                  edge_mp: int = 1, cloud_mp: int = 1, profiler=None):
-        _check_degree(edge_mp=edge_mp, cloud_mp=cloud_mp)
         self.device = dev_lib.resolve(device)
         # Matmuls run at full precision: no TF32 for f32 products, and bf16
         # products reduce in f32, as XLA does in the reference.
@@ -255,6 +261,8 @@ class SplitModelBank:
         self.d_r = d_r
         self.wire_mode = wire_mode
         self.seed = seed
+        self.edge_mp = int(edge_mp)
+        self.cloud_mp = int(cloud_mp)
         self.built = M.build(base_cfg)
         self._dt = dev_lib.torch_dtype(base_cfg.dtype)
         self._defs = tfm.build_layer_defs(base_cfg)
@@ -277,9 +285,10 @@ class SplitModelBank:
         self.row_block = ROW_BLOCK
         self._wire_sig = (wire_mode, self.wire_eff_bits, self.row_block)
 
-        self._runners: Dict[int, "SplitRunner"] = {}
+        # runner key (split, edge_mp, cloud_mp); fn key (kind, split, mp)
+        self._runners: Dict[Tuple[int, int, int], "SplitRunner"] = {}
         self._fns: Dict[Tuple, object] = {}
-        self._cache_templates: Dict[Tuple[int, int, int, int], object] = {}
+        self._cache_templates: Dict[Tuple, object] = {}
         self.jit_cache_keys: set = set()
         self.profiler = profiler
         self.cache_hits = 0
@@ -323,16 +332,33 @@ class SplitModelBank:
 
     def runner(self, split: int, *, edge_mp: Optional[int] = None,
                cloud_mp: Optional[int] = None) -> "SplitRunner":
-        """Facade for one candidate split; ``edge_mp``/``cloud_mp`` must be
-        1 (or None) in the port."""
-        _check_degree(edge_mp=1 if edge_mp is None else edge_mp,
-                      cloud_mp=1 if cloud_mp is None else cloud_mp)
-        if split not in self._runners:
+        """Facade for one candidate split; ``edge_mp``/``cloud_mp`` override
+        the bank's degrees, so heterogeneous halves (edge 1, cloud N) share
+        the one backbone.  A degree must divide the heads, kv heads, d_ff
+        and experts (ValueError)."""
+        edge_mp = self.edge_mp if edge_mp is None else int(edge_mp)
+        cloud_mp = self.cloud_mp if cloud_mp is None else int(cloud_mp)
+        key = (split, edge_mp, cloud_mp)
+        if key not in self._runners:
             if not 0 < split < self.base_cfg.num_layers:
                 raise ValueError(f"split {split} outside (0, "
                                  f"{self.base_cfg.num_layers})")
-            self._runners[split] = SplitRunner(self, split)
-        return self._runners[split]
+            for mp in {edge_mp, cloud_mp}:
+                tfm.check_tp_divisibility(self._defs, self.base_cfg, mp)
+            self._runners[key] = SplitRunner(self, split, edge_mp=edge_mp,
+                                             cloud_mp=cloud_mp)
+        return self._runners[key]
+
+    def _pctx(self, mp: int) -> parallel.ParallelContext:
+        """The model axis a degree-``mp`` half runs on: this rank's group
+        of ``mp`` ranks (ValueError when they are not there), or LOCAL."""
+        return parallel.manual_context(parallel.model_group(mp, "bank"))
+
+    def cache_cfg(self, mp: int):
+        """The config a degree-``mp`` cache is laid out by: each rank holds
+        ``num_kv_heads / mp`` kv heads (recurrent state replicates)."""
+        cfg = self.base_cfg
+        return dataclasses.replace(cfg, num_kv_heads=cfg.num_kv_heads // mp)
 
     def butterfly_params(self, split: int) -> dict:
         if split not in self._butterfly:
@@ -358,23 +384,26 @@ class SplitModelBank:
             toks = F.pad(toks, (0, Sb - S, 0, Bb - B))
         return toks
 
-    def _cache_template(self, stage: int, split: int, B: int, S: int):
-        """Meta-tensor tree of stage ``stage``'s range cache at true (B, S):
-        shapes only, nothing allocated."""
-        key = (stage, split, B, S)
+    def _cache_template(self, stage: int, split: int, B: int, S: int,
+                        mp: int = 1):
+        """Meta-tensor tree of stage ``stage``'s range cache at true (B, S)
+        and degree ``mp``: shapes only, nothing allocated."""
+        key = (stage, split, B, S, mp)
         if key not in self._cache_templates:
             self._cache_templates[key] = tfm.init_stage_cache(
-                self.engine_stages(split)[stage], self.base_cfg, B, S,
+                self.engine_stages(split)[stage], self.cache_cfg(mp), B, S,
                 self._dt, "meta")
         return self._cache_templates[key]
 
-    def _slice_cache(self, cache, stage: int, split: int, B: int, S: int):
+    def _slice_cache(self, cache, stage: int, split: int, B: int, S: int,
+                     mp: int = 1):
         """Views of a bucket-padded cache at the request's true shape."""
         def cut(leaf, t):
             if leaf.shape == t.shape:
                 return leaf
             return leaf[tuple(slice(0, s) for s in t.shape)]
-        return tree_map(cut, cache, self._cache_template(stage, split, B, S))
+        return tree_map(cut, cache,
+                        self._cache_template(stage, split, B, S, mp))
 
     def engine_stages(self, split: int):
         """Per-stage segmentations matching the range-sliced param views."""
@@ -423,12 +452,20 @@ class SplitModelBank:
         return bf_lib.apply_butterfly(bf, x, wire_bits=self.wire_eff_bits)
 
     # ------------------------------------------------------ the split halves
-    def _fn(self, kind: str, split: int):
-        """The bank's shared function for ``(kind, split)``: every runner and
-        engine of a split gets the same closure."""
-        key = (kind, split, 1) + self._wire_sig
+    def _fn(self, kind: str, split: int, mp: int = 1):
+        """The bank's shared function for ``(kind, split, mp)``: every
+        runner and engine of a split at one degree gets the same closure,
+        which takes a runner's full params and runs this rank's views of
+        them."""
+        key = (kind, split, mp) + self._wire_sig
         if key not in self._fns:
-            self._fns[key] = getattr(self, f"_make_{kind}")(split)
+            pctx = self._pctx(mp)
+            fn = getattr(self, f"_make_{kind}")(split, pctx)
+            if mp > 1:
+                specs = M.tp_param_specs(self.built, with_butterfly=True)
+                fn = (lambda f: lambda params, *a: f(parallel.shard_params(
+                    params, specs, pctx.rank, mp), *a))(fn)
+            self._fns[key] = fn
         return self._fns[key]
 
     def _head(self, params, x):
@@ -442,88 +479,93 @@ class SplitModelBank:
         return embed(params["embed"], toks,
                      scale=cfg.arch_type == "dense" and cfg.act == "gelu")
 
-    def _layers(self, params, x, lo, hi, mode, cache, pos):
+    def _layers(self, params, x, lo, hi, mode, cache, pos,
+                pctx=parallel.LOCAL):
         """(x, caches) of flat layers [lo, hi); the MoE aux losses are
         dropped, as the JAX bank drops them.  Both halves read the whole
         shared block (zamba2's), never a layer-range slice of it."""
         x, caches, _ = tfm.apply_layer_range(
             list(self.built.stages[0]), params["stages"][0], x, lo, hi,
             cfg=self.base_cfg, mode=mode, range_cache=cache, pos=pos,
-            shared_params=params.get("shared_attn"))
+            pctx=pctx, shared_params=params.get("shared_attn"))
         return x, caches
 
-    def _make_edge(self, split: int):
+    def _make_edge(self, split: int, pctx):
         def edge(params, toks):
             x, cache0 = self._layers(params, self._embed(params, toks), 0,
-                                     split, "prefill", None, None)
+                                     split, "prefill", None, None, pctx)
             payload, scales = self._reduce(params["butterfly"], x)
             return payload, scales, cache0
         return edge
 
-    def _make_cloud(self, split: int):
+    def _make_cloud(self, split: int, pctx):
         def cloud(params, payload, scales, length: int):
             x = self._restore(params["butterfly"], payload, scales)
             x, cache1 = self._layers(params, x, split,
                                      self.base_cfg.num_layers, "prefill",
-                                     None, None)
+                                     None, None, pctx)
             return self._head(params, x[:, length - 1:length])[:, 0], cache1
         return cloud
 
-    def _make_prefill(self, split: int):
+    def _make_prefill(self, split: int, pctx):
         """Whole hosted-model prefill (both halves and the wire)."""
         def prefill(params, toks, length: int):
             x, cache0 = self._layers(params, self._embed(params, toks), 0,
-                                     split, "prefill", None, None)
+                                     split, "prefill", None, None, pctx)
             x = self._wire_ingraph(params["butterfly"], x, use_kernel=True)
             x, cache1 = self._layers(params, x, split,
                                      self.base_cfg.num_layers, "prefill",
-                                     None, None)
+                                     None, None, pctx)
             return self._head(params, x[:, length - 1:length]), [cache0, cache1]
         return prefill
 
-    def _make_decode(self, split: int):
+    def _make_decode(self, split: int, pctx):
         """Batched hosted-model decode step for the ServingEngine: ragged
         per-slot positions, the wire through the fused kernels."""
         def decode(params, tokens, caches, pos):
             x, nc0 = self._layers(params, self._embed(params, tokens), 0,
-                                  split, "decode", caches[0], pos)
+                                  split, "decode", caches[0], pos, pctx)
             x = self._wire_ingraph(params["butterfly"], x, use_kernel=True)
             x, nc1 = self._layers(params, x, split, self.base_cfg.num_layers,
-                                  "decode", caches[1], pos)
+                                  "decode", caches[1], pos, pctx)
             return self._head(params, x), [nc0, nc1]
         return decode
 
-    def _make_edge_step(self, split: int):
+    def _make_edge_step(self, split: int, pctx):
         """Streamed-decode edge half: one token through layers [0, split)
         against the edge-resident stage-0 cache, then one wire row."""
         def edge_step(params, tok, cache0, pos):
             x, nc0 = self._layers(params, self._embed(params, tok), 0, split,
-                                  "decode", cache0, pos)
+                                  "decode", cache0, pos, pctx)
             payload, scales = self._reduce(params["butterfly"], x)
             return payload, scales, nc0
         return edge_step
 
-    def _make_cloud_step(self, split: int):
+    def _make_cloud_step(self, split: int, pctx):
         """Streamed-decode cloud half: restore one arrived row and run layers
         [split, N) against the cloud-resident stage-1 cache."""
         def cloud_step(params, payload, scales, cache1, pos):
             x = self._restore(params["butterfly"], payload, scales)
             x, nc1 = self._layers(params, x, split, self.base_cfg.num_layers,
-                                  "decode", cache1, pos)
+                                  "decode", cache1, pos, pctx)
             return self._head(params, x), nc1
         return cloud_step
 
 
 class SplitRunner:
     """Facade for one candidate split.  ``runner.params`` shares every
-    backbone leaf with ``bank.params``; only the butterfly is per split."""
+    backbone leaf with ``bank.params``; only the butterfly is per split.
+    ``edge_mp``/``cloud_mp`` are each half's model-axis degree: the edge
+    half (edge_half, edge_step) and the cloud half (cloud_half, and the
+    whole-model prefill and decode of the cloud's engines) run at their
+    own, and the caches each returns hold that degree's kv heads."""
 
-    edge_mp = 1
-    cloud_mp = 1
-
-    def __init__(self, bank: SplitModelBank, split: int):
+    def __init__(self, bank: SplitModelBank, split: int, *, edge_mp: int = 1,
+                 cloud_mp: int = 1):
         self.bank = bank
         self.split = split
+        self.edge_mp = int(edge_mp)
+        self.cloud_mp = int(cloud_mp)
         self.cfg = bank.base_cfg.with_butterfly(split, bank.d_r,
                                                 bank.wire_eff_bits)
         self.wire_mode = bank.wire_mode
@@ -544,10 +586,11 @@ class SplitRunner:
         B, S = toks.shape
         Bb, Sb = bank._buckets(B, S)
         payload, scales, cache0 = bank.timed_call(
-            bank.cache_key("edge", self.split, 1, Bb, Sb),
-            bank._fn("edge", self.split), params, bank._pad_toks(toks, Bb, Sb))
+            bank.cache_key("edge", self.split, self.edge_mp, Bb, Sb),
+            bank._fn("edge", self.split, self.edge_mp), params,
+            bank._pad_toks(toks, Bb, Sb))
         return (payload[:B, :S], scales[:B, :S],
-                bank._slice_cache(cache0, 0, self.split, B, S))
+                bank._slice_cache(cache0, 0, self.split, B, S, self.edge_mp))
 
     def cloud_half(self, params, payload, scales):
         """Cloud stage: restore + layers [split, N) + LM head.  Returns
@@ -560,9 +603,11 @@ class SplitRunner:
             pad = (0, 0, 0, Sb - S, 0, Bb - B)
             payload, scales = F.pad(payload, pad), F.pad(scales, pad)
         logits, cache1 = bank.timed_call(
-            bank.cache_key("cloud", self.split, 1, Bb, Sb),
-            bank._fn("cloud", self.split), params, payload, scales, S)
-        return logits[:B], bank._slice_cache(cache1, 1, self.split, B, S)
+            bank.cache_key("cloud", self.split, self.cloud_mp, Bb, Sb),
+            bank._fn("cloud", self.split, self.cloud_mp), params, payload,
+            scales, S)
+        return logits[:B], bank._slice_cache(cache1, 1, self.split, B, S,
+                                             self.cloud_mp)
 
     # --------------------------------------------------------- streamed decode
     def edge_step(self, params, tok, cache0, pos):
@@ -573,24 +618,57 @@ class SplitRunner:
         bank = self.bank
         tok = self._tensor(tok, torch.int64)
         return bank.timed_call(
-            bank.cache_key("edge_step", self.split, 1, tok.shape[0], 1),
-            bank._fn("edge_step", self.split), params, tok, cache0,
-            self._tensor(pos, torch.int64))
+            bank.cache_key("edge_step", self.split, self.edge_mp,
+                           tok.shape[0], 1),
+            bank._fn("edge_step", self.split, self.edge_mp), params, tok,
+            cache0, self._tensor(pos, torch.int64))
 
     def stream_step(self, engine, req, cache, payload, scales, pos: int):
         """One streamed-decode cloud turn through ``engine``.  Returns
         ``(token, cache)``."""
         out = engine.stream_step(req, cache, payload, scales, pos)
-        self.bank.note_key(self.bank.cache_key("cloud_step", self.split, 1, 1, 1))
+        self.bank.note_key(self.bank.cache_key("cloud_step", self.split,
+                                               self.cloud_mp, 1, 1))
         return out
 
     def pad_decode_cache(self, cache, stage: int, length: int):
         """Pad a prefill-shaped (B=1, seq=S) stage cache to decode capacity
-        ``length`` (zeros past the prompt).  A leaf that already has its
-        decode shape (recurrent state, a full ring) is returned as it is,
-        so the decode steps that update the result in place update it."""
+        ``length`` (zeros past the prompt), at the degree of the half that
+        made it (stage 0 the edge's, stage 1 the cloud's).  A leaf that
+        already has its decode shape (recurrent state, a full ring) is
+        returned as it is, so the decode steps that update the result in
+        place update it."""
+        mp = self.edge_mp if stage == 0 else self.cloud_mp
         return tfm.pad_to_template(
-            cache, self.bank._cache_template(stage, self.split, 1, length))
+            cache, self.bank._cache_template(stage, self.split, 1, length, mp))
+
+    def to_degree(self, cache, stage: int, mp: int):
+        """Stage ``stage``'s cache with the kv heads of degree ``mp`` on this
+        rank: a cache that already has them as it is; a whole one (degree
+        1) cut to this rank's block; one of another degree gathered over
+        its group first.  Recurrent state is replicated and passes
+        through.  Every rank must call it together (it may gather)."""
+        bank = self.bank
+        K = bank.base_cfg.num_kv_heads
+        want = K // mp
+        spec = tfm.stage_cache_spec(bank.engine_stages(self.split)[stage],
+                                    bank.base_cfg, head_axis="model")
+
+        def one(leaf, dim):
+            have = leaf.shape[dim]
+            if have == want:
+                return leaf
+            if have != K:
+                group = parallel.model_group(K // have, "bank")
+                parts = [torch.empty_like(leaf) for _ in
+                         range(torch.distributed.get_world_size(group))]
+                torch.distributed.all_gather(parts, leaf.contiguous(),
+                                             group=group)
+                leaf = torch.cat(parts, dim=dim)
+            rank = bank._pctx(mp).rank
+            return leaf.narrow(dim, rank * want, want)
+
+        return parallel._map_spec(one, spec, cache)
 
     # ------------------------------------------------------ pipelined decode
     def stage_view(self):
@@ -615,8 +693,9 @@ class SplitRunner:
         ``serving.pipeline.make_decode_pipeline``'s microbatch rotation (or
         its serial reference with ``pipelined=False``) running views of the
         bank's shared backbone.  ``pods`` is a pair of devices, edge then
-        cloud; None puts both on the bank's device (two streams of one
-        card).  Returns ``run(tokens, timings=None, states=None) ->
+        cloud, or a pair of device lists for a model axis inside each pod
+        (the JAX version's mesh; see ``serving.pipeline.make_pods``); None
+        puts both on the bank's device (two streams of one card).  Returns ``run(tokens, timings=None, states=None) ->
         (num_microbatches * microbatch, new_tokens)`` greedy ids.  The built
         function and its split-view params are kept in the bank's function
         cache under the wire signature, and each run counts its key as the
@@ -626,7 +705,7 @@ class SplitRunner:
             raise ValueError("the decode pipeline wires quantized codes "
                              "(int8/int4/entropy)")
         pods = (bank.device, bank.device) if pods is None else tuple(pods)
-        key = ("decode_pipeline", self.split, tuple(map(str, pods)),
+        key = ("decode_pipeline", self.split, str(pods),
                num_microbatches, prompt_len, microbatch, new_tokens,
                bool(pipelined), bool(use_kernel), bool(overlap_psum)) \
             + bank._wire_sig
@@ -647,33 +726,46 @@ class SplitRunner:
         return run
 
     # ------------------------------------------------------------- engine glue
-    def _engine_prefill(self, params, toks):
+    def _engine_prefill(self, params, toks, mp: int = 1):
         bank = self.bank
         toks = self._tensor(toks)
         B, S = toks.shape
         Bb, Sb = bank._buckets(B, S)
         logits, caches = bank.timed_call(
-            bank.cache_key("prefill", self.split, 1, Bb, Sb),
-            bank._fn("prefill", self.split), params,
+            bank.cache_key("prefill", self.split, mp, Bb, Sb),
+            bank._fn("prefill", self.split, mp), params,
             bank._pad_toks(toks, Bb, Sb), S)
-        return logits[:B], [bank._slice_cache(caches[0], 0, self.split, B, S),
-                            bank._slice_cache(caches[1], 1, self.split, B, S)]
+        return logits[:B], [
+            bank._slice_cache(caches[0], 0, self.split, B, S, mp),
+            bank._slice_cache(caches[1], 1, self.split, B, S, mp)]
 
     def make_engine(self, *, max_batch: int, max_len: int, seed: int = 0,
                     mp: Optional[int] = None) -> ServingEngine:
-        """``mp`` — model-axis degree of the engine's steps; 1 (or None)
-        in the port."""
-        mp = 1 if mp is None else int(mp)
-        _check_degree(mp=mp)
+        """``mp`` — model-axis degree of the engine's whole-model prefill
+        and decode steps; the runner's cloud degree by default (the engines
+        live on the cloud server), the edge degree for a device's local
+        engine.  Its slot pool holds that degree's kv heads, and caches
+        admitted from halves of other degrees are brought to it
+        (:meth:`to_degree`)."""
+        mp = self.cloud_mp if mp is None else int(mp)
+        bank = self.bank
+
+        def cache_in(caches):
+            return [self.to_degree(c, stage, mp)
+                    for stage, c in enumerate(caches)]
+
         return ServingEngine(self.params, self.built, max_batch=max_batch,
                              max_len=max_len, seed=seed,
-                             stages=self.bank.engine_stages(self.split),
-                             prefill_fn=self._engine_prefill,
-                             decode_fn=self.bank._fn("decode", self.split),
-                             stream_fn=self.bank._fn("cloud_step", self.split),
-                             device=self.bank.device,
-                             profiler=self.bank.profiler,
-                             profile_key=(self.split, mp))
+                             stages=bank.engine_stages(self.split),
+                             prefill_fn=lambda p, t: self._engine_prefill(p, t, mp),
+                             decode_fn=bank._fn("decode", self.split, mp),
+                             stream_fn=bank._fn("cloud_step", self.split, mp),
+                             device=bank.device, profiler=bank.profiler,
+                             profile_key=(self.split, mp),
+                             cache_cfg=bank.cache_cfg(mp),
+                             cache_in=cache_in if max(mp, self.edge_mp,
+                                                      self.cloud_mp) > 1
+                             else None)
 
     # --------------------------------------------------------------- reference
     def reference_prefill(self, toks):

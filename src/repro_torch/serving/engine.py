@@ -74,7 +74,8 @@ class ServingEngine:
                  prefill_fn: Optional[Callable] = None,
                  decode_fn: Optional[Callable] = None,
                  stream_fn: Optional[Callable] = None, device="cuda",
-                 profiler=None, profile_key: tuple = ()):
+                 profiler=None, profile_key: tuple = (), cache_cfg=None,
+                 cache_in: Optional[Callable] = None):
         self.device = dev_lib.resolve(device)
         self.params = params
         self.built = built
@@ -84,9 +85,12 @@ class ServingEngine:
         dt = dev_lib.torch_dtype(self.cfg.dtype)
         stage_segs = stages if stages is not None else \
             [list(segs) for segs in built.stages]
-        self.cache = [tfm.init_stage_cache(list(segs), self.cfg, max_batch,
-                                           max_len, dt, self.device)
+        # a tensor-parallel engine's pool holds its rank's kv heads
+        # (``cache_cfg``), and ``cache_in`` brings admitted caches to them
+        self.cache = [tfm.init_stage_cache(list(segs), cache_cfg or self.cfg,
+                                           max_batch, max_len, dt, self.device)
                       for segs in stage_segs]
+        self._cache_in = cache_in
         self.positions = np.zeros((max_batch,), np.int64)   # next write pos
         self.active: List[Optional[Request]] = [None] * max_batch
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -228,6 +232,8 @@ class ServingEngine:
 
     def _admit(self, slot: int, req: Request, prompt_len: int, caches,
                last_logits):
+        if self._cache_in is not None:
+            caches = self._cache_in(caches)
         _write_slot(self.cache, caches, slot)
         self.positions[slot] = prompt_len
         self.active[slot] = req

@@ -1,6 +1,6 @@
 """The paper's deployment as a two-stage pipeline over two pods (port of
-``repro/serving/pipeline.py``: ``wire_stats``, ``make_split_pipeline``,
-``_grow_cache`` and ``make_decode_pipeline`` at model-axis degree 1).
+``repro/serving/pipeline.py``: ``wire_stats``, ``pipeline_param_specs``,
+``make_split_pipeline``, ``_grow_cache`` and ``make_decode_pipeline``).
 
 Pod 0 ("edge") runs the embedding, layers [0, j) and the reduction unit with
 the wire quantization; only the codes and their f32 scales cross to pod 1
@@ -17,13 +17,18 @@ memory to the producer's stream while the consumer still reads it.  One
 Python thread launches both pods' work; on the CPU the pods run one after
 the other.
 
-MoE layers run their local path, as the JAX package's manual path does at
-model-axis degree 1: each microbatch's tokens compete for its experts'
-capacity.  The recurrent families run as the others: their state rides in
-the stage caches, and zamba2's shared attention block is placed on both
-pods.  A model axis inside a pod (tensor-parallel stages,
-``overlap_psum``) is not ported and raises ``NotImplementedError``; an
-encoder-decoder raises it too, as the JAX package asserts it out of the
+Within a pod, stages may be tensor-parallel over a model axis, as in the
+JAX package's (pod, model) mesh: attention heads, d_ff columns and MoE
+experts shard over the pod's model ranks Megatron-style, and each layer's
+partial outputs are summed over them (``models/parallel.model_psum``).  The
+port runs one process per model rank (``parallel.spawn``); ``pods`` then
+names each pod's devices, one a rank, and each process holds both pods'
+shards of its rank.  The wire still crosses inside the process, because
+the codes are replicated over the model axis: JAX's ppermute sends from
+model rank r of pod 0 to model rank r of pod 1.  Each pod sums over a
+process group of its own, issued on its stream.  MoE layers run the manual
+expert-parallel path; recurrent mixers replicate.  An encoder-decoder
+raises ``NotImplementedError``, as the JAX package asserts it out of the
 pipeline's scope.
 """
 from __future__ import annotations
@@ -39,6 +44,8 @@ from repro_torch.core import butterfly as bf_lib
 from repro_torch.core.quantization import (dequantize, pack_int4, quantize,
                                            unpack_int4, wire_bytes)
 from repro_torch.kernels import ops
+from repro_torch.models import model as M
+from repro_torch.models import parallel
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed, rms_norm, unembed
 from repro_torch.tree import tree_map
@@ -66,10 +73,22 @@ def _grow_cache(small, template):
     return tree_map(lambda a, t: a.to(t.dtype), grown, template)
 
 
+def pipeline_param_specs(built, mp: int):
+    """Spec tree (a prefix of the params tree; leaves the sharded dim or
+    None) of a pipeline's params at model-axis degree ``mp``: stage layers
+    shard over the model axis by the tensor-parallel rules, everything else
+    replicates.  ``mp == 1`` gives a bare None, the fully replicated
+    prefix."""
+    if mp <= 1:
+        return None
+    return M.tp_param_specs(built)
+
+
 @dataclasses.dataclass(frozen=True)
 class Pod:
     device: torch.device
     stream: Optional["torch.cuda.Stream"]      # None on the CPU
+    pctx: parallel.ParallelContext = parallel.LOCAL
 
     def active(self):
         """Context in which work goes to this pod's stream (a no-op on the
@@ -80,21 +99,35 @@ class Pod:
 def make_pods(pods) -> tuple:
     """Two :class:`Pod` from a pair of devices (names or ``torch.device``),
     pod 0 the edge and pod 1 the cloud; on CUDA each gets its own stream,
-    also when both name the same card."""
+    also when both name the same card.  A pair of equal-length device lists
+    gives each pod a model axis of that degree: this process is the model
+    rank ``rank % mp`` of the ``torch.distributed`` world, takes that
+    entry of each list, and each pod sums over a group of its own."""
     pods = tuple(pods)
-    if len(pods) != 2 or any(isinstance(p, (list, tuple)) for p in pods):
-        raise NotImplementedError(
-            f"pods must be two devices, got {pods!r}: a model axis inside a "
-            f"pod is not ported")
+    if len(pods) != 2:
+        raise NotImplementedError(f"pods must be two, got {pods!r}: the "
+                                  f"pipeline has two stages")
+    nested = [isinstance(p, (list, tuple)) for p in pods]
+    ctxs = (parallel.LOCAL, parallel.LOCAL)
+    if any(nested):
+        if not all(nested) or len(pods[0]) != len(pods[1]) or not pods[0]:
+            raise ValueError(f"both pods need one device per model rank, "
+                             f"got {pods!r}")
+        mp = len(pods[0])
+        ctxs = tuple(parallel.manual_context(parallel.model_group(mp, tag))
+                     for tag in ("edge", "cloud"))
+        r = ctxs[0].rank if mp > 1 else 0
+        pods = (pods[0][r], pods[1][r])
     devs = [dev_lib.resolve(p) for p in pods]
     if devs[0].type != devs[1].type:
         raise ValueError(f"both pods must be CUDA devices or both the CPU, "
                          f"got {devs}")
     if devs[0].type == "cpu":
-        return tuple(Pod(d, None) for d in devs)
+        return tuple(Pod(d, None, c) for d, c in zip(devs, ctxs))
     devs = [d if d.index is not None else
             torch.device("cuda", torch.cuda.current_device()) for d in devs]
-    return tuple(Pod(d, torch.cuda.Stream(device=d)) for d in devs)
+    return tuple(Pod(d, torch.cuda.Stream(device=d), c)
+                 for d, c in zip(devs, ctxs))
 
 
 def _handoff(t: torch.Tensor, src: Pod, dst: Pod) -> torch.Tensor:
@@ -114,8 +147,12 @@ def pod_params(built, params, pods) -> tuple:
     the full tree, on its pod's device; zamba2's shared block goes to both,
     as layers on either side of the split read it.  A leaf already on its
     pod's device is shared, not copied, so on one card both pods use the
-    caller's one copy of the weights."""
+    caller's one copy of the weights.  At a model axis each pod takes views
+    of this rank's shards of the full tree (:func:`pipeline_param_specs`)."""
     cfg = built.cfg
+    mp = pods[0].pctx.mp_size
+    params = parallel.shard_params(params, pipeline_param_specs(built, mp),
+                                   pods[0].pctx.rank, mp)
     head = "embed" if cfg.tie_embeddings else "head"
     edge = {"embed": params["embed"], "stages": [params["stages"][0], None],
             "butterfly": {"w_reduce": params["butterfly"]["w_reduce"]}}
@@ -159,8 +196,16 @@ def make_split_pipeline(built, pods, num_microbatches: int, seq_len: int,
     The cloud unpacks, dequantizes and restores (``@ w_restore``; raw goes
     straight in), runs stage 1, the final norm on the last position and
     the LM head through the tied table or the head, without a softcap, as
-    the JAX version does.  MoE layers take their local path: each
-    microbatch's tokens compete for its experts' capacity.
+    the JAX version does.  MoE layers take their local path, or under a
+    model axis the manual expert-parallel one: each microbatch's tokens
+    compete for its experts' capacity.
+
+    ``pods`` as two device lists of ``mp`` entries runs each stage
+    tensor-parallel over the pod's ``mp`` model ranks (one process each,
+    see :func:`make_pods`); each takes its shards of the full ``params``
+    (:func:`pod_params`), and every rank returns the same logits.
+    ``mp`` must divide the heads, kv heads, d_ff and experts
+    (``transformer.check_tp_divisibility``).
 
     Schedule (``pipelined=True``): at tick t of Mmb + 1 the edge runs
     microbatch t while the cloud runs microbatch t - 1, on the pods'
@@ -183,8 +228,10 @@ def make_split_pipeline(built, pods, num_microbatches: int, seq_len: int,
     if wire_mode == "int4" and cfg.butterfly.d_r % 2:
         raise ValueError("int4 wire packs two codes per byte: d_r must be even")
     edge, cloud = make_pods(pods)
+    tfm.check_tp_divisibility(tfm.build_layer_defs(cfg), cfg,
+                              edge.pctx.mp_size)
     if not pipelined and edge.device == cloud.device:
-        cloud = edge
+        cloud = dataclasses.replace(cloud, stream=edge.stream)
     S, Mmb, mb = int(seq_len), int(num_microbatches), int(microbatch)
     bits = 4 if wire_mode == "int4" else cfg.butterfly.wire_bits
     dt = dev_lib.torch_dtype(cfg.dtype)
@@ -195,6 +242,7 @@ def make_split_pipeline(built, pods, num_microbatches: int, seq_len: int,
         x = embed(p["embed"], toks, scale=embed_scale)
         x, _, _ = tfm.apply_stage(stages0, p["stages"][0], x, cfg=cfg,
                                   mode="train", stage_cache=None, pos=None,
+                                  pctx=edge.pctx,
                                   shared_params=p.get("shared_attn"))
         if wire_mode == "raw":
             return (x,)
@@ -214,6 +262,7 @@ def make_split_pipeline(built, pods, num_microbatches: int, seq_len: int,
             x = dequantize(codes, wire[1], dt) @ p["butterfly"]["w_restore"]
         x, _, _ = tfm.apply_stage(stages1, p["stages"][1], x, cfg=cfg,
                                   mode="train", stage_cache=None, pos=None,
+                                  pctx=cloud.pctx,
                                   shared_params=p.get("shared_attn"))
         x = rms_norm(x[:, -1:], p["final_norm"], cfg.rms_eps)
         table = p["embed"] if cfg.tie_embeddings else p["head"]
@@ -230,7 +279,7 @@ def make_split_pipeline(built, pods, num_microbatches: int, seq_len: int,
         if tuple(toks.shape) != (Mmb * mb, S):
             raise ValueError(f"tokens {tuple(toks.shape)}, expected "
                              f"{(Mmb * mb, S)}")
-        used = (edge,) if cloud is edge else (edge, cloud)
+        used = (edge,) if cloud.stream is edge.stream else (edge, cloud)
         caller = [torch.cuda.current_stream(pod.device)
                   for pod in used if pod.stream is not None]
         for pod, s in zip(used, caller):
@@ -314,12 +363,18 @@ def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,
     ``wire_mode``: "int8", nibble-packed "int4", or "entropy" (numerically
     int8).  ``use_kernel``: the fused reduce+quant on the edge and the
     fused dequant+restore+norm1 (``ops.butterfly_restore_norm``, fed the
-    first cloud layer's norm1 weight) on the cloud.
+    first cloud layer's norm1 weight) on the cloud.  ``overlap_psum``:
+    the cloud defers each dense layer's MLP psum into the next layer (see
+    ``transformer.apply_layer``), which changes no value.
+
+    ``pods`` as two device lists of ``mp`` entries runs each stage
+    tensor-parallel over the pod's model ranks (see
+    :func:`make_split_pipeline`); each rank caches only its own kv heads,
+    so the decode caches are sized with ``num_kv_heads / mp`` (recurrent
+    state replicates at its full shape), and every rank returns the same
+    ids.
     """
     cfg = built.cfg
-    if overlap_psum:
-        raise NotImplementedError("overlap_psum defers psums over a model "
-                                  "axis, which is not ported")
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: enc-dec archs are out of the "
                                   f"decode pipeline's scope")
@@ -339,12 +394,15 @@ def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,
     if pipelined and Mmb < 2:
         raise ValueError("pipelined decode needs >= 2 in-flight microbatches")
     edge, cloud = make_pods(pods)
+    mp = edge.pctx.mp_size
+    tfm.check_tp_divisibility(tfm.build_layer_defs(cfg), cfg, mp)
     bits = 4 if wire_mode == "int4" else 8
     dt = dev_lib.torch_dtype(cfg.dtype)
     stages0, stages1 = list(built.stages[0]), list(built.stages[1])
     embed_scale = cfg.arch_type == "dense" and cfg.act == "gelu"
-    tmpl0 = tfm.init_stage_cache(stages0, cfg, mb, S + T, dt, "meta")
-    tmpl1 = tfm.init_stage_cache(stages1, cfg, mb, S + T, dt, "meta")
+    cfg_rank = dataclasses.replace(cfg, num_kv_heads=cfg.num_kv_heads // mp)
+    tmpl0 = tfm.init_stage_cache(stages0, cfg_rank, mb, S + T, dt, "meta")
+    tmpl1 = tfm.init_stage_cache(stages1, cfg_rank, mb, S + T, dt, "meta")
     n_ticks = Mmb * (T - 1)
 
     def edge_wire(p, x):
@@ -372,7 +430,7 @@ def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,
         x = embed(p["embed"], toks, scale=embed_scale)
         x, caches, _ = tfm.apply_stage(stages0, p["stages"][0], x, cfg=cfg,
                                        mode="prefill", stage_cache=None,
-                                       pos=None,
+                                       pos=None, pctx=edge.pctx,
                                        shared_params=p.get("shared_attn"))
         return (*edge_wire(p, x), caches)
 
@@ -380,14 +438,16 @@ def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,
         x, h = cloud_restore(p, codes, scales)
         x, caches, _ = tfm.apply_stage(stages1, p["stages"][1], x, cfg=cfg,
                                        mode="prefill", stage_cache=None,
-                                       pos=None, first_h=h,
-                                       shared_params=p.get("shared_attn"))
+                                       pos=None, pctx=cloud.pctx, first_h=h,
+                                       shared_params=p.get("shared_attn"),
+                                       overlap_psum=overlap_psum)
         return greedy(p, x), caches
 
     def edge_step(p, tok, cache, pos):
         x = embed(p["embed"], tok[:, None], scale=embed_scale)
         x, _, _ = tfm.apply_stage(stages0, p["stages"][0], x, cfg=cfg,
                                   mode="decode", stage_cache=cache, pos=pos,
+                                  pctx=edge.pctx,
                                   shared_params=p.get("shared_attn"))
         return edge_wire(p, x)
 
@@ -395,7 +455,9 @@ def make_decode_pipeline(built, pods, num_microbatches: int, prompt_len: int,
         x, h = cloud_restore(p, codes, scales)
         x, _, _ = tfm.apply_stage(stages1, p["stages"][1], x, cfg=cfg,
                                   mode="decode", stage_cache=cache, pos=pos,
-                                  first_h=h, shared_params=p.get("shared_attn"))
+                                  pctx=cloud.pctx, first_h=h,
+                                  shared_params=p.get("shared_attn"),
+                                  overlap_psum=overlap_psum)
         return greedy(p, x)
 
     def sync():

@@ -4,8 +4,10 @@ windowed model's kernel prefill launching the flash kernel, the two-pod
 decode pipeline on two streams of one card, the runtime simulator's
 numerics on the card, training on the card against the CPU, the MoE
 layer's routing and whisper's kernel prefill on the card against the CPU,
-the two-pod prefill pipeline on two streams against one, and the dry
-run's counts on the card against those on meta tensors.
+the two-pod prefill pipeline on two streams against one, the dry
+run's counts on the card against those on meta tensors, and the model axis:
+two ranks sharing the card over gloo, their all_reduce and the reduced
+families at (pod=2, model=2) against the CPU.
 
 These tests import no JAX, so a GPU machine with PyTorch alone runs them,
 without the JAX package's conftest:
@@ -1033,3 +1035,91 @@ def test_recurrent_model_on_the_card_matches_cpu(cuda, arch):
         out.append((ids, tree_leaves(states)))
     assert torch.equal(out[0][0], out[1][0])
     assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
+def _gloo_rank(rank, device):
+    import torch.distributed as dist
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.full((4, 4096), float(rank + 1), dtype=dtype, device=device)
+        dist.all_reduce(x)
+        out[str(dtype)] = (x.device.type, x.dtype, float(x.float().min()),
+                           float(x.float().max()))
+    return out
+
+
+def test_gloo_all_reduce_of_two_ranks_on_one_card(cuda):
+    """Two spawned ranks share card 0 over gloo (``parallel.backend_for``:
+    NCCL refuses two ranks on one device): their all_reduce of bf16 and f32
+    CUDA tensors sums in place, on the card."""
+    from repro_torch.models import parallel
+    assert parallel.backend_for(["cuda:0", "cuda:0"]) == "gloo"
+    for out in parallel.spawn(_gloo_rank, 2, devices="cuda:0"):
+        assert out == {str(dt): ("cuda", dt, 3.0, 3.0)
+                       for dt in (torch.bfloat16, torch.float32)}
+
+
+def _axis_family(kind):
+    from repro_torch.configs import get_config
+    if kind == "moe":
+        cfg = get_config("qwen3-moe-235b-a22b").reduced()
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=2))
+    elif kind == "zamba2":
+        cfg = dataclasses.replace(get_config("zamba2-7b").reduced(), num_layers=4)
+    else:
+        cfg = get_config("qwen3-8b").reduced()
+    return dataclasses.replace(cfg, dtype="float32").with_butterfly(1, 16)
+
+
+def _axis_rank(rank, device):
+    """The reduced families at (pod=2, model=2) on the card and on the CPU,
+    from one CPU init: split-pipeline logits, decode-pipeline ids (kernels)
+    and the MoE routes, recorded by wrapping ``moe.route``."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serving.pipeline import make_decode_pipeline, make_split_pipeline
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    route, out = moe.route, {}
+    for kind in ("dense", "moe", "zamba2"):
+        built = M.build(_axis_family(kind))
+        params = M.init_model(torch.Generator().manual_seed(0), built, device="cpu")
+        toks = np.random.default_rng(1).integers(0, built.cfg.vocab_size, (4, 32))
+        for dev in ("cpu", "cuda"):
+            pods = ((str(device) if dev == "cuda" else "cpu",) * 2,) * 2
+            p = params if dev == "cpu" else tree_map(lambda t: t.to(device), params)
+            eids = []
+
+            def recording(*a, **kw):
+                res = route(*a, **kw)
+                eids.append(res[3].cpu())
+                return res
+            moe.route = recording
+            try:
+                logits = make_split_pipeline(built, pods, 2, 32, 2)(p, toks).cpu()
+                ids = make_decode_pipeline(built, pods, 2, 32, 2, 4,
+                                           use_kernel=True)(p, toks).cpu()
+            finally:
+                moe.route = route
+            out[kind, dev] = (logits, ids, eids)
+    return out
+
+
+def test_model_axis_on_the_card_matches_cpu(cuda):
+    """Two ranks on card 0 (gloo) at (pod=2, model=2), f32 without TF32:
+    dense qwen3, qwen3-moe (4 experts, top-2) and zamba2 (its shared block
+    sharded) give the CPU's split-pipeline logits within rtol 1e-4 (atol
+    1e-5), its decode-pipeline ids (the wire kernels on the card) and its
+    expert ids for every MoE choice; both ranks agree."""
+    from repro_torch.models import parallel
+    ranks = parallel.spawn(_axis_rank, 2, devices="cuda:0")
+    for out in ranks:
+        for kind in ("dense", "moe", "zamba2"):
+            (lc, ic, ec), (lg, ig, eg) = out[kind, "cpu"], out[kind, "cuda"]
+            torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-5)
+            assert torch.equal(ig, ic), kind
+            assert len(ec) == len(eg) and all(torch.equal(a, b)
+                                              for a, b in zip(ec, eg)), kind
+            assert (kind == "moe") == bool(ec)
+            assert torch.equal(lg, ranks[0][kind, "cuda"][0])

@@ -12,9 +12,12 @@ and its two kernels' plain versions, against the JAX package on the CPU.
   * (c) JAX's ``make_decode_pipeline`` on a two-host-device mesh against
     the port's: in ``test_torch_pipeline_jax.py`` (qwen3, windowed gemma3)
     and ``test_torch_pipeline_jax_families.py`` (MoE, recurrent);
-  * (d) what the port refuses: a model axis, an encoder-decoder (JAX
-    asserts it out of scope), fewer than two tokens, a pipelined run with
-    one microbatch.
+  * (d) what the port refuses: a model axis without its ranks, an
+    encoder-decoder (JAX asserts it out of scope), fewer than two tokens, a
+    pipelined run with one microbatch;
+  * (e) what it now runs: ``overlap_psum`` (the same ids), and a model axis
+    of 2 over two spawned CPU ranks (the same ids as degree 1; JAX's
+    (pod=2, model=4) parity is in ``test_torch_model_parallel_jax.py``).
 """
 import dataclasses
 
@@ -29,6 +32,7 @@ from repro.serving.pipeline import wire_stats as jwire_stats
 from repro_torch.configs import get_config as tget_config
 from repro_torch.kernels import butterfly_kernel, ops, rmsnorm as rmsnorm_kernel
 from repro_torch.models import model as TM
+from repro_torch.models import parallel
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime.split_exec import SplitModelBank
 from repro_torch.serving import pipeline as spl
@@ -220,9 +224,8 @@ def _encdec_built():
 
 
 REFUSALS = {
-    "overlap_psum": (NotImplementedError, dict(overlap_psum=True)),
-    "model axis": (NotImplementedError,
-                   dict(pods=(("cpu", "cpu"), ("cpu", "cpu")))),
+    # two model ranks a pod, and no torch.distributed world to hold them
+    "model axis": (ValueError, dict(pods=(("cpu", "cpu"), ("cpu", "cpu")))),
     "three pods": (NotImplementedError, dict(pods=("cpu",) * 3)),
     "enc-dec": (NotImplementedError, dict(built=_encdec_built)),
     "one token": (ValueError, dict(new_tokens=1)),
@@ -251,3 +254,33 @@ def test_runner_refuses_unquantized_wire():
     runner = _bank("reduced").runner(1)
     with pytest.raises(ValueError):
         runner.decode_pipeline(None, MMB, S, MB, T)
+
+
+# ----------------------------------------------------------------------- (e)
+def test_overlap_psum_changes_no_id():
+    """Deferring each MLP psum into the next layer adds the same values in
+    the same order: the ids equal the undeferred run's, bit for bit."""
+    runner = _bank().runner(2)
+    toks = _tokens(runner.bank.base_cfg)
+    ids = [runner.decode_pipeline(None, MMB, S, MB, T, use_kernel=True,
+                                  overlap_psum=ov)(toks) for ov in (False, True)]
+    assert torch.equal(ids[0], ids[1])
+
+
+def _two_rank_ids(rank, device, pods):
+    runner = _bank(num_heads=4, num_kv_heads=2).runner(2)
+    toks = _tokens(runner.bank.base_cfg)
+    return [runner.decode_pipeline(pods, MMB, S, MB, T, use_kernel=True,
+                                   overlap_psum=ov)(toks)
+            for ov in (False, True)]
+
+
+def test_model_axis_pipeline_on_two_ranks():
+    """(pod=2, model=2) over two spawned CPU ranks (gloo): each rank holds
+    half the heads, d_ff columns and kv heads of both pods, and every rank
+    decodes the degree-1 ids, with ``overlap_psum`` off and on."""
+    want = _two_rank_ids(0, "cpu", ("cpu", "cpu"))[0]
+    got = parallel.spawn(_two_rank_ids, 2, ((("cpu", "cpu"), ("cpu", "cpu")),))
+    for ids in got:
+        for overlapped in ids:
+            assert torch.equal(overlapped, want), (overlapped, want)

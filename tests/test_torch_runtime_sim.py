@@ -100,9 +100,19 @@ def test_record_replay_is_byte_identical(tmp_path):
     assert a.read_bytes() == b.read_bytes()
 
 
-def test_cli_refuses_the_model_axis():
-    with pytest.raises(NotImplementedError):
-        _cli(tcli.main, ["--no-numerics", "--cloud-mp", "2"])
+def test_cli_refuses_the_model_axis(tmp_path):
+    """The CLI once refused ``--cloud-mp`` above 1.  Timing only, a model
+    axis now only divides the cost model's stage times, and the port's
+    stdout and telemetry equal the JAX package's, byte for byte, with no
+    process started."""
+    got = {}
+    for pkg, main in (("jax", jcli.main), ("torch", tcli.main)):
+        path = tmp_path / f"{pkg}.json"
+        got[pkg] = (_cli(main, ["--no-numerics", "--cloud-mp", "4",
+                                "--json", str(path)]).replace(str(path), ""),
+                    path.read_bytes())
+    assert got["torch"] == got["jax"]
+    assert "cloud x4" in got["torch"][0]
 
 
 # --------------------------------------------------------------- numerics

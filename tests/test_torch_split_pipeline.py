@@ -18,10 +18,12 @@
     ``rms_norm`` and ``unembed``, jitted) on the port's codes, within the
     bound, and JAX's pipeline logits to that stage on the port's codes with
     some of the tie codes rounded the other way, within the bound;
-  * (b) without JAX: the refusals; the ``crossings`` each run records (Mmb
-    wires and Mmb logits, the wire's dtype and bytes those of
-    ``wire_stats``); pipelined equal to serial, and entropy equal to int8,
-    bit for bit.
+  * (b) without JAX: the refusals (a model axis without its ranks among
+    them); the ``crossings`` each run records (Mmb wires and Mmb logits,
+    the wire's dtype and bytes those of ``wire_stats``); pipelined equal to
+    serial, and entropy equal to int8, bit for bit; and a model axis of 2
+    over two spawned CPU ranks against degree 1 (JAX's (pod=2, model=4)
+    parity is in ``test_torch_model_parallel_jax.py``).
 """
 import dataclasses
 import functools
@@ -36,6 +38,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import model as TM
+from repro_torch.models import parallel
 from repro_torch.serving import make_split_pipeline, wire_stats
 
 ARCHS = ["qwen3-8b", "gemma3-12b", "qwen3-moe-235b-a22b", "zamba2-7b",
@@ -198,7 +201,8 @@ REFUSALS = {
     "enc-dec": (NotImplementedError, lambda: make_split_pipeline(
         TM.build(get_config("whisper-base").reduced().with_butterfly(1, 16)),
         ("cpu", "cpu"), MMB, S, MB)),
-    "model axis": (NotImplementedError, lambda: make_split_pipeline(
+    # two model ranks a pod, and no torch.distributed world to hold them
+    "model axis": (ValueError, lambda: make_split_pipeline(
         _built()[0], (("cpu", "cpu"), ("cpu", "cpu")), MMB, S, MB)),
     "no butterfly": (ValueError, lambda: make_split_pipeline(
         TM.build(get_config("qwen3-8b").reduced()), ("cpu", "cpu"), MMB, S, MB)),
@@ -266,3 +270,24 @@ def test_tokens_of_the_wrong_shape_raise():
     run = make_split_pipeline(built, ("cpu", "cpu"), MMB, S, MB)
     with pytest.raises(ValueError):
         run(params, _tokens(built.cfg)[:, :S - 1])
+
+
+def _two_rank_logits(rank, device, pods):
+    built, params = _built(num_heads=4, num_kv_heads=2)
+    toks = _tokens(built.cfg)
+    return {wm: make_split_pipeline(built, pods, MMB, S, MB, wm)(params, toks)
+            for wm in WIRE_MODES}
+
+
+def test_model_axis_split_pipeline_on_two_ranks():
+    """(pod=2, model=2) over two spawned CPU ranks (gloo), f32, every wire:
+    each rank's logits within atol 1e-5 * max(1, max|ref|) of degree 1's,
+    with the same argmax, and equal on both ranks."""
+    want = _two_rank_logits(0, "cpu", ("cpu", "cpu"))
+    got = parallel.spawn(_two_rank_logits, 2,
+                         ((("cpu", "cpu"), ("cpu", "cpu")),))
+    for wm, ref in want.items():
+        bound = 1e-5 * max(1.0, float(ref.abs().max()))
+        assert torch.equal(got[0][wm], got[1][wm]), wm
+        assert float((got[0][wm] - ref).abs().max()) <= bound, wm
+        assert torch.equal(got[0][wm].argmax(-1), ref.argmax(-1)), wm
