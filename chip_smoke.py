@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-On one H100 80GB HBM3 it takes about six minutes (ten with
+On one H100 80GB HBM3 it takes about seven minutes (eleven with
 ``--profile``), the kernels' build included.
 
 Phases, each fatal on failure (the script exits non-zero and prints no
@@ -195,6 +195,20 @@ result line):
                each, held step by step to degree 1 (see phase_model_axis);
                a gloo all_reduce's time, degree 2's walls beside degree
                1's, each rank's peak.
+ 23. automatic - four spawned ranks share this card over gloo at (data=2,
+               model=2), each holding full-width qwen3-moe cut to 2 of 94
+               layers (butterfly after layer 1 at d_r 64) and running its
+               shards: half the heads, 64 of the 128 experts, half of each
+               expert's d_ff (all-gathered over data a layer at a time).
+               A kernel prefill of 4 x 128 tokens, 2 a data block
+               (shard_batch), each block within phase 5's 5% of a
+               one-process run of its 2 prompts alone; 8 decode steps with
+               the decode broadcast held to a one-process decode of all 4,
+               and 2 with it off (the weight gather) to each block's; exact
+               launches a rank; first the reduced f32 card-vs-CPU run at
+               (data=2, model=2) (prefill, decode, 4 training steps) and
+               (pod=2, data=1, model=2) with experts over the pod axis
+               (see phase_automatic).
 Each model's weights leave the card before the next one is built, and
 each phase prints its peak device memory.
 With ``--profile [DIR]`` it profiles one qwen3-8b prefill and 8 decode steps
@@ -208,7 +222,7 @@ prefills and decode in phases 18 and 19 (torch.profiler: wall time,
 device-busy share, top kernels; the
 operator tables go to DIR when one is given).  It then
 prints the kernels' JSON line (launches by path, the paths of phases
-9-22 included (phase 22's summed over its two ranks), the training and
+9-23 included (phases 22's and 23's summed over their ranks), the training and
 split-pipeline paths with none; the
 times of flash attention and of the norm and bincount kernels per launch, averaged over their path's launches; the two butterfly
 kernels' at 128 rows; every timed shape under "by_shape") and, last, the
@@ -2114,8 +2128,8 @@ def phase_train_qwen(smi: str, profile: bool = False,
     stream = lm_batches(64, 64, 4, seed=1)
     batches = [{k: torch.from_numpy(v) for k, v in next(stream).items()}
                for _ in range(8)]
-    params, _ = init_train_state(torch.Generator().manual_seed(0), small,
-                                 device="cpu")
+    params, _, _ = init_train_state(torch.Generator().manual_seed(0), small,
+                                    device="cpu")
     _train_parity("qwen3-8b training",
                   _lm_step(small, AdamWConfig(lr=cosine_schedule(1e-3, 3, 8))),
                   params, batches)
@@ -2126,8 +2140,8 @@ def phase_train_qwen(smi: str, profile: bool = False,
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     t0 = time.perf_counter()
-    params, opt = init_train_state(torch.Generator(device="cuda").manual_seed(0),
-                                   built, device="cuda")
+    params, opt, _ = init_train_state(
+        torch.Generator(device="cuda").manual_seed(0), built, device="cuda")
     raw = next(lm_batches(cfg.vocab_size, c["seq"], c["batch"], seed=0))
     batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
     torch.cuda.synchronize()
@@ -3417,6 +3431,458 @@ def phase_model_axis(refs, smi: str):
     return launches
 
 
+# -------------------------------------------------------------------------- 23
+# the automatic regime: qwen3-moe-235b-a22b at its published widths cut to 2
+# of its 94 layers (12.44 GB: 9.66 of experts, 0.29 of attention, 2.49 of
+# embedding and head; 4 layers would need about 90 GB for four ranks), with
+# the butterfly after layer 1 at d_r 64, as 4 ranks at (data=2, model=2)
+# sharing the card over gloo.  Each rank holds the whole model and runs views
+# of its shards: half the heads and kv heads, 64 of the 128 experts, half of
+# each expert's d_ff (all-gathered over data a layer at a time, 2.4 GB)
+AUTO = dict(layers=2, d_r=64, prompts=4, S=128, steps=8, gather_steps=2)
+AUTO_GRID = ((2, 2), ("data", "model"))
+# the reduced f32 card-vs-CPU run on the same ranks, and its grid with experts
+# over the pod axis (prefill only)
+AUTO_PARITY = dict(B=4, S=32, T=4, train_steps=4, rtol=1e-4, atol=1e-5)
+AUTO_POD_GRID = ((2, 1, 2), ("pod", "data", "model"))
+
+
+def _auto_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
+                              num_layers=AUTO["layers"])
+    return cfg.with_butterfly(1, AUTO["d_r"])
+
+
+def _auto_parity_cfg(butterfly: bool):
+    """Reduced qwen3-moe in f32 with 8 heads and 4 kv heads (4 experts,
+    top-2, the default capacity factor 1.25)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b").reduced(),
+                              num_heads=8, num_kv_heads=4, dtype="float32")
+    return cfg.with_butterfly(1, 16) if butterfly else cfg
+
+
+def _auto_checksum(params) -> list:
+    """f64 sums of slices drawn first and last: the same seed gives the
+    same weights in every process."""
+    ffn = params["stages"][1][0][0]["ffn"]
+    return [float(a.double().sum()) for a in
+            (params["embed"][:4096], ffn["wd"][-1, -1], params["head"][-4096:])]
+
+
+def _auto_serve(params, built, pctx, toks, T):
+    """Kernel prefill of ``toks`` and T greedy kernel decode steps under
+    ``pctx``, every MoE route recorded: (prefill logits, decode logits,
+    ids, routes), on the host."""
+    import torch
+    from repro_torch.models import model as M
+    with _Routes() as r:
+        logits, caches = M.forward_prefill(params, built, {"tokens": toks}, pctx,
+                                           use_kernel=True)
+        caches = M.pad_decode_caches(built, caches, toks.shape[1] + T, pctx)
+        tok, steps, ids = logits[:, -1].argmax(-1, keepdim=True), [], []
+        for i in range(T):
+            lg, caches = M.forward_decode(params, built, tok, caches,
+                                          toks.shape[1] + i, pctx, use_kernel=True)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            steps.append(lg[:, 0].cpu())
+            ids.append(tok[:, 0].cpu())
+    return (logits[:, 0].cpu(), torch.stack(steps), torch.stack(ids),
+            [e.cpu() for e in r.eids])
+
+
+def _same_routes(what: str, a: list, b: list) -> int:
+    import torch
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: the card routes a choice to another "
+                             f"expert than the CPU")
+    return sum(x.numel() for x in a)
+
+
+def _auto_parity() -> dict:
+    """Phase 23's check 4 on this rank: reduced qwen3-moe in f32 (no TF32)
+    from one CPU init, on the card and on the CPU over the same gloo world:
+    at (data=2, model=2) a kernel prefill, 4 greedy kernel decode steps and
+    4 training steps (no butterfly); at (pod=2, data=1, model=2) with
+    experts over the pod axis a kernel prefill.  Logits rtol 1e-4 (atol
+    1e-5), ids and every route equal, losses and grad norms rtol 1e-4;
+    raises (and so fails the spawn) otherwise."""
+    import numpy as np
+    import torch
+    from repro_torch.data import shard_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe, parallel
+    from repro_torch.training import (AdamWConfig, adamw_init, cosine_schedule,
+                                      make_train_step)
+    from repro_torch.tree import tree_map
+    c = AUTO_PARITY
+    close = lambda a, b: torch.testing.assert_close(a, b, rtol=c["rtol"],
+                                                    atol=c["atol"])
+    out = {}
+    rng = np.random.default_rng(1)
+    built = M.build(_auto_parity_cfg(True))
+    params = M.init_model(torch.Generator().manual_seed(0), built, device="cpu")
+    toks = rng.integers(0, built.cfg.vocab_size, (c["B"], c["S"] + 1))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:].copy()}
+    batch["targets"][0, :5] = -1
+    tb = M.build(_auto_parity_cfg(False))
+    tparams = M.init_model(torch.Generator().manual_seed(0), tb, device="cpu")
+    grid = parallel.RankGrid(*AUTO_GRID)
+    pctx = parallel.make_context(grid)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        mine = tree_map(lambda t: t.to(dev), parallel.shard_grid(
+            params, M.param_specs(built), grid))
+        served = _auto_serve(mine, built, pctx, shard_batch(
+            {"t": batch["tokens"]}, pctx, device=dev)["t"], c["T"])
+        step = make_train_step(tb, AdamWConfig(lr=cosine_schedule(1e-3, 2, c["train_steps"])),
+                               pctx)
+        tp = tree_map(lambda t: t.to(dev, copy=True), parallel.shard_grid(
+            tparams, M.param_specs(tb), grid))
+        opt = adamw_init(tp)
+        b = shard_batch(batch, pctx, device=dev)
+        metrics = []
+        with _Routes() as r:
+            for _ in range(c["train_steps"]):
+                tp, opt, m = step(tp, opt, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev] = served + (metrics, [e.cpu() for e in r.eids])
+    (pc, dc, ic, rc, mc, tc), (pg, dg, ig, rg, mg, tg) = runs["cpu"], runs["cuda"]
+    close(pg, pc)
+    close(dg, dc)
+    if not torch.equal(ig, ic):
+        raise AssertionError(f"reduced decode ids {ig.tolist()} on the card, "
+                             f"{ic.tolist()} on the CPU")
+    out["routes"] = _same_routes("reduced prefill and decode", rg, rc)
+    out["train_routes"] = _same_routes("reduced training", tg, tc)
+    for (lg_, ng), (lc_, nc) in zip(mg, mc):
+        if not (math.isclose(lg_, lc_, rel_tol=c["rtol"]) and
+                math.isclose(ng, nc, rel_tol=c["rtol"])):
+            raise AssertionError(f"reduced training: loss, grad norm {lg_}, {ng} "
+                                 f"on the card, {lc_}, {nc} on the CPU")
+    out["losses"] = [m[0] for m in mg]
+    out["err"] = max(float((pg - pc).abs().max()), float((dg - dc).abs().max()))
+    # experts over the pod axis, (pod=2, data=1, model=2): a prefill
+    over = moe.EXPERTS_OVER_POD
+    moe.EXPERTS_OVER_POD = True
+    try:
+        grid = parallel.RankGrid(*AUTO_POD_GRID)
+        pctx = parallel.make_context(grid)
+        pod = {}
+        for dev in ("cpu", "cuda"):
+            mine = tree_map(lambda t: t.to(dev), parallel.shard_grid(
+                params, M.param_specs(built), grid))
+            with _Routes() as r:
+                logits, _ = M.forward_prefill(mine, built, shard_batch(
+                    {"tokens": batch["tokens"]}, pctx, device=dev), pctx,
+                    use_kernel=True)
+            pod[dev] = (logits.cpu(), [e.cpu() for e in r.eids])
+    finally:
+        moe.EXPERTS_OVER_POD = over
+    close(pod["cuda"][0], pod["cpu"][0])
+    out["pod_routes"] = _same_routes("reduced experts over pod", pod["cuda"][1],
+                                     pod["cpu"][1])
+    out["pod_err"] = float((pod["cuda"][0] - pod["cpu"][0]).abs().max())
+    return out
+
+
+def _gather_ms(group, shape, reps: int = 3) -> float:
+    """Median wall of one gloo all_gather over ``group`` of a bf16 tensor of
+    ``shape`` on the card (an expert weight's d_ff block), the host
+    synchronised around each call."""
+    import torch
+    from repro_torch.models import parallel
+    x = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+    times = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        parallel.all_gather(x, len(shape) - 1, group)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _auto_decode(params, built, pctx, caches, first, n):
+    """n greedy kernel decode steps from ``first``: each step's logits,
+    input tokens, routes and wall on the host."""
+    import torch
+    from repro_torch.models import model as M
+    S = AUTO["S"]
+    tok, steps, inputs, ms = first, [], [], []
+    with _Routes() as r:
+        for i in range(n):
+            inputs.append(tok.cpu())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, caches = M.forward_decode(params, built, tok, caches, S + i, pctx,
+                                          use_kernel=True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            steps.append(lg[:, 0].float().cpu())
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+    return dict(steps=steps, inputs=inputs, ms=ms,
+                routes=[(e.cpu(), p.cpu()) for e, p in zip(r.eids, r.pos)])
+
+
+def _auto_rank(rank, device):
+    """One rank of phase 23 (spawned; see phase_automatic)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import shard_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe, parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)          # four ranks share the host's eight cores
+    c = AUTO
+    t_parity = time.perf_counter()
+    out = {"parity": _auto_parity()}
+    out["parity_s"] = time.perf_counter() - t_parity
+    grid = parallel.RankGrid(*AUTO_GRID)
+    pctx = parallel.make_context(grid)
+    built = M.build(_auto_cfg())
+    t0 = time.perf_counter()
+    params = M.init_model(torch.Generator(device="cuda").manual_seed(0), built,
+                          device="cuda")
+    torch.cuda.synchronize()
+    out.update(init_s=time.perf_counter() - t0, checksum=_auto_checksum(params))
+    mine = parallel.shard_grid(params, M.param_specs(built), grid)
+    prompts = np.stack(_prompts(c["prompts"], (c["S"],) * c["prompts"]))
+    toks = shard_batch({"tokens": prompts}, pctx)["tokens"]
+    M.forward_prefill(mine, built, {"tokens": toks}, pctx, use_kernel=True)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with _Routes() as r:
+        logits, caches = M.forward_prefill(mine, built, {"tokens": toks}, pctx,
+                                           use_kernel=True)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t) * 1e3
+    out["prefill"] = logits[:, 0].float().cpu()
+    out["prefill_routes"] = [(e.cpu(), p.cpu()) for e, p in zip(r.eids, r.pos)]
+    out["prefill_launches"] = _counts()
+    first = logits[:, -1].argmax(-1, keepdim=True)
+    L = c["S"] + c["steps"]
+    out["decode"] = _auto_decode(mine, built, pctx,
+                                 M.pad_decode_caches(built, caches, L, pctx),
+                                 first, c["steps"])
+    broadcast = moe.DECODE_BROADCAST
+    moe.DECODE_BROADCAST = False                  # the weight-gather path at S == 1
+    try:
+        out["gather"] = _auto_decode(mine, built, pctx,
+                                     M.pad_decode_caches(built, caches, L, pctx),
+                                     first, c["gather_steps"])
+    finally:
+        moe.DECODE_BROADCAST = broadcast
+    torch.cuda.synchronize()
+    out["launches"] = _counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["kv_heads"] = caches[0][0][0]["kv"]["k"].shape[3]
+    E, d, F = built.cfg.moe.num_experts, built.cfg.d_model, built.cfg.moe.d_ff_expert
+    out["all_gather_ms"] = _gather_ms(grid.group("data"), (E // 2, d, F // 2))
+    out["all_reduce_ms"] = {rows: _collective_ms(pctx.group, rows)
+                            for rows in (c["prompts"] // 2, c["prompts"] // 2 * c["S"])}
+    return out
+
+
+def _forced(routes, device="cuda"):
+    """A recorded run's (eids, pos) per MoE call, as ``_Routes(forced=)``
+    takes them."""
+    import types
+    return types.SimpleNamespace(eids=[e.to(device) for e, _ in routes],
+                                 pos=[p.to(device) for _, p in routes])
+
+
+def _auto_ref_decode(params, built, caches, inputs, routes):
+    """The one-process decode, teacher-forced with the sharded run's
+    inputs and taking its routes: each step's logits and its wall."""
+    import torch
+    from repro_torch.models import model as M
+    steps, ms = [], []
+    with _Routes(forced=_forced(routes)):
+        for i, tok in enumerate(inputs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, caches = M.forward_decode(params, built, tok.cuda(), caches,
+                                          AUTO["S"] + i, use_kernel=True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            steps.append(lg[:, 0].float().cpu())
+    return steps, ms
+
+
+def phase_automatic(smi: str):
+    """Phase 23: the automatic regime on one card.  Four ranks, one spawned
+    process each, share the card over gloo at (data=2, model=2); each
+    builds full-width qwen3-moe cut to 2 layers from seed 0 (the same
+    weights, checked), takes its shards and its data block of 4 prompts of
+    128 tokens (2 a block, ``shard_batch``), and runs:
+      1. a kernel prefill: each block's last-position logits within phase
+         5's 5% of a one-process run of that block's 2 prompts alone (the
+         same weights and kernels, and the per-shard capacity the automatic
+         branch has), taking the sharded run's routes (the unforced
+         agreement printed); the greedy tokens equal unless the
+         reference's top two lie within the bound; the block's two model
+         ranks bit for bit;
+      2. 8 greedy kernel decode steps from the padded prefill caches, all 4
+         sequences in each step across the data ranks (the decode
+         broadcast): each step's logits held as above to a one-process
+         decode of the whole batch of 4 (the same global capacity) from
+         the reference's prefill caches, fed the sharded run's tokens and
+         taking its routes; then 2 steps with the broadcast off (the
+         weight gather at S == 1), held the same way to each block's
+         one-process decode;
+      3. launches a rank exactly: 2 flash (one an attention layer of the
+         prefill, on the rank's 32 q and 2 kv heads), and reduce_quant and
+         dequant_restore once a prefill and once a decode step;
+      4. first, the reduced f32 card-vs-CPU run (see _auto_parity).
+    Prints each rank's peak, the prefill wall and the decode wall a step
+    beside the one-process run's, one gloo all_gather of an expert's d_ff
+    block and one all_reduce at a decode row and a prefill block, and the
+    phase's seconds.  Returns the launches summed over the ranks."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    c = AUTO
+    t0 = time.perf_counter()
+    from repro_torch.models import parallel
+    ranks = parallel.spawn(_auto_rank, 4, (),
+                           devices=f"cuda:{torch.cuda.current_device()}")
+    wall = time.perf_counter() - t0
+    p = ranks[0]["parity"]
+    print(f"automatic: 4 ranks at (data=2, model=2) on {smi} over gloo, "
+          f"{wall:.1f} s with the spawn; reduced f32 card vs CPU "
+          f"({ranks[0]['parity_s']:.1f} s): logits max|d| {p['err']:.3g}, "
+          f"{p['routes']} prefill/decode and {p['train_routes']} training "
+          f"routes equal, decode ids equal, 4 training steps' losses "
+          f"{[round(x, 4) for x in p['losses']]} and grad norms within rtol "
+          f"{AUTO_PARITY['rtol']}; (pod=2, data=1, model=2) experts over pod "
+          f"prefill max|d| {p['pod_err']:.3g}, {p['pod_routes']} routes equal")
+    built = M.build(_auto_cfg())
+    params = M.init_model(torch.Generator(device="cuda").manual_seed(0), built,
+                          device="cuda")
+    want_sum = _auto_checksum(params)
+    for r, out in enumerate(ranks):
+        if out["checksum"] != want_sum:
+            fail(f"automatic: rank {r}'s weights {out['checksum']} are not the "
+                 f"reference's {want_sum}")
+    # launches, exact a rank
+    want = dict.fromkeys(ranks[0]["launches"], 0)
+    want["flash_attention"] = c["layers"]
+    want["butterfly_reduce_quant"] = want["butterfly_dequant_restore"] = \
+        1 + c["steps"] + c["gather_steps"]
+    launches = dict.fromkeys(want, 0)
+    for r, out in enumerate(ranks):
+        if out["launches"] != want:
+            fail(f"automatic rank {r}: launched {out['launches']}, expected {want}")
+        for k, v in out["launches"].items():
+            launches[k] += v
+    prompts = np.stack(_prompts(c["prompts"], (c["S"],) * c["prompts"]))
+    toks = torch.tensor(prompts, device="cuda")
+    half = c["prompts"] // 2
+    # 1. prefill: each data block against its 2 prompts alone
+    ref_caches, agree, total = [], 0, 0
+    prefill_d = 0.0
+    for blk in range(2):
+        q = blk * 2                          # the block's model rank 0
+        for m in (0, 1):
+            if not torch.equal(ranks[q + m]["prefill"], ranks[q]["prefill"]):
+                fail(f"automatic: block {blk}'s model ranks give different "
+                     f"prefill logits")
+        rows = toks[blk * half:(blk + 1) * half]
+        with _Routes(forced=_forced(ranks[q]["prefill_routes"])):
+            lf, cf = M.forward_prefill(params, built, {"tokens": rows},
+                                       use_kernel=True)
+        with _Routes() as ru:
+            lu, _ = M.forward_prefill(params, built, {"tokens": rows},
+                                      use_kernel=True)
+        for (e, _), eu in zip(ranks[q]["prefill_routes"], ru.eids):
+            agree += int((e == eu.cpu()).sum())
+            total += e.numel()
+        ref_caches.append(cf)
+        for i in range(half):
+            dlt, limit = _hold_logits(f"automatic prefill block {blk} row {i}",
+                                      ranks[q]["prefill"][i], lf[i, 0].float().cpu(),
+                                      witness=0.0, greedy=True)
+            prefill_d = max(prefill_d, dlt)
+        unforced = float((ranks[q]["prefill"] - lu[:, 0].float().cpu()).abs().max())
+    # the one-process prefill of all 4 prompts, timed warm
+    M.forward_prefill(params, built, {"tokens": toks}, use_kernel=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    M.forward_prefill(params, built, {"tokens": toks}, use_kernel=True)
+    torch.cuda.synchronize()
+    one_prefill_ms = (time.perf_counter() - t) * 1e3
+    print(f"automatic: kernel prefill 4 x {c['S']} tokens, each data block within "
+          f"{prefill_d:.4g} of its 2 prompts alone (limit {limit:.4g}, the "
+          f"sharded run's routes), greedy tokens held; unforced, "
+          f"{agree / total:.4f} of {total} routes agree (last block max|d| "
+          f"{unforced:.4g}); model ranks bit for bit")
+    # 2. decode broadcast against the whole batch of 4
+    L = c["S"] + c["steps"]
+    whole = tree_map(lambda a, b: torch.cat([a, b], dim=1), *ref_caches)
+    inputs = [torch.cat([ranks[0]["decode"]["inputs"][i],
+                         ranks[2]["decode"]["inputs"][i]])
+              for i in range(c["steps"])]
+    ref, ref_ms = _auto_ref_decode(params, built, M.pad_decode_caches(built, whole, L),
+                                   inputs, ranks[0]["decode"]["routes"])
+    decode_d = 0.0
+    for blk in range(2):
+        q = blk * 2
+        for i in range(c["steps"]):
+            got = ranks[q]["decode"]["steps"][i]
+            if not torch.equal(got, ranks[q + 1]["decode"]["steps"][i]):
+                fail(f"automatic: block {blk}'s model ranks decode differently")
+            for j in range(half):
+                dlt, _ = _hold_logits(f"automatic decode step {i} block {blk} row {j}",
+                                      got[j], ref[i][blk * half + j],
+                                      witness=0.0, greedy=True)
+                decode_d = max(decode_d, dlt)
+    # the weight gather at S == 1 against each block alone
+    gather_d = 0.0
+    for blk in range(2):
+        q = blk * 2
+        g = ranks[q]["gather"]
+        steps, _ = _auto_ref_decode(params, built,
+                                    M.pad_decode_caches(built, ref_caches[blk], L),
+                                    g["inputs"], g["routes"])
+        for i, want_i in enumerate(steps):
+            for j in range(half):
+                dlt, _ = _hold_logits(f"automatic gather-decode step {i} block "
+                                      f"{blk} row {j}", g["steps"][i][j], want_i[j],
+                                      witness=0.0, greedy=True)
+                gather_d = max(gather_d, dlt)
+    ms = ranks[0]["decode"]["ms"][1:]
+    print(f"automatic: decode broadcast {c['steps']} steps of 4 sequences, max|d| "
+          f"{decode_d:.4g} from the whole batch's one-process decode; broadcast "
+          f"off ({c['gather_steps']} steps, the weight gather) max|d| "
+          f"{gather_d:.4g} from each block's; launches a rank {want}")
+    print(f"automatic on {smi}: prefill {ranks[0]['prefill_ms']:.1f} ms (4 ranks, "
+          f"2 prompts a block) vs {one_prefill_ms:.1f} ms one process; decode "
+          f"{statistics.median(ms):.1f} ms a step (median of {len(ms)}) vs "
+          f"{statistics.median(ref_ms[1:]):.1f} ms one process; broadcast off "
+          f"{statistics.median(ranks[0]['gather']['ms']):.1f} ms a step")
+    ar = ranks[0]["all_reduce_ms"]
+    print(f"automatic: gloo all_gather of an expert d_ff block "
+          f"({built.cfg.moe.num_experts // 2}, {built.cfg.d_model}, "
+          f"{built.cfg.moe.d_ff_expert // 2}) bf16 over data "
+          f"{ranks[0]['all_gather_ms']:.1f} ms; all_reduce over model "
+          + ", ".join(f"({rows}, {D}) {v:.3f} ms" for rows, v in ar.items())
+          + " (rank 0, medians)")
+    for r, out in enumerate(ranks):
+        print(f"automatic: rank {r} init {out['init_s']:.1f} s, kv heads "
+              f"{out['kv_heads']}, peak {out['peak_gb']:.2f} GB")
+    print(f"automatic: phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # --------------------------------------------------------------------- profile
 def _profiled(label: str, fn, out_dir: Optional[Path]):
     """Run ``fn`` twice: once bare for its host wall time, once under
@@ -3543,6 +4009,8 @@ def main():
     _free()
     paths["qwen3-8b model axis, 2 ranks"] = phase_model_axis(axis_refs, smi)
     del axis_refs
+    _free()
+    paths["qwen3-moe automatic (data=2, model=2), 4 ranks"] = phase_automatic(smi)
     _free()
     paths["gemma3-12b kernel prefill"], _, _ = phase_kernel_prefill(
         "gemma3-12b", args.profile is not None, profile_dir)

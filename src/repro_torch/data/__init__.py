@@ -5,9 +5,10 @@ from repro_torch.data.pipeline import (
     SyntheticImages,
     image_batches,
     lm_batches,
+    shard_batch,
 )
 
 __all__ = [
     "ImageTaskConfig", "LMStreamConfig", "MarkovLMStream", "SyntheticImages",
-    "image_batches", "lm_batches",
+    "image_batches", "lm_batches", "shard_batch",
 ]

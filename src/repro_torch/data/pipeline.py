@@ -9,9 +9,9 @@ Image dataset   — the synthetic classification task for the ResNet/butterfly
                   oriented-grating + color pattern with additive noise, so
                   accuracy is a meaningful signal at small scale.
 
-Both pipelines are deterministic in seed and yield numpy; the caller moves
-a batch to its device.  The JAX package's ``shard_batch`` (device placement
-over a mesh's data axes) is not ported.
+Both pipelines are deterministic in seed and yield numpy; ``shard_batch``
+moves a batch to its device, and under an automatic ``ParallelContext``
+keeps only this rank's block of it.
 """
 from __future__ import annotations
 
@@ -117,3 +117,34 @@ def image_batches(batch_size: int, cfg: Optional[ImageTaskConfig] = None,
     rng = np.random.default_rng(seed)
     while True:
         yield task.batch(batch_size, rng)
+
+
+# ---------------------------------------------------------------------------
+# device placement over the data axes
+# ---------------------------------------------------------------------------
+
+
+def shard_batch(batch: dict, pctx=None, *, device="cuda") -> dict:
+    """The batch's leaves (numpy arrays or tensors) as tensors on
+    ``device``.  With an automatic context (``models.parallel.make_context``)
+    each leaf keeps this rank's block of its leading dim over the data
+    axes, pod-major (block ``pod * |data| + data``, as ``P(("pod",
+    "data"))`` lays it out); a batch smaller than the data axes stays whole
+    on every rank (run it under ``pctx.for_batch(B)``), and one they do not
+    divide raises ValueError."""
+    import torch
+
+    from repro_torch import device as dev_lib
+    from repro_torch.tree import tree_leaves, tree_map
+    device = dev_lib.resolve(device)
+    out = tree_map(lambda a: torch.as_tensor(np.asarray(a) if not
+                                             isinstance(a, torch.Tensor) else a,
+                                             device=device), batch)
+    if pctx is None or pctx.grid is None:
+        return out
+    B = tree_leaves(out)[0].shape[0]
+    if not pctx.batch_sharded(B):
+        return out
+    n = B // pctx.dp_size
+    return tree_map(lambda t: t[pctx.data_rank * n:(pctx.data_rank + 1) * n],
+                    out)

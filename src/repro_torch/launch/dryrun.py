@@ -16,8 +16,10 @@ nothing is allocated at full scale and no device is touched:
 A :class:`roofline.CostCounter` sees every aten op.  The eager trace runs
 every layer, so XLA's two-point scan correction has no counterpart, and a
 card has no collectives to parse.  ``--multi-pod`` and ``--both-meshes``
-need the automatic (GSPMD) regime over a production mesh, which is not
-ported (the manual model axis is: ``models/parallel.py``).
+trace over a production grid (``launch/mesh.py``): the automatic regime
+runs there as one process a rank (``models/parallel.make_context``), and
+counting one rank's step on meta tensors, its collectives counted rather
+than run, is the dry run's next slice; until then both flags raise.
 ``device="cpu"`` or ``"cuda"``
 runs the same trace on real tensors (random weights), which the tests and
 the card use to check the meta counts.
@@ -195,9 +197,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.multi_pod or args.both_meshes:
         raise NotImplementedError(
-            "--multi-pod and --both-meshes need the automatic (GSPMD) "
-            "regime over a multi-pod mesh, which the port has not yet "
-            "(ROADMAP section 1)")
+            "--multi-pod and --both-meshes need a meta trace of one rank's "
+            "step over the production grid with its collectives counted, "
+            "not run: the dry run's next slice (ROADMAP section 1)")
 
     archs = ASSIGNED if (args.all or args.arch is None) else [args.arch]
     shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) else [args.shape]

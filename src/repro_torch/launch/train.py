@@ -7,7 +7,10 @@ back, when the device is missing.  ``--checkpoint`` saves in the JAX
 package's ``.npz`` format (``training.checkpoint``).  ``--lower-only`` traces the
 full config's train step at ``train_4k`` on meta tensors
 (``launch/dryrun.py``) and writes its record to ``build/dryrun/``; its
-``--multi-pod`` needs training across ranks, which is not ported.
+``--multi-pod`` waits for the dry run's multi-pod trace.  Training across
+ranks is the train step under an automatic context
+(``training.make_train_step(built, opt, pctx)``); the launcher, as the JAX
+package's, trains on one device.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b --reduced \\
@@ -45,8 +48,9 @@ def main(argv=None):
     if args.lower_only:
         if args.multi_pod:
             raise NotImplementedError(
-                "--multi-pod needs training across ranks over a multi-pod "
-                "mesh, which the port has not yet (ROADMAP section 1)")
+                "--multi-pod needs the dry run's meta trace of one rank's "
+                "step over the multi-pod grid, its collectives counted: the "
+                "dry run's next slice (ROADMAP section 1)")
         from repro_torch.launch.dryrun import OUT_DIR, run_pair
         run_pair(args.arch, "train_4k", OUT_DIR)
         return

@@ -5,11 +5,21 @@ backbone with its one shared attention block, ``params["shared_attn"]``).
 
   build(cfg)                                  -> BuiltModel
   init_model(gen, built, device=...)          -> params
-  forward_train(params, built, batch)         -> (logits, aux)
-  forward_prefill(params, built, batch)       -> (last-position logits, caches)
-  pad_decode_caches(built, caches, length)    -> caches at decode capacity
-  forward_decode(params, built, tokens, caches, pos) -> (logits, caches)
-  lm_loss(logits, targets)                    -> masked next-token NLL
+  forward_train(params, built, batch, pctx)   -> (logits, aux)
+  forward_prefill(params, built, batch, pctx) -> (last-position logits, caches)
+  pad_decode_caches(built, caches, length, pctx) -> caches at decode capacity
+  forward_decode(params, built, tokens, caches, pos, pctx) -> (logits, caches)
+  lm_loss(logits, targets, pctx=pctx)         -> masked next-token NLL
+  input_specs(built, shape, pctx)             -> (meta batch, batch specs)
+  param_specs(built)                          -> {axis: spec tree}
+
+Under an automatic ``ParallelContext`` (``models/parallel.make_context``)
+every function takes and returns this rank's block of the batch
+(``data.pipeline.shard_batch``) and this rank's shards of the params
+(``parallel.shard_grid(params, param_specs(built), pctx.grid)``): attention,
+GLU and the shared block run Megatron's shards over the model axis,
+replicated over the data axes, and MoE its own expert parallelism; the
+loss and the wire's rate are means over the global batch.
 
 ``use_kernel=True`` runs full-sequence attention through the flash kernel
 and the in-graph butterfly wire through the fused butterfly kernels (the
@@ -28,6 +38,7 @@ sinusoid position embeddings where the others rotate q and k.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -38,6 +49,9 @@ from repro_torch.core import butterfly as bf_lib
 from repro_torch.core.wire_codec import rate_bits
 from repro_torch.models import transformer as tfm
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import parallel
+from repro_torch.models.parallel import LOCAL, ParallelContext
 from repro_torch.models.common import embed, init_embedding, init_mlp, \
     init_rms_norm, rms_norm, sinusoid_angles, sinusoid_positions, unembed
 from repro_torch.tree import tree_leaves
@@ -127,6 +141,61 @@ def tp_param_specs(built: BuiltModel, *, with_butterfly=None) -> dict:
     return specs
 
 
+def fsdp_param_specs(built: BuiltModel) -> dict:
+    """Spec tree over the ``data`` axis (each leaf's sharded dim, or None):
+    the routed experts' d_ff where ``d_ff_expert % 16 == 0`` (the JAX
+    package's FSDP rule), everything else replicated."""
+    cfg = built.cfg
+    return _expert_specs(built, lambda: (
+        {"wg": 3, "wu": 3, "wd": 2}
+        if cfg.moe.d_ff_expert % 16 == 0 else None))
+
+
+def _expert_specs(built: BuiltModel, of_moe) -> dict:
+    """A spec tree of :func:`init_model`'s layout with ``of_moe()`` at each
+    MoE layer's routed experts (leaves stacked over repeats) and None
+    elsewhere."""
+    def layer(ldef):
+        return {"ffn": of_moe()} if ldef.ffn == "moe" else None
+
+    def stage_specs(segs):
+        return [[layer(ldef) for ldef in seg.unit] for seg in segs]
+
+    specs: dict = {"stages": [stage_specs(segs) for segs in built.stages]}
+    if built.cfg.is_encdec:
+        specs["encoder"] = None
+    return specs
+
+
+def param_specs(built: BuiltModel) -> dict:
+    """The automatic regime's layout of :func:`init_model`'s params, a spec
+    tree for each grid axis (what ``parallel.shard_grid`` cuts by; the
+    counterpart of JAX's ``PartitionSpec`` trees): ``model`` the
+    tensor-parallel shards of :func:`tp_param_specs` (None for an
+    encoder-decoder, which has none), ``data`` the experts' FSDP d_ff
+    (:func:`fsdp_param_specs`), ``pod`` the experts' dim under
+    ``moe.EXPERTS_OVER_POD`` (else None)."""
+    cfg = built.cfg
+    pod = None
+    if cfg.moe is not None and moe_lib.EXPERTS_OVER_POD:
+        pod = _expert_specs(built, lambda: {"wg": 1, "wu": 1, "wd": 1})
+    return {"pod": pod, "data": fsdp_param_specs(built),
+            "model": None if cfg.is_encdec else tp_param_specs(built)}
+
+
+def _check_automatic(built: BuiltModel, pctx: ParallelContext) -> None:
+    """An automatic context with a model axis shards what the manual
+    regime's stages shard; raise where that cannot be done."""
+    if not pctx.automatic or pctx.mp_size == 1:
+        return
+    if built.cfg.is_encdec:
+        raise NotImplementedError(f"{built.cfg.name}: enc-dec archs have no "
+                                  f"tensor-parallel stages")
+    defs = [ldef for segs in built.stages for seg in segs
+            for _ in range(seg.repeats) for ldef in seg.unit]
+    tfm.check_tp_divisibility(defs, built.cfg, pctx.mp_size)
+
+
 def _embed_inputs(params, built: BuiltModel, batch: dict, pos=None):
     """Token (+ stub modality) embeddings -> (B, S, d).  An encoder-decoder
     adds the sinusoid at positions 0..S-1, or in decode at ``pos`` (an int
@@ -147,7 +216,8 @@ def _embed_inputs(params, built: BuiltModel, batch: dict, pos=None):
     return x
 
 
-def _encode(params, built: BuiltModel, batch: dict, use_kernel: bool):
+def _encode(params, built: BuiltModel, batch: dict, use_kernel: bool,
+            pctx: ParallelContext = LOCAL):
     """Whisper's encoder over the (B, F, d) frame embeddings
     ``batch["frames"]``: the sinusoid, non-causal attention + MLP layers,
     the final norm.  None for a model without an encoder."""
@@ -161,7 +231,8 @@ def _encode(params, built: BuiltModel, batch: dict, use_kernel: bool):
     for si, seg in enumerate(built.enc_segments):
         x, _, _, _ = tfm.apply_segment(
             seg, params["encoder"]["segments"][si], x, cfg=cfg, mode="train",
-            seg_cache=None, pos=None, causal=False, use_kernel=use_kernel)
+            seg_cache=None, pos=None, pctx=pctx, causal=False,
+            use_kernel=use_kernel)
     return rms_norm(x, params["encoder"]["final_norm"], cfg.rms_eps)
 
 
@@ -173,11 +244,13 @@ def _logits(params, built: BuiltModel, x):
 
 
 def _run_stages(params, built: BuiltModel, x, *, mode, caches, pos,
-                use_kernel: bool, enc_out=None):
+                use_kernel: bool, enc_out=None, pctx: ParallelContext = LOCAL):
     """Returns (x, new caches, aux, wire rate): aux the f32 ``[load_balance,
     router_z]`` summed over the stages; in train mode the rate is a 0-d f32
-    tensor, non-zero with ``rate_weight > 0``, otherwise None."""
+    tensor, non-zero with ``rate_weight > 0`` (the mean over the global
+    batch), otherwise None."""
     cfg = built.cfg
+    _check_automatic(built, pctx)
     train = mode == "train"
     rate = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
     aux_total = None
@@ -189,13 +262,16 @@ def _run_stages(params, built: BuiltModel, x, *, mode, caches, pos,
                 # JAX package does, so apply_butterfly's signature stays
                 rate = rate_bits(x @ params["butterfly"]["w_reduce"],
                                  bits=cfg.butterfly.wire_bits)
+                # the data blocks are equal in size: the global mean is the
+                # mean of the blocks' means
+                rate = parallel.reduce_sum(rate, pctx.data_group) / pctx.dp_size
             x = bf_lib.apply_butterfly(params["butterfly"], x,
                                        wire_bits=cfg.butterfly.wire_bits,
                                        train=train, use_kernel=use_kernel)
         stage_cache = None if caches is None else caches[stage_idx]
         x, nc, aux = tfm.apply_stage(
             list(segs), params["stages"][stage_idx], x, cfg=cfg, mode=mode,
-            stage_cache=stage_cache, pos=pos, enc_out=enc_out,
+            stage_cache=stage_cache, pos=pos, pctx=pctx, enc_out=enc_out,
             shared_params=params.get("shared_attn"), use_kernel=use_kernel)
         new_caches.append(nc)
         aux_total = aux if aux_total is None else aux_total + aux
@@ -203,41 +279,48 @@ def _run_stages(params, built: BuiltModel, x, *, mode, caches, pos,
 
 
 def forward_train(params, built: BuiltModel, batch: dict,
-                  use_kernel: bool = False):
+                  pctx: ParallelContext = LOCAL, use_kernel: bool = False):
     """(logits, aux): aux holds ``load_balance``, ``router_z`` and
     ``wire_rate_bits``, 0-d f32 tensors.  ``use_kernel`` sends attention
     through the flash kernel, which has no backward: differentiate only the
-    plain path (``training.make_train_step`` refuses the kernels)."""
-    enc_out = _encode(params, built, batch, use_kernel)
+    plain path (``training.make_train_step`` refuses the kernels).  Under
+    an automatic ``pctx``: this rank's block and shards (module docstring);
+    the aux terms are the global batch's."""
+    enc_out = _encode(params, built, batch, use_kernel, pctx)
     x = _embed_inputs(params, built, batch)
     x, _, aux, rate = _run_stages(params, built, x, mode="train", caches=None,
                                   pos=None, use_kernel=use_kernel,
-                                  enc_out=enc_out)
+                                  enc_out=enc_out, pctx=pctx)
     return _logits(params, built, x), {"load_balance": aux[0],
                                        "router_z": aux[1],
                                        "wire_rate_bits": rate}
 
 
 def forward_prefill(params, built: BuiltModel, batch: dict,
-                    use_kernel: bool = False):
+                    pctx: ParallelContext = LOCAL, use_kernel: bool = False):
     """Last-position logits and the caches: full length for global layers,
     ring order (``min(S, window)`` rows) for windowed ones, and the
     encoder's keys and values (``cross_kv``) for cross-attention layers.
-    A VLM's S counts its patches."""
-    enc_out = _encode(params, built, batch, use_kernel)
+    A VLM's S counts its patches.  Under an automatic ``pctx`` the caches
+    are this rank's: its block of the batch, its model rank's kv heads."""
+    enc_out = _encode(params, built, batch, use_kernel, pctx)
     x = _embed_inputs(params, built, batch)
     x, caches, _, _ = _run_stages(params, built, x, mode="prefill",
                                   caches=None, pos=None, use_kernel=use_kernel,
-                                  enc_out=enc_out)
+                                  enc_out=enc_out, pctx=pctx)
     return _logits(params, built, x[:, -1:]), caches
 
 
-def pad_decode_caches(built: BuiltModel, caches, length: int):
+def pad_decode_caches(built: BuiltModel, caches, length: int,
+                      pctx: ParallelContext = LOCAL):
     """Zero-pad prefill caches to decode capacity ``length``: global caches
     to ``length`` rows, ring caches to exactly ``min(length, window)``, even
     when the prompt was shorter than the window; recurrent state passes
-    through."""
+    through.  Under tensor parallelism a rank's caches hold its kv heads."""
     cfg = built.cfg
+    if pctx.tensor_parallel:
+        cfg = dataclasses.replace(cfg, num_kv_heads=cfg.num_kv_heads //
+                                  pctx.mp_size)
     batch = tree_leaves(caches)[0].shape[1]           # leaves: (reps, B, S, ..)
     dtype = dev_lib.torch_dtype(cfg.dtype)
     return [tfm.pad_to_template(
@@ -247,7 +330,7 @@ def pad_decode_caches(built: BuiltModel, caches, length: int):
 
 
 def forward_decode(params, built: BuiltModel, tokens, caches, pos,
-                   use_kernel: bool = False):
+                   pctx: ParallelContext = LOCAL, use_kernel: bool = False):
     """tokens: (B, 1); pos: int or (B,) tensor of absolute positions.  The
     caches (at decode capacity, see :func:`pad_decode_caches`) are updated
     in place and returned.  ``use_kernel`` reaches only the butterfly wire:
@@ -255,14 +338,51 @@ def forward_decode(params, built: BuiltModel, tokens, caches, pos,
     x = _embed_inputs(params, built, {"tokens": tokens}, pos)
     x, new_caches, _, _ = _run_stages(params, built, x, mode="decode",
                                       caches=caches, pos=pos,
-                                      use_kernel=use_kernel)
+                                      use_kernel=use_kernel, pctx=pctx)
     return _logits(params, built, x), new_caches
 
 
-def lm_loss(logits, targets, ignore: int = -1):
-    """Cross entropy in f32; targets equal to ``ignore`` are masked."""
+def lm_loss(logits, targets, ignore: int = -1,
+            pctx: ParallelContext = LOCAL):
+    """Cross entropy in f32; targets equal to ``ignore`` are masked.  Under
+    data axes the mean is the global batch's: the masked sum and the count
+    are summed over the data ranks before the division (the ranks' means
+    differ wherever their masks count differently)."""
     mask = targets != ignore
     tgt = torch.where(mask, targets, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    num, den = (nll * mask).sum(), mask.sum()
+    group = pctx.data_group
+    if group is not None:
+        num = parallel.reduce_sum(num, group)
+        den = parallel.reduce_sum(den, group)
+    return num / torch.clamp(den, min=1)
+
+
+def input_specs(built: BuiltModel, shape, pctx: ParallelContext = LOCAL):
+    """The batch of a step at ``shape`` (a ``configs.InputShape``): meta
+    tensors of the global batch's shapes and dtypes, and a spec tree of
+    the same keys whose leaf is the dim sharded over the data axes (0,
+    the batch) or None (local, or a batch smaller than the data axes), as
+    the JAX package's ``input_specs``."""
+    cfg = built.cfg
+    B, S = shape.global_batch, shape.seq_len
+    bx = 0 if pctx.grid is not None and pctx.batch_sharded(B) else None
+    meta = lambda *shp, dtype=torch.int32: torch.empty(shp, dtype=dtype,
+                                                       device="meta")
+    dt = dev_lib.torch_dtype(cfg.dtype)
+    sds, spec = {}, {}
+    if shape.kind in ("train", "prefill"):
+        n_text = S - cfg.num_patches if cfg.num_patches else S
+        sds["tokens"] = meta(B, n_text)
+        if cfg.num_patches:
+            sds["patches"] = meta(B, cfg.num_patches, cfg.d_model, dtype=dt)
+        if cfg.is_encdec:
+            sds["frames"] = meta(B, cfg.encoder_frames, cfg.d_model, dtype=dt)
+        if shape.kind == "train":
+            sds["targets"] = meta(B, S)
+    else:                                                     # decode
+        sds["tokens"] = meta(B, 1)
+    spec = {k: bx for k in sds}
+    return sds, spec

@@ -22,42 +22,205 @@ so degree-1 callers run the unsharded code unchanged.
 cannot collide), with the backend chosen from the ranks' devices
 (:func:`backend_for`).  Ranks that share a card, as two model ranks on one
 H100 do, use gloo, which stages CUDA tensors through pinned host memory.
+
+The automatic regime (JAX's GSPMD, where the context wraps a whole mesh)
+runs over a :class:`RankGrid`, the counterpart of a ``jax.sharding.Mesh``:
+named axes over the ranks, rank ``r`` at ``np.arange(world).reshape(shape)``'s
+position of ``r``.  :func:`make_context` gives a context whose data axes
+are the grid's ``pod`` and ``data``.  Eager PyTorch has no sharding
+propagation, so the layout is explicit: dense layers run the manual
+regime's Megatron shards over the ``model`` axis, replicated over the data
+axes, and every rank holds one block of the batch (pod-major: block
+``pod * |data| + data``); MoE runs its own expert parallelism
+(``models/moe.py``).  The collectives below carry autograd rules, so a
+train step differentiates through them: :func:`model_copy` and
+:func:`model_psum` are Megatron's f and g over the model axis,
+:func:`all_gather` reduce-scatters its gradient, :func:`psum_scatter`
+all-gathers it, and :func:`reduce_sum` (a loss-level sum) passes it
+through.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import os
 import tempfile
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class RankGrid:
+    """Named axes over the ranks of a ``torch.distributed`` world, the
+    counterpart of a ``jax.sharding.Mesh`` over ``jax.devices()``: rank
+    ``r`` sits at ``np.arange(size).reshape(shape)``'s position of ``r``.
+    A grid is a description; its process groups (:meth:`group`) need a
+    world of exactly :attr:`size` ranks, and every rank builds all of them,
+    in the same order, at its first call."""
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "shape", tuple(int(n) for n in self.shape))
+        object.__setattr__(self, "axes", tuple(self.axes))
+        if (len(self.shape) != len(self.axes)
+                or len(set(self.axes)) != len(self.axes)):
+            raise ValueError(f"grid shape {self.shape} and axes {self.axes} "
+                             f"do not pair up")
+        if any(n < 1 for n in self.shape):
+            raise ValueError(f"grid shape {self.shape} has an empty axis")
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape))
+
+    def axis_size(self, axis: str) -> int:
+        """The axis's length; 1 for an axis the grid does not have."""
+        return self.shape[self.axes.index(axis)] if axis in self.axes else 1
+
+    def ranks(self) -> np.ndarray:
+        return np.arange(self.size).reshape(self.shape)
+
+    def coords(self, rank: int) -> dict:
+        """Rank ``rank``'s index on each axis."""
+        return {a: int(i) for a, i in
+                zip(self.axes, np.unravel_index(int(rank), self.shape))}
+
+    def index(self, axis: str, rank: Optional[int] = None) -> int:
+        """This rank's (or ``rank``'s) index on ``axis`` (JAX's
+        ``lax.axis_index``); 0 on an axis the grid does not have."""
+        if axis not in self.axes:
+            return 0
+        return self.coords(dist.get_rank() if rank is None else rank)[axis]
+
+    def members(self, axes, rank: int) -> list:
+        """The ranks that agree with ``rank`` on every axis not in
+        ``axes``, ascending: ``rank``'s group along ``axes``."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        at = self.coords(rank)
+        sel = tuple(slice(None) if a in axes else at[a] for a in self.axes)
+        return sorted(int(r) for r in self.ranks()[sel].reshape(-1))
+
+    def group(self, axes):
+        """This rank's process group along ``axes`` (one axis name or a
+        tuple of them; axes the grid lacks count as length 1); None where
+        that group is this rank alone."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        axes = tuple(a for a in self.axes
+                     if a in axes and self.axis_size(a) > 1)
+        if not axes:
+            return None
+        return _grid_groups(self)[axes]
+
+
+def _grid_groups(grid: RankGrid) -> dict:
+    """Every group of ``grid`` (each subset of its axes longer than one
+    rank, each block of ranks along it), created by every rank in the same
+    order; returns this rank's group for each subset."""
+    if not dist.is_initialized():
+        raise ValueError(f"a {grid.shape} grid over {grid.axes} needs "
+                         f"{grid.size} ranks of torch.distributed (start "
+                         f"them with repro_torch.models.parallel.spawn)")
+    world = dist.get_world_size()
+    if world != grid.size:
+        raise ValueError(f"a {grid.shape} grid over {grid.axes} needs "
+                         f"{grid.size} ranks, the world has {world}")
+    key = ("grid", grid.shape, grid.axes, id(dist.group.WORLD))
+    if key not in _GROUPS:
+        rank, mine = dist.get_rank(), {}
+        live = [a for a in grid.axes if grid.axis_size(a) > 1]
+        for n in range(1, len(live) + 1):
+            for axes in itertools.combinations(live, n):
+                blocks = sorted({tuple(grid.members(axes, r))
+                                 for r in range(grid.size)})
+                for block in blocks:
+                    g = dist.new_group(list(block))
+                    if rank in block:
+                        mine[axes] = g
+        _GROUPS[key] = mine
+    return _GROUPS[key]
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelContext:
-    """``group`` is the pod's process group over its model ranks (None
-    when local) and ``rank`` this process's place in it (JAX's
-    ``lax.axis_index``).  ``manual`` marks the tensor-parallel regime:
-    params are this rank's shards and layer code reduces its partial
-    outputs itself."""
+    """``group`` is the model axis's process group (None when local or of
+    one rank) and ``rank`` this process's place in it (JAX's
+    ``lax.axis_index``).  ``manual`` marks the tensor-parallel regime
+    inside a pipeline stage: params are this rank's shards and layer code
+    reduces its partial outputs itself.  An automatic context (from
+    :func:`make_context`) adds the ``grid``, its ``data_axes`` and this
+    rank's pod-major ``data_rank`` over them; ``replicated_batch`` marks a
+    batch smaller than the data axes, held whole on every rank
+    (:meth:`for_batch`)."""
     group: Optional[object] = None
     rank: int = 0
     size: int = 1
     manual: bool = False
+    grid: Optional[RankGrid] = None
+    data_axes: Tuple[str, ...] = ()
+    data_rank: int = 0
+    replicated_batch: bool = False
+
+    @property
+    def enabled(self) -> bool:
+        return self.group is not None or self.grid is not None
+
+    @property
+    def automatic(self) -> bool:
+        return self.grid is not None and not self.manual
 
     @property
     def mp_size(self) -> int:
         return self.size if self.group is not None else 1
 
     @property
+    def dp_size(self) -> int:
+        if self.grid is None:
+            return 1
+        return int(np.prod([self.grid.axis_size(a) for a in self.data_axes]))
+
+    @property
     def tensor_parallel(self) -> bool:
         """True when layer params are model-axis shards whose partial
-        outputs need an explicit reduction."""
-        return self.manual and self.mp_size > 1
+        outputs need an explicit reduction (either regime)."""
+        return self.mp_size > 1
+
+    @property
+    def data_group(self):
+        """The process group over all the data axes (None for one rank)."""
+        return None if self.grid is None else self.grid.group(self.data_axes)
+
+    def batch_spec_axes(self):
+        """The axes a batch dim shards over (None when local)."""
+        if self.grid is None or not self.data_axes:
+            return None
+        return self.data_axes if len(self.data_axes) > 1 else self.data_axes[0]
+
+    def batch_sharded(self, batch: int) -> bool:
+        """Whether a global batch of ``batch`` rows shards over the data
+        axes: a batch smaller than them is replicated, as in the JAX
+        package; one they do not divide raises ValueError."""
+        dp = self.dp_size
+        if batch < dp:
+            return False
+        if batch % dp:
+            raise ValueError(f"a batch of {batch} does not split over "
+                             f"{dp} data ranks")
+        return dp > 1
+
+    def for_batch(self, batch: int) -> "ParallelContext":
+        """This context for a global batch of ``batch`` rows: the model
+        API sees each rank's block (``data.pipeline.shard_batch``), so a
+        batch smaller than the data axes, held whole on every rank, must
+        be run under the context this returns."""
+        return dataclasses.replace(
+            self, replicated_batch=not self.batch_sharded(batch))
 
 
 LOCAL = ParallelContext()
@@ -73,14 +236,139 @@ def manual_context(group) -> ParallelContext:
                            size=dist.get_world_size(group), manual=True)
 
 
+def make_context(grid: Optional[RankGrid]) -> ParallelContext:
+    """The automatic regime's context over ``grid`` (:data:`LOCAL` for
+    None): its data axes are the grid's ``pod`` and ``data``, in the
+    grid's order, its model axis ``model``.  Builds the grid's groups, so
+    every rank of a world of the grid's size must call it."""
+    if grid is None:
+        return LOCAL
+    _grid_groups(grid)
+    data_axes = tuple(a for a in grid.axes if a in ("pod", "data"))
+    data_rank = 0
+    for a in data_axes:
+        data_rank = data_rank * grid.axis_size(a) + grid.index(a)
+    return ParallelContext(group=grid.group("model"), rank=grid.index("model"),
+                           size=grid.axis_size("model"), grid=grid,
+                           data_axes=data_axes, data_rank=data_rank)
+
+
+def _recording(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def model_psum(x: torch.Tensor, pctx: ParallelContext) -> torch.Tensor:
-    """Reduce a model-axis partial activation (in place, on the pod's
-    group); the identity outside the tensor-parallel regime.  On a CUDA
-    tensor it is issued on the current stream, which the collective waits
-    for and which waits for its result."""
+    """Reduce a model-axis partial activation on the model group (in
+    place, or out of place with Megatron's g rule, identity backward, when
+    autograd records); the identity outside tensor parallelism.  On a
+    CUDA tensor it is issued on the current stream, which the collective
+    waits for and which waits for its result."""
     if pctx.tensor_parallel:
+        if _recording(x):
+            return _Reduce.apply(x, pctx.group)
         dist.all_reduce(x, group=pctx.group)
     return x
+
+
+def model_copy(x: torch.Tensor, pctx: ParallelContext) -> torch.Tensor:
+    """Megatron's f: the input of a column-parallel block (or a replicated
+    weight that only a rank's shard reads) is itself forward and sums its
+    gradient over the model group backward.  The identity where autograd
+    does not record or there is no model axis."""
+    if pctx.tensor_parallel and _recording(x):
+        return _Copy.apply(x, pctx.group)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# collectives with autograd rules (each the identity for a group of None)
+# ---------------------------------------------------------------------------
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        x = x.contiguous()
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        ctx.dim, ctx.group, ctx.block, ctx.me = dim, group, x.shape[dim], me
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = [p.contiguous() for p in g.split(ctx.block, ctx.dim)]
+        out = torch.empty_like(parts[ctx.me])
+        dist.reduce_scatter(out, parts, group=ctx.group)
+        return out, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, index, n, group):
+        y = x.contiguous().clone()
+        if group is not None:
+            dist.all_reduce(y, group=group)
+        block = x.shape[dim] // n
+        ctx.dim, ctx.group, ctx.shape = dim, group, x.shape
+        ctx.at = index * block
+        return y.narrow(dim, index * block, block).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        full = g.new_zeros(ctx.shape)
+        full.narrow(ctx.dim, ctx.at, g.shape[ctx.dim]).copy_(g)
+        if ctx.group is not None:
+            dist.all_reduce(full, group=ctx.group)
+        return full, None, None, None, None
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks of ``group`` concatenated along ``dim`` in group
+    order (JAX's tiled ``all_gather``); backward, the gradients summed
+    over the group and this rank's block taken (a reduce-scatter)."""
+    return x if group is None else _Gather.apply(x, dim, group)
+
+
+def psum_scatter(x: torch.Tensor, dim: int, index: int, n: int,
+                 group) -> torch.Tensor:
+    """``x`` summed over ``group`` (None: not summed), then block ``index``
+    of ``n`` along ``dim``; backward, the block's gradient placed at its
+    rows and summed over the group."""
+    if group is None and n == 1:
+        return x
+    return _PsumScatter.apply(x, dim, index, n, group)
+
+
+def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """A loss-level sum over ``group``: every rank gets the total and
+    backpropagates only its own term (identity backward)."""
+    return x if group is None else _Reduce.apply(x, group)
 
 
 # ---------------------------------------------------------------------------
@@ -187,13 +475,13 @@ def spawn(fn: Callable, nprocs: int, args: tuple = (), *,
 def _map_spec(fn, spec, tree):
     """``fn(leaf, dim)`` over the leaves of ``tree`` that ``spec``, a
     prefix of it, shards (an int stands for every leaf beneath it); a None
-    spec leaves its subtree as it is."""
+    spec, or a key a dict spec lacks, leaves its subtree as it is."""
     if spec is None:
         return tree
     if isinstance(spec, int):
         return tree_map(lambda a: fn(a, spec), tree)
     if isinstance(spec, dict):
-        return {k: _map_spec(fn, spec[k], v) for k, v in tree.items()}
+        return {k: _map_spec(fn, spec.get(k), v) for k, v in tree.items()}
     return [_map_spec(fn, s, v) for v, s in zip(tree, spec)]
 
 
@@ -216,3 +504,44 @@ def shard_params(params, specs, rank: int, mp: int):
         return a.narrow(dim, rank * (n // mp), n // mp)
 
     return _map_spec(one, specs, params)
+
+
+def spec_leaves(spec, tree) -> list:
+    """``spec`` (a prefix of ``tree``, as :func:`shard_params` takes)
+    expanded to one entry a leaf, in ``tree_leaves(tree)``'s order: the
+    leaf's sharded dim, or None."""
+    if spec is None or isinstance(spec, int):
+        return [spec] * len(tree_leaves(tree))
+    if isinstance(spec, dict):
+        return [d for k, v in tree.items() for d in spec_leaves(spec.get(k), v)]
+    if tree is None:
+        return []
+    return [d for v, s in zip(tree, spec) for d in spec_leaves(s, v)]
+
+
+def shard_grid(params, specs: dict, grid: Optional[RankGrid],
+               rank: Optional[int] = None):
+    """Rank ``rank``'s (this rank's when None) shards of ``params`` over
+    ``grid`` in the automatic regime: ``specs`` maps a grid axis to its
+    spec tree (``model.param_specs``), and each axis cuts in the grid's
+    order, so an expert dim sharded over ``pod`` and ``model`` gives rank
+    (pod, model) block ``pod * |model| + model``.  Views of the caller's
+    leaves, as :func:`shard_params`; ``grid=None`` returns ``params``."""
+    if grid is None:
+        return params
+    at = grid.coords(dist.get_rank() if rank is None else rank)
+    for axis in grid.axes:
+        if specs.get(axis) is not None:
+            params = shard_params(params, specs[axis], at[axis],
+                                  grid.axis_size(axis))
+    return params
+
+
+def leaf_axes(specs: dict, tree, grid: RankGrid) -> list:
+    """For each leaf of ``tree`` (``tree_leaves`` order), the grid axes
+    (longer than one rank) that shard it under ``specs``."""
+    per_axis = {a: spec_leaves(specs.get(a), tree) for a in grid.axes
+                if grid.axis_size(a) > 1}
+    n = len(tree_leaves(tree))
+    return [tuple(a for a, dims in per_axis.items() if dims[i] is not None)
+            for i in range(n)]

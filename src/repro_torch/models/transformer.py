@@ -28,7 +28,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import apply_mlp, init_mlp, init_rms_norm, rms_norm
-from repro_torch.models.parallel import LOCAL, ParallelContext, model_psum
+from repro_torch.models.parallel import (LOCAL, ParallelContext, model_copy,
+                                         model_psum)
 from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
@@ -443,8 +444,10 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
     row-sharded, so attention's and the MLP's outputs are this rank's
     partial sums, reduced with :func:`model_psum` (an MoE layer reduces its
     own); the kv cache stays this rank's whole-head slice.  Recurrent
-    mixers replicate.  ``pending``/``defer_psum`` implement psum overlap:
-    with ``defer_psum`` an attention+MLP layer returns its MLP output
+    mixers replicate.  Where autograd records (a train step across ranks)
+    the sums take Megatron's g rule and the sharded blocks' inputs its f
+    (``parallel.model_copy``).  ``pending``/``defer_psum`` implement psum
+    overlap: with ``defer_psum`` an attention+MLP layer returns its MLP output
     unreduced as ``pending_out`` (None where nothing is pending), and the
     next layer adds ``model_psum(pending)`` to x at its top, before norm1:
     the same value, one layer later, in the same order of additions."""
@@ -470,12 +473,19 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
         return x + out, st, None, None
     rope = not cfg.is_encdec          # whisper uses sinusoid embeds, no RoPE
     new_cache = None
+    mixer = p["mixer"]
+    if pctx.tensor_parallel:
+        # Megatron's f: the heads' gradients, and the replicated qk-norm
+        # weights' that each rank's heads read, sum over the model axis
+        h = model_copy(h, pctx)
+        mixer = {k: model_copy(v, pctx) if k in ("q_norm", "k_norm") else v
+                 for k, v in mixer.items()}
     if mode == "decode":
-        out, kv = attn.attention_decode(p["mixer"], h, cache["kv"], pos,
+        out, kv = attn.attention_decode(mixer, h, cache["kv"], pos,
                                         cfg=cfg, window=ldef.window, rope=rope)
         new_cache = {"kv": kv}
     else:
-        out, kv = attn.attention_fullseq(p["mixer"], h, cfg=cfg,
+        out, kv = attn.attention_fullseq(mixer, h, cfg=cfg,
                                          window=ldef.window,
                                          use_kernel=use_kernel, causal=causal,
                                          rope=rope)
@@ -498,7 +508,7 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
         x = x + out
         aux = torch.stack([moe_aux["load_balance"], moe_aux["router_z"]])
     else:
-        part = apply_mlp(p["ffn"], h2, cfg.act)
+        part = apply_mlp(p["ffn"], model_copy(h2, pctx), cfg.act)
         if defer_psum:
             pending_out = part
         else:

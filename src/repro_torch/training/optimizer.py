@@ -21,7 +21,10 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.models import parallel
+from repro_torch.models.parallel import LOCAL, ParallelContext
 from repro_torch.tree import tree_leaves, tree_map
 
 # ---------------------------------------------------------------------------
@@ -68,19 +71,41 @@ def adamw_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(torch.stack([x.float().square().sum()
-                                   for x in tree_leaves(tree)]).sum())
+def global_norm(tree, specs: Optional[dict] = None,
+                pctx: ParallelContext = LOCAL) -> torch.Tensor:
+    """The L2 norm of the whole tree.  Under an automatic ``pctx`` with the
+    tree's ``specs`` (``model.param_specs``) each leaf is a rank's shard:
+    the squares of the leaves sharded over the same axes are summed and
+    all-reduced over those axes, replicated leaves counted once, so every
+    rank gets the norm of the whole gradient."""
+    if pctx.grid is None or specs is None:
+        return torch.sqrt(torch.stack([x.float().square().sum()
+                                       for x in tree_leaves(tree)]).sum())
+    sums: dict = {}
+    for x, axes in zip(tree_leaves(tree),
+                       parallel.leaf_axes(specs, tree, pctx.grid)):
+        sq = x.float().square().sum()
+        sums[axes] = sq if axes not in sums else sums[axes] + sq
+    total = None
+    for axes, sq in sums.items():
+        group = pctx.grid.group(axes)
+        if group is not None:
+            dist.all_reduce(sq, group=group)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state):
+def adamw_update(cfg: AdamWConfig, params, grads, state, *,
+                 pctx: ParallelContext = LOCAL, specs: Optional[dict] = None):
     """One AdamW step on ``params`` (updated in place) from ``grads`` (a
     tree of the params' layout, any float dtype).  Returns (params, state,
-    grad norm before the clip); nothing here waits for the device."""
+    grad norm before the clip); nothing here waits for the device.  Across
+    ranks, each rank's shards with the whole gradient's norm
+    (:func:`global_norm` with ``specs`` and ``pctx``)."""
     step = state["step"] + 1
     lr = cfg.lr(step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, pctx)
     scale = None
     if cfg.grad_clip is not None:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),

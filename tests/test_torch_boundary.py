@@ -123,7 +123,7 @@ def test_training_needs_a_gpu(tmp_path):
     """``init_train_state``, the training launcher and both training
     examples default to the card and raise without one; the launcher's
     ``--lower-only`` traces on meta tensors and needs no device, and its
-    ``--multi-pod`` (a model axis) is not ported."""
+    ``--multi-pod`` (the dry run's multi-pod trace) still raises."""
     code = BLOCKED + """
 import dataclasses
 from repro_torch.configs import get_config

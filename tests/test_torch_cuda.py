@@ -7,7 +7,9 @@ layer's routing and whisper's kernel prefill on the card against the CPU,
 the two-pod prefill pipeline on two streams against one, the dry
 run's counts on the card against those on meta tensors, and the model axis:
 two ranks sharing the card over gloo, their all_reduce and the reduced
-families at (pod=2, model=2) against the CPU.
+families at (pod=2, model=2) against the CPU; and the MoE layer's
+automatic branch at (data=2, model=2) over four ranks on the card against
+the CPU.
 
 These tests import no JAX, so a GPU machine with PyTorch alone runs them,
 without the JAX package's conftest:
@@ -909,8 +911,8 @@ def test_checkpoint_round_trips_from_the_card(cuda, tmp_path):
     from repro_torch.tree import tree_leaves
     cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), dtype="bfloat16")
     built = M.build(cfg.with_butterfly(1, 16))
-    params, opt = init_train_state(torch.Generator(device=cuda).manual_seed(0),
-                                   built, device=cuda)
+    params, opt, _ = init_train_state(
+        torch.Generator(device=cuda).manual_seed(0), built, device=cuda)
     opt["mu"]["embed"].add_(0.5)
     path = save_checkpoint(str(tmp_path / "ckpt"), params, opt, step=4)
     template = M.init_model(torch.Generator(device=cuda).manual_seed(1), built,
@@ -1059,6 +1061,30 @@ def test_gloo_all_reduce_of_two_ranks_on_one_card(cuda):
                        for dt in (torch.bfloat16, torch.float32)}
 
 
+def _gloo_gather_rank(rank, device):
+    import torch.distributed as dist
+    x = torch.full((2, 3), float(rank + 1), device=device)
+    parts = [torch.empty_like(x) for _ in range(2)]
+    dist.all_gather(parts, x)
+    out = torch.empty((1, 3), device=device)
+    dist.reduce_scatter(out, [torch.full((1, 3), float(rank + 1), device=device),
+                              torch.full((1, 3), 10.0 * (rank + 1), device=device)])
+    return torch.cat(parts).cpu(), out.cpu(), out.device.type
+
+
+def test_gloo_gather_and_reduce_scatter_on_one_card(cuda):
+    """gloo's all_gather and reduce_scatter of CUDA tensors, which the
+    automatic regime's FSDP gather and its backward issue, run on the
+    card: rank r gathers both ranks' blocks in rank order and receives the
+    sum of block r."""
+    from repro_torch.models import parallel
+    for r, (gathered, reduced, where) in enumerate(
+            parallel.spawn(_gloo_gather_rank, 2, devices="cuda:0")):
+        assert where == "cuda"
+        assert torch.equal(gathered, torch.tensor([[1.0] * 3] * 2 + [[2.0] * 3] * 2))
+        assert torch.equal(reduced, torch.full((1, 3), 3.0 * (1 if r == 0 else 10)))
+
+
 def _axis_family(kind):
     from repro_torch.configs import get_config
     if kind == "moe":
@@ -1123,3 +1149,65 @@ def test_model_axis_on_the_card_matches_cpu(cuda):
                                               for a, b in zip(ec, eg)), kind
             assert (kind == "moe") == bool(ec)
             assert torch.equal(lg, ranks[0][kind, "cuda"][0])
+
+
+def _automatic_rank(rank, device):
+    """The MoE layer's automatic branch at (data=2, model=2), reduced
+    qwen3-moe in f32 (4 experts, top-2, the default capacity factor 1.25),
+    on the card and on the CPU from one CPU init: the train path (4, 32)
+    with its FSDP d_ff gather, and the decode broadcast (8, 1)."""
+    from repro_torch.data import shard_batch
+    from repro_torch.models import moe, parallel
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(_axis_family("moe"), num_heads=8, num_kv_heads=4)
+    grid = parallel.RankGrid((2, 2), ("data", "model"))
+    pctx = parallel.make_context(grid)
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    specs = {"model": {"wg": 0, "wu": 0, "wd": 0},
+             "data": {"wg": 2, "wu": 2, "wd": 1}}
+    rng = np.random.default_rng(1)
+    xs = {"train": rng.standard_normal((4, 32, cfg.d_model)).astype(np.float32),
+          "decode": rng.standard_normal((8, 1, cfg.d_model)).astype(np.float32)}
+    route, out = moe.route, {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(device if dev == "cuda" else "cpu"),
+                     parallel.shard_grid(params, specs, grid))
+        for name, x in xs.items():
+            eids = []
+
+            def recording(*a, **kw):
+                res = route(*a, **kw)
+                eids.append(res[3].cpu())
+                return res
+            moe.route = recording
+            try:
+                xb = shard_batch({"x": x}, pctx, device=device if dev == "cuda"
+                                 else "cpu")["x"]
+                o, aux = moe.apply_moe(p, xb, cfg=cfg, act="silu", pctx=pctx)
+            finally:
+                moe.route = route
+            out[name, dev] = (o.cpu(), torch.stack([aux["load_balance"],
+                                                    aux["router_z"]]).cpu(), eids,
+                              o.device.type)
+    return out
+
+
+def test_moe_automatic_branch_on_the_card_matches_cpu(cuda):
+    """Four ranks on card 0 (gloo) at (data=2, model=2), f32 without TF32:
+    the automatic branch's outputs (the FSDP d_ff all-gather on the train
+    path, the token all-gather and the sums over model and data in the
+    decode broadcast) on the card within rtol 1e-4 (atol 1e-5) of the CPU's,
+    its aux losses within rtol 1e-4 and every expert id equal; a data
+    block's two model ranks agree bit for bit."""
+    from repro_torch.models import parallel
+    ranks = parallel.spawn(_automatic_rank, 4, devices="cuda:0")
+    for r, out in enumerate(ranks):
+        for name in ("train", "decode"):
+            (oc, ac, ec, _), (og, ag, eg, where) = out[name, "cpu"], out[name, "cuda"]
+            assert where == "cuda"
+            torch.testing.assert_close(og, oc, rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(ag, ac, rtol=1e-4, atol=0)
+            assert len(ec) == len(eg) == 1 and torch.equal(ec[0], eg[0]), name
+            mate = ranks[r ^ 1][name, "cuda"][0]
+            assert torch.equal(og, mate), name
