@@ -177,7 +177,9 @@ result line):
  21. dry run and launchers - the dry run's FLOPs and bytes of a qwen3-8b
                plain prefill of 1 x 128 tokens on meta equal those counted
                on the card, beside the prefill's wall; then serve (engine
-               and --split), split_serving and dryrun as subprocesses on
+               and --split), split_serving, dryrun and dryrun
+               --both-meshes (rank 0 of the 16x16 and 2x16x16 grids in a
+               fake world) as subprocesses on
                the card, while the reduced f32 split pipeline runs on the
                card and on the CPU (gemma3, qwen3-moe, zamba2, xLSTM; see
                phase_launchers).
@@ -209,6 +211,19 @@ result line):
                (data=2, model=2) (prefill, decode, 4 training steps) and
                (pod=2, data=1, model=2) with experts over the pod axis
                (see phase_automatic).
+ 24. seq decode - the dry run's production layout: four spawned ranks
+               share this card over gloo at (data=2, model=2), each holding
+               only its shards of full-width qwen3-8b (36 layers, butterfly
+               after layer 4 at d_r 64): a kernel prefill of 4 x 128 tokens
+               into caches sharded on "model" (REPRO_PREFILL_CACHE_SHARDED)
+               and 8 decode steps at capacity 256, then one of 1 x 1,024
+               into caches sharded on ("data", "model") and 8 steps at
+               2,048, each step within phase 5's 5% of degree 1 with its
+               greedy tokens; exact launches a rank; each rank's counts of
+               one plain decode step equal its meta trace in a fake world
+               (parallel.fake_world) exactly; first the reduced f32
+               card-vs-CPU run (kv replicated, attention replicated, a
+               ring, whisper; see phase_seq_decode).
 Each model's weights leave the card before the next one is built, and
 each phase prints its peak device memory.
 With ``--profile [DIR]`` it profiles one qwen3-8b prefill and 8 decode steps
@@ -222,7 +237,7 @@ prefills and decode in phases 18 and 19 (torch.profiler: wall time,
 device-busy share, top kernels; the
 operator tables go to DIR when one is given).  It then
 prints the kernels' JSON line (launches by path, the paths of phases
-9-23 included (phases 22's and 23's summed over their ranks), the training and
+9-24 included (phases 22's, 23's and 24's summed over their ranks), the training and
 split-pipeline paths with none; the
 times of flash attention and of the norm and bincount kernels per launch, averaged over their path's launches; the two butterfly
 kernels' at 128 rows; every timed shape under "by_shape") and, last, the
@@ -2976,7 +2991,9 @@ def phase_launchers(smi: str):
     default device (the card), all at once: ``launch.serve`` in engine mode
     and with ``--split`` on checkpoints saved here from the reduced
     config's weights (seed 5), ``examples.split_serving`` and
-    ``launch.dryrun --arch qwen3-8b --shape decode_32k``; meanwhile the
+    ``launch.dryrun --arch qwen3-8b --shape decode_32k``, and the same with
+    ``--both-meshes`` (rank 0 of the 16x16 and 2x16x16 grids in a fake
+    world, records with collectives); meanwhile the
     reduced card-vs-CPU run of the split pipeline (``_split_parity``).
     Each must exit 0; serve prints one line a prompt, and --split's ids are
     the greedy tokens of the single-model forward_train on the same
@@ -3014,6 +3031,9 @@ def phase_launchers(smi: str):
             "split_serving": py + ["repro_torch.examples.split_serving"],
             "dryrun": py + ["repro_torch.launch.dryrun", "--arch", "qwen3-8b",
                             "--shape", "decode_32k", "--out", f"{tmp}/dryrun"],
+            "dryrun --both-meshes": py + [
+                "repro_torch.launch.dryrun", "--arch", "qwen3-8b", "--shape",
+                "decode_32k", "--both-meshes", "--out", f"{tmp}/dryrun"],
         }
         t = time.perf_counter()
         procs = {k: subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
@@ -3032,8 +3052,14 @@ def phase_launchers(smi: str):
         for k, p in procs.items():
             if p.returncode != 0:
                 fail(f"launcher {k} exited {p.returncode}:\n{outs[k][1][-3000:]}")
-        if not Path(f"{tmp}/dryrun/qwen3-8b_decode_32k_1.json").is_file():
-            fail("the dry run wrote no record")
+        for mesh in ("1", "16-16", "2-16-16"):
+            rec = Path(f"{tmp}/dryrun/qwen3-8b_decode_32k_{mesh}.json")
+            if not rec.is_file():
+                fail(f"the dry run wrote no record for mesh {mesh}")
+            if mesh != "1":
+                coll = json.loads(rec.read_text())["collectives"]
+                if not coll["all-reduce"] or not coll["all-gather"]:
+                    fail(f"the dry run's {mesh} record counts collectives {coll}")
     lines = {k: o[0].splitlines() for k, o in outs.items()}
     for k in ("serve", "serve --split"):
         rows = [l for l in lines[k] if " -> " in l]
@@ -3061,6 +3087,8 @@ def phase_launchers(smi: str):
     print(f"launchers: serve --split ids {ids} == forward_train's greedy tokens")
     print(f"launchers: split_serving max |err| {err:.3g}, {n_int8} int8 "
           f"crossings; dryrun: {lines['dryrun'][0]}")
+    for line in lines["dryrun --both-meshes"][:2]:
+        print(f"launchers: dryrun --both-meshes: {line}")
 
 
 # -------------------------------------------------------------------------- 22
@@ -3535,13 +3563,13 @@ def _auto_parity() -> dict:
     runs = {}
     for dev in ("cpu", "cuda"):
         mine = tree_map(lambda t: t.to(dev), parallel.shard_grid(
-            params, M.param_specs(built), grid))
+            params, M.param_specs(built, grid), grid))
         served = _auto_serve(mine, built, pctx, shard_batch(
             {"t": batch["tokens"]}, pctx, device=dev)["t"], c["T"])
         step = make_train_step(tb, AdamWConfig(lr=cosine_schedule(1e-3, 2, c["train_steps"])),
                                pctx)
         tp = tree_map(lambda t: t.to(dev, copy=True), parallel.shard_grid(
-            tparams, M.param_specs(tb), grid))
+            tparams, M.param_specs(tb, grid), grid))
         opt = adamw_init(tp)
         b = shard_batch(batch, pctx, device=dev)
         metrics = []
@@ -3574,7 +3602,7 @@ def _auto_parity() -> dict:
         pod = {}
         for dev in ("cpu", "cuda"):
             mine = tree_map(lambda t: t.to(dev), parallel.shard_grid(
-                params, M.param_specs(built), grid))
+                params, M.param_specs(built, grid), grid))
             with _Routes() as r:
                 logits, _ = M.forward_prefill(mine, built, shard_batch(
                     {"tokens": batch["tokens"]}, pctx, device=dev), pctx,
@@ -3651,7 +3679,7 @@ def _auto_rank(rank, device):
                           device="cuda")
     torch.cuda.synchronize()
     out.update(init_s=time.perf_counter() - t0, checksum=_auto_checksum(params))
-    mine = parallel.shard_grid(params, M.param_specs(built), grid)
+    mine = parallel.shard_grid(params, M.param_specs(built, grid), grid)
     prompts = np.stack(_prompts(c["prompts"], (c["S"],) * c["prompts"]))
     toks = shard_batch({"tokens": prompts}, pctx)["tokens"]
     M.forward_prefill(mine, built, {"tokens": toks}, pctx, use_kernel=True)  # warm-up
@@ -3883,6 +3911,344 @@ def phase_automatic(smi: str):
     return launches
 
 
+# -------------------------------------------------------------------------- 24
+# the dry run's production layout on the card: qwen3-8b at its published
+# widths and depth (36 layers; the butterfly after layer 4 at d_r 64, phase
+# 5's wire), four ranks at (data=2, model=2) sharing the card over gloo,
+# each holding only its shards (16 of 32 q heads, 4 of 8 kv heads, half of
+# d_ff; 9.4 GB), decoding over caches whose length shards as the JAX dry
+# run's decode_state_specs(seq_axis=) lays it out
+SEQ = {"m": dict(B=4, S=128, cap=256, axis="model"),
+       "dm": dict(B=1, S=1024, cap=2048, axis=("data", "model"))}
+SEQ_STEPS = 8
+SEQ_GRID = ((2, 2), ("data", "model"))
+# the reduced f32 card-vs-CPU run at the same grid: kv replicated, attention
+# replicated, a windowed ring, whisper's cross attention
+SEQ_PARITY = dict(cases={"kv replicated": ("qwen3-8b", {"num_kv_heads": 1}),
+                         "attention replicated": ("qwen3-8b", {"num_heads": 3,
+                                                               "num_kv_heads": 1}),
+                         "ring": ("gemma3-12b", {"sliding_window": 16}),
+                         "whisper": ("whisper-base", {})},
+                  S=20, cap=32, T=3, rtol=1e-4, atol=1e-5)
+
+
+def _seq_cfg():
+    from repro_torch.configs import get_config
+    return get_config("qwen3-8b").with_butterfly(4, 64)
+
+
+def _seq_kinds():
+    from repro_torch.configs import InputShape
+    return {k: InputShape(f"decode_{c['cap']}", c["cap"], c["B"], "decode")
+            for k, c in SEQ.items()}
+
+
+def _seq_serve(params, built, pctx, batch, cap, steps, inputs=None):
+    """Kernel prefill of ``batch`` under ``pctx`` into sequence-sharded
+    caches (on "model" through REPRO_PREFILL_CACHE_SHARDED=1 at a batch
+    above one, under for_cache(("data", "model")) at a batch of one), the
+    caches padded to ``cap``, and ``steps`` kernel decode steps, greedy or
+    fed ``inputs`` (teacher-forced): the prefill logits, each step's logits
+    and greedy ids, and the walls, on the host."""
+    import torch
+    from repro_torch.models import model as M
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    if batch["tokens"].shape[0] > 1:
+        os.environ["REPRO_PREFILL_CACHE_SHARDED"] = "1"
+        try:
+            logits, caches = M.forward_prefill(params, built, batch, pctx,
+                                               use_kernel=True)
+        finally:
+            del os.environ["REPRO_PREFILL_CACHE_SHARDED"]
+        pctx = pctx.for_cache("model")
+    else:
+        pctx = pctx.for_cache(("data", "model"))
+        logits, caches = M.forward_prefill(params, built, batch, pctx,
+                                           use_kernel=True)
+    caches = M.pad_decode_caches(built, caches, cap, pctx)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    S = batch["tokens"].shape[1]
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    out, ids, ms = [], [], []
+    for i in range(steps):
+        if inputs is not None:
+            tok = inputs[i].to(logits.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, caches = M.forward_decode(params, built, tok, caches, S + i, pctx,
+                                      use_kernel=True)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        out.append(lg[:, 0].float().cpu())
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        ids.append(tok[:, 0].cpu())
+    return dict(prefill=logits[:, 0].float().cpu(), steps=out, ids=ids,
+                prefill_ms=prefill_ms, ms=ms)
+
+
+def _seq_parity() -> dict:
+    """Phase 24's reduced f32 card-vs-CPU run on this rank: each case of
+    SEQ_PARITY from one CPU init, its shards on the card and on the CPU
+    over the same gloo world, a kernel prefill of S tokens and T greedy
+    kernel decode steps over caches sharded on "model" (a batch of 4) and
+    on ("data", "model") (a batch of 1).  Logits rtol 1e-4 (atol 1e-5),
+    ids equal; raises (and so fails the spawn) otherwise."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import shard_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import parallel
+    from repro_torch.tree import tree_map
+    c = SEQ_PARITY
+    grid = parallel.RankGrid(*SEQ_GRID)
+    base = parallel.make_context(grid)
+    err, n = 0.0, 0
+    for label, (arch, over) in c["cases"].items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                                  **over)
+        built = M.build(cfg)
+        params = M.init_model(torch.Generator().manual_seed(0), built, device="cpu")
+        mine = parallel.shard_grid(params, M.param_specs(built, grid), grid)
+        rng = np.random.default_rng(2)
+        for B in (4, 1):
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, c["S"]))}
+            if cfg.is_encdec:
+                batch["frames"] = rng.standard_normal(
+                    (B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+            pctx = base.for_batch(B)
+            runs = {dev: _seq_serve(tree_map(lambda t: t.to(dev), mine), built,
+                                    pctx, shard_batch(batch, pctx, device=dev),
+                                    c["cap"], c["T"])
+                    for dev in ("cpu", "cuda")}
+            got, want = runs["cuda"], runs["cpu"]
+            for g, w in zip([got["prefill"]] + got["steps"],
+                            [want["prefill"]] + want["steps"]):
+                torch.testing.assert_close(g, w, rtol=c["rtol"], atol=c["atol"])
+                err = max(err, float((g - w).abs().max()))
+            for g, w in zip(got["ids"], want["ids"]):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"seq-sharded {label}, batch {B}: ids "
+                                         f"{g.tolist()} on the card, "
+                                         f"{w.tolist()} on the CPU")
+            n += 1
+    return {"err": err, "runs": n}
+
+
+def _seq_rank(rank, device, refs):
+    """One rank of phase 24 (spawned; see phase_seq_decode)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import shard_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    from repro_torch.models import parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)          # four ranks share the host's eight cores
+    t0 = time.perf_counter()
+    out = {"parity": _seq_parity()}
+    out["parity_s"] = time.perf_counter() - t0
+    grid = parallel.RankGrid(*SEQ_GRID)
+    base = parallel.make_context(grid)
+    built = M.build(_seq_cfg())
+    # one rank at a time holds the whole model while it takes its shards
+    t0 = time.perf_counter()
+    for r in range(grid.size):
+        if r == rank:
+            params = M.init_model(torch.Generator(device="cuda").manual_seed(0),
+                                  built, device="cuda")
+            out["checksum"] = _checksum(params)
+            mine = dryrun._owned(parallel.shard_grid(
+                params, M.param_specs(built, grid), grid))
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    out["init_s"] = time.perf_counter() - t0
+    out["held_gb"] = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    for kind, c in SEQ.items():
+        pctx = base.for_batch(c["B"])
+        toks = shard_batch({"tokens": refs[kind]["prompts"]}, pctx)
+        rows = toks["tokens"].shape[0]
+        lo = pctx.data_rank * rows if c["B"] > 1 else 0
+        inputs = [t[lo:lo + rows] for t in refs[kind]["inputs"]]
+        if kind == "m":                    # warm-up (libraries, handles)
+            _seq_serve(mine, built, pctx, toks, c["cap"], 1, inputs)
+        _zero_counts()
+        out[kind] = _seq_serve(mine, built, pctx, toks, c["cap"], SEQ_STEPS,
+                               inputs)
+        out[kind]["launches"] = _counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the dry run's premise: this rank's counts of one plain decode step
+    out["counts"] = {}
+    for kind, shape in _seq_kinds().items():
+        counter, memory = dryrun.count_step(built, shape, "cuda", grid=grid,
+                                            shards=mine)
+        out["counts"][kind] = (counter.flops, counter.bytes,
+                               dict(counter.collectives),
+                               memory["argument_size_in_bytes"])
+    return out
+
+
+def seq_decode_references():
+    """Phase 24's degree-1 side, in this process before the ranks start:
+    full-width qwen3-8b from seed 0, a kernel prefill and 8 greedy kernel
+    decode steps for each layout's prompts (SEQ), on the host: the
+    prompts, each step's input tokens, logits and walls."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    built = M.build(_seq_cfg())
+    params = M.init_model(torch.Generator(device="cuda").manual_seed(0), built,
+                          device="cuda")
+    refs = {"checksum": _checksum(params)}
+    for kind, c in SEQ.items():
+        prompts = np.stack(_prompts(c["B"], (c["S"],) * c["B"]))
+        toks = torch.tensor(prompts, device="cuda")
+        M.forward_prefill(params, built, {"tokens": toks}, use_kernel=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = M.forward_prefill(params, built, {"tokens": toks},
+                                           use_kernel=True)
+        caches = M.pad_decode_caches(built, caches, c["cap"])
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        tok, inputs, steps, ms = logits[:, -1].argmax(-1, keepdim=True), [], [], []
+        for i in range(SEQ_STEPS):
+            inputs.append(tok.cpu())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, caches = M.forward_decode(params, built, tok, caches, c["S"] + i,
+                                          use_kernel=True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            steps.append(lg[:, 0].float().cpu())
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+        refs[kind] = dict(prompts=prompts, inputs=inputs, steps=steps, ms=ms,
+                          prefill=logits[:, 0].float().cpu(), prefill_ms=prefill_ms)
+        del caches
+    del params
+    return refs
+
+
+def phase_seq_decode(smi: str):
+    """Phase 24: the dry run's production layout on the card.  After the
+    degree-1 references (seq_decode_references), four ranks, one spawned
+    process each, share the card over gloo at (data=2, model=2); each
+    builds full-width qwen3-8b from seed 0 in turn (the same weights,
+    checked), keeps its shards, and runs:
+      1. 4 prompts of 128 tokens (2 a data block): a kernel prefill under
+         REPRO_PREFILL_CACHE_SHARDED=1 (the caches come out seq -> model),
+         the caches padded to 256 (128 positions a rank), 8 kernel decode
+         steps over caches sharded on "model";
+      2. 1 prompt of 1,024 tokens: a kernel prefill under caches sharded
+         on ("data", "model"), padded to 2,048 (512 a rank), 8 steps;
+         each step teacher-forced with degree 1's tokens: prefill and step
+         logits within phase 5's 5% of degree 1's, the greedy tokens equal
+         unless degree 1's top two lie within the bound;
+      3. launches a rank exactly: 36 flash (the prefill's attention layers,
+         on the rank's 16 q and 4 kv heads) and reduce_quant and
+         dequant_restore once a prefill and once a decode step;
+      4. the dry run's premise: the rank's roofline.CostCounter over one
+         plain decode step at each layout (capacity 256 and 2,048) equals,
+         exactly, the meta trace of the same rank in a fake world of the
+         same grid: FLOPs, bytes, collective bytes by kind, argument bytes;
+      5. first, the reduced f32 card-vs-CPU run (see _seq_parity).
+    Prints the walls beside degree 1's, each rank's peak and the phase's
+    seconds.  Returns the launches summed over the ranks."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    from repro_torch.models import parallel
+    t0 = time.perf_counter()
+    refs = seq_decode_references()
+    _free()
+    ref_s = time.perf_counter() - t0
+    ranks = parallel.spawn(_seq_rank, 4, (refs,),
+                           devices=f"cuda:{torch.cuda.current_device()}")
+    wall = time.perf_counter() - t0
+    p = ranks[0]["parity"]
+    print(f"seq decode: 4 ranks at (data=2, model=2) on {smi} over gloo, "
+          f"{wall:.1f} s with the references ({ref_s:.1f} s) and the spawn; "
+          f"reduced f32 card vs CPU ({ranks[0]['parity_s']:.1f} s): "
+          f"{p['runs']} runs (kv replicated, attention replicated, ring, "
+          f"whisper; caches on model and on (data, model)), logits max|d| "
+          f"{p['err']:.3g}, ids equal")
+    for r, out in enumerate(ranks):
+        if out["checksum"] != refs["checksum"]:
+            fail(f"seq decode: rank {r}'s weights {out['checksum']} are not the "
+                 f"reference's {refs['checksum']}")
+    layers = _seq_cfg().num_layers
+    grid = parallel.RankGrid(*SEQ_GRID)
+    launches = None
+    for kind, c in SEQ.items():
+        want = dict.fromkeys(ranks[0][kind]["launches"], 0)
+        want["flash_attention"] = layers
+        want["butterfly_reduce_quant"] = want["butterfly_dequant_restore"] = \
+            1 + SEQ_STEPS
+        worst = 0.0
+        for r, out in enumerate(ranks):
+            got = out[kind]
+            if got["launches"] != want:
+                fail(f"seq decode {kind} rank {r}: launched {got['launches']}, "
+                     f"expected {want}")
+            rows = got["prefill"].shape[0]
+            lo = grid.coords(r)["data"] * rows if c["B"] > 1 else 0
+            ref = refs[kind]
+            for j in range(rows):
+                d, limit = _hold_logits(f"seq decode {kind} prefill rank {r} row "
+                                        f"{j}", got["prefill"][j],
+                                        ref["prefill"][lo + j], witness=0.0,
+                                        greedy=True)
+                worst = max(worst, d)
+                for i in range(SEQ_STEPS):
+                    d, _ = _hold_logits(f"seq decode {kind} step {i} rank {r} "
+                                        f"row {j}", got["steps"][i][j],
+                                        ref["steps"][i][lo + j], witness=0.0,
+                                        greedy=True)
+                    worst = max(worst, d)
+            launches = {k: (launches or {}).get(k, 0) + v
+                        for k, v in got["launches"].items()}
+        ms = ranks[0][kind]["ms"]
+        print(f"seq decode {kind}: {c['B']} x {c['S']} tokens, capacity "
+              f"{c['cap']} sharded on {c['axis']}: prefill and {SEQ_STEPS} steps "
+              f"within {worst:.4g} of degree 1 (limit {limit:.4g}), greedy "
+              f"tokens held; launches a rank {want}")
+        print(f"seq decode {kind} on {smi}: kernel prefill "
+              f"{ranks[0][kind]['prefill_ms']:.1f} ms (4 ranks) vs "
+              f"{refs[kind]['prefill_ms']:.1f} ms degree 1; decode "
+              f"{statistics.median(ms[1:]):.1f} ms a step (median of "
+              f"{len(ms) - 1}) vs {statistics.median(refs[kind]['ms'][1:]):.1f} ms")
+    # 4. each rank's card counts against its meta trace in a fake world
+    built = M.build(_seq_cfg())
+    layout = dryrun.init_params(built)                 # meta: no data
+    for kind, shape in _seq_kinds().items():
+        for r, out in enumerate(ranks):
+            with parallel.fake_world(grid, r):
+                counter, memory = dryrun.count_step(built, shape, "meta",
+                                                    params=layout, grid=grid)
+            meta = (counter.flops, counter.bytes, dict(counter.collectives),
+                    memory["argument_size_in_bytes"])
+            if meta != out["counts"][kind]:
+                fail(f"seq decode: rank {r}'s {shape.name} counts on the card "
+                     f"{out['counts'][kind]}, in a fake world on meta {meta}")
+        f, b, coll, arg = ranks[0]["counts"][kind]
+        print(f"seq decode: {shape.name} ({shape.global_batch} rows) one plain "
+              f"decode step, every rank's card counts == its fake-world meta "
+              f"trace; rank 0: {f} FLOPs, {b} B, collectives "
+              f"{ {k: v for k, v in coll.items() if v} } B, arguments {arg / 1e9:.3f} GB")
+    for r, out in enumerate(ranks):
+        print(f"seq decode: rank {r} init {out['init_s']:.1f} s, holds "
+              f"{out['held_gb']:.2f} GB, peak {out['peak_gb']:.2f} GB")
+    print(f"seq decode: phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # --------------------------------------------------------------------- profile
 def _profiled(label: str, fn, out_dir: Optional[Path]):
     """Run ``fn`` twice: once bare for its host wall time, once under
@@ -4011,6 +4377,9 @@ def main():
     del axis_refs
     _free()
     paths["qwen3-moe automatic (data=2, model=2), 4 ranks"] = phase_automatic(smi)
+    _free()
+    paths["qwen3-8b seq-sharded decode (data=2, model=2), 4 ranks"] = \
+        phase_seq_decode(smi)
     _free()
     paths["gemma3-12b kernel prefill"], _, _ = phase_kernel_prefill(
         "gemma3-12b", args.profile is not None, profile_dir)

@@ -1,31 +1,42 @@
-"""Dry run on one card (the port's counterpart of ``repro.launch.dryrun``):
-for each (architecture x input shape) pair, trace the real step and record
-its FLOPs, bytes and memory against the H100's rates (``roofline.py``).
+"""Dry run on meta tensors (the port's counterpart of
+``repro.launch.dryrun``): for each (architecture x input shape) pair, trace
+the real step and record its FLOPs, bytes, collectives and memory against
+the H100's rates (``roofline.py``).
 
-The JAX package lowers each pair through XLA ahead of time on a
-512-device production mesh against TPU v5e constants.  Here the step runs
-eagerly on ``meta`` tensors, which carry shapes and dtypes and no data, so
-nothing is allocated at full scale and no device is touched:
+The JAX package lowers each pair through XLA ahead of time on a production
+mesh against TPU v5e constants.  Here the step runs eagerly on ``meta``
+tensors, which carry shapes and dtypes and no data, so nothing is
+allocated at full scale and no device is touched:
 
   train_4k          ``make_train_step``: forward, backward and the AdamW
                     update, at the shape's global batch;
   prefill_32k       ``forward_prefill``;
   decode_32k,       ``forward_decode`` of one token a sequence over
-  long_500k         caches of the shape's length (``init_stage_cache``).
+  long_500k         caches of the shape's length.
 
-A :class:`roofline.CostCounter` sees every aten op.  The eager trace runs
-every layer, so XLA's two-point scan correction has no counterpart, and a
-card has no collectives to parse.  ``--multi-pod`` and ``--both-meshes``
-trace over a production grid (``launch/mesh.py``): the automatic regime
-runs there as one process a rank (``models/parallel.make_context``), and
-counting one rank's step on meta tensors, its collectives counted rather
-than run, is the dry run's next slice; until then both flags raise.
-``device="cpu"`` or ``"cuda"``
-runs the same trace on real tensors (random weights), which the tests and
-the card use to check the meta counts.
+By default one card runs the whole step (``mesh "1"``).  ``--multi-pod``
+traces the (2, 16, 16) grid over ``("pod", "data", "model")`` and
+``--both-meshes`` the (16, 16) grid over ``("data", "model")`` too
+(``launch/mesh.py``), as the JAX dry run does: inside
+``parallel.fake_world`` this process is rank 0 of a 512- or 256-rank world
+whose collectives return at once, and it runs rank 0's step in the
+automatic regime (``parallel.make_context``) on its shards
+(``model.param_specs``), its block of the batch (``input_specs``) and, in
+decode, its block of the caches (``decode_state_specs``, the length over
+``model``, or over ``("data", "model")`` at a batch of one, as JAX's
+``seq_axis``), with AdamW's state of its shards in train.  Every
+collective is counted by kind (``roofline.CostCounter``).  Rank 0 is
+traced: in decode only the rank that holds the new token's slot writes
+it, rank 0 only while the position lies in its block, so other ranks'
+counts differ by those writes.  A :class:`roofline.CostCounter` sees every
+aten op.  The eager trace runs every layer, so XLA's two-point scan
+correction has no counterpart.  ``device="cpu"`` or ``"cuda"`` runs the
+same trace on real tensors (random weights; ranks of a real world on a
+grid), which the tests and the card use to check the meta counts.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape decode_32k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape decode_32k --both-meshes
 """
 from __future__ import annotations
 
@@ -42,12 +53,14 @@ from repro_torch.configs import INPUT_SHAPES, get_config, supports_shape
 from repro_torch.configs.all import ASSIGNED
 from repro_torch.core import costs
 from repro_torch.launch import roofline
+from repro_torch.launch.mesh import make_production_mesh, mesh_chips
 from repro_torch.models import model as M
+from repro_torch.models import parallel
 from repro_torch.models import transformer as tfm
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             cosine_schedule)
 from repro_torch.training.train_loop import make_train_step
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 OUT_DIR = "build/dryrun"
 
@@ -102,32 +115,66 @@ def model_flops(cfg, shape) -> float:
     return costs.model_flops_decode(cfg, shape.global_batch)
 
 
-def count_step(built, shape, device: str = "meta", params=None):
+def _owned(tree):
+    """Each leaf as a tensor of its own storage (shards are views of the
+    whole tree, whose storage the counter would charge)."""
+    return tree_map(lambda a: a.clone(memory_format=torch.contiguous_format),
+                    tree)
+
+
+def seq_axis_of(shape):
+    """The decode caches' sequence axes, as the JAX dry run picks them:
+    ``("data", "model")`` at a batch of one, else ``"model"``."""
+    return ("data", "model") if shape.global_batch == 1 else "model"
+
+
+def count_step(built, shape, device: str = "meta", params=None, grid=None,
+               shards=None):
     """Run ``shape``'s step once on ``device`` inside a
     :class:`roofline.CostCounter`; returns (counter, memory): the argument,
     output and peak live bytes.  ``params`` (on ``device``) replaces the
-    seed-0 init."""
+    seed-0 init.  With ``grid`` (a ``parallel.RankGrid``, in a world of
+    its size: ``parallel.fake_world`` on meta, real ranks otherwise) the
+    step is this rank's in the automatic regime, on its shards and blocks
+    (module docstring): ``shards``, this rank's own (each leaf its own
+    storage), or those cut from ``params``."""
     cfg = built.cfg
     dev = torch.device("meta") if device == "meta" else dev_lib.resolve(device)
-    if params is None:
+    if params is None and shards is None:
         params = init_params(built, device)
     batch = make_batch(built, shape, dev)
+    pctx = parallel.LOCAL
+    if grid is not None:
+        pctx = parallel.make_context(grid).for_batch(shape.global_batch)
+        params = shards if shards is not None else _owned(parallel.shard_grid(
+            params, M.param_specs(built, grid), grid))
+        _, bspec = M.input_specs(built, shape, pctx)
+        batch = _owned(parallel.shard_grid(
+            batch, {a: bspec for a in pctx.data_axes}, grid))
     counter = roofline.CostCounter()
     if shape.kind == "train":
         opt = adamw_init(params)
         step = make_train_step(
-            built, AdamWConfig(lr=cosine_schedule(3e-4, 100, 10000)))
+            built, AdamWConfig(lr=cosine_schedule(3e-4, 100, 10000)), pctx)
         args = (params, opt, batch)
     elif shape.kind == "prefill":
-        step = lambda p, b: M.forward_prefill(p, built, b)
+        step = lambda p, b: M.forward_prefill(p, built, b, pctx)
         args = (params, batch)
     else:
-        dt = dev_lib.torch_dtype(cfg.dtype)
-        caches = [tfm.init_stage_cache(list(segs), cfg, shape.global_batch,
-                                       shape.seq_len, dt, dev)
-                  for segs in built.stages]
+        if grid is None:
+            dt = dev_lib.torch_dtype(cfg.dtype)
+            caches = [tfm.init_stage_cache(list(segs), cfg, shape.global_batch,
+                                           shape.seq_len, dt, dev)
+                      for segs in built.stages]
+        else:
+            pctx = pctx.for_cache(seq_axis_of(shape))
+            whole, specs = M.decode_state_specs(built, shape, pctx,
+                                                seq_axis=seq_axis_of(shape))
+            caches = tree_map(lambda a: torch.zeros(a.shape, dtype=a.dtype,
+                                                    device=dev),
+                              parallel.shard_grid(whole, specs, grid))
         step = lambda p, t, c: M.forward_decode(p, built, t, c,
-                                                shape.seq_len - 1)
+                                                shape.seq_len - 1, pctx)
         args = (params, batch["tokens"], caches)
     arg_bytes = counter.hold(args)
     with counter:
@@ -141,35 +188,53 @@ def count_step(built, shape, device: str = "meta", params=None):
                      "fits_device": counter.peak <= roofline.DEVICE_BYTES}
 
 
-def run_pair(arch: str, shape_name: str, out_dir: str = OUT_DIR,
-             butterfly_layer: Optional[int] = None, d_r: int = 0,
-             tag: str = "") -> dict:
+def _mesh_name(multi_pod: Optional[bool]) -> str:
+    if multi_pod is None:
+        return "1"
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def run_pair(arch: str, shape_name: str, multi_pod: Optional[bool] = None,
+             out_dir: str = OUT_DIR, butterfly_layer: Optional[int] = None,
+             d_r: int = 0, tag: str = "") -> dict:
     """Trace one (arch x shape) pair on meta tensors, print its line and
-    write its record to ``out_dir/<arch>_<shape>_1.json``; a pair
+    write its record to ``out_dir/<arch>_<shape>_<mesh>.json``: on one
+    card (``multi_pod=None``, mesh ``1``), or rank 0 of the ``16x16``
+    (False) or ``2x16x16`` (True) grid in a fake world; a pair
     ``supports_shape`` refuses is written as skipped."""
     shape = INPUT_SHAPES[shape_name]
+    mesh = _mesh_name(multi_pod)
     cfg = get_config(arch)
     if butterfly_layer is not None:
         cfg = cfg.with_butterfly(butterfly_layer,
                                  d_r or max(64, cfg.d_model // 16))
     ok, why = supports_shape(cfg, shape)
     if not ok:
-        rec = {"arch": arch, "shape": shape_name, "mesh": "1", "skipped": why}
-        print(f"SKIP  {arch:28s} {shape_name:12s} {'1':8s} {why}")
+        rec = {"arch": arch, "shape": shape_name, "mesh": mesh, "skipped": why}
+        print(f"SKIP  {arch:28s} {shape_name:12s} {mesh:8s} {why}")
     else:
         built = M.build(cfg, long_mode=shape_name == "long_500k")
         t0 = time.time()
-        counter, memory = count_step(built, shape)
+        if multi_pod is None:
+            grid, chips, rank = None, 1, None
+            counter, memory = count_step(built, shape)
+        else:
+            grid, rank = make_production_mesh(multi_pod=multi_pod), 0
+            chips = mesh_chips(grid)
+            with parallel.fake_world(grid, rank):
+                counter, memory = count_step(built, shape, grid=grid)
         trace_s = time.time() - t0
         rep = roofline.analyze(arch, shape_name, counter,
-                               model_flops(cfg, shape), memory)
-        rec = {"arch": arch, "shape": shape_name, "mesh": "1", "chips": 1,
+                               model_flops(cfg, shape), memory, mesh, chips)
+        rec = {"arch": arch, "shape": shape_name, "mesh": mesh, "chips": chips,
                "device": "meta", "trace_s": round(trace_s, 1),
                "aten_ops": counter.ops, "model_flops": rep.model_flops,
                "butterfly": None if cfg.butterfly is None else
                {"layer": cfg.butterfly.layer, "d_r": cfg.butterfly.d_r},
                **roofline.to_dict(rep)}
-        print(f"OK    {arch:28s} {shape_name:12s} {'1':8s} "
+        if rank is not None:
+            rec["rank"] = rank
+        print(f"OK    {arch:28s} {shape_name:12s} {mesh:8s} "
               f"compute={rep.compute_s*1e3:8.2f}ms memory={rep.memory_s*1e3:8.2f}ms "
               f"coll={rep.collective_s*1e3:8.2f}ms bottleneck={rep.bottleneck:10s} "
               f"useful={rep.useful_ratio:5.2f} "
@@ -177,48 +242,79 @@ def run_pair(arch: str, shape_name: str, out_dir: str = OUT_DIR,
               f"trace={trace_s:.1f}s")
     os.makedirs(out_dir, exist_ok=True)
     suffix = f"_{tag}" if tag else ""
-    with open(os.path.join(out_dir, f"{arch}_{shape_name}_1{suffix}.json"),
-              "w") as f:
+    fname = f"{arch}_{shape_name}_{mesh.replace('x', '-')}{suffix}.json"
+    with open(os.path.join(out_dir, fname), "w") as f:
         json.dump(rec, f, indent=1, default=float)
     return rec
 
 
+def table(results, meshes) -> str:
+    """A markdown table of traced records, one row a pair, each mesh's
+    terms in ms (compute / memory / collective), bottleneck, peak live GB
+    a rank and whether it fits the card; a pair not traced on a mesh shows
+    its reason (skipped or failed)."""
+    head = "| arch | shape | " + " | ".join(
+        f"{m}: compute / memory / coll ms | bottleneck | peak GB | fits"
+        for m in meshes) + " |"
+    rows = [head, "|" + "---|" * (2 + 4 * len(meshes))]
+    by = {(r["arch"], r["shape"], r["mesh"]): r for r in results}
+    for arch, shape in dict.fromkeys((r["arch"], r["shape"]) for r in results):
+        cells = []
+        for m in meshes:
+            r = by.get((arch, shape, m), {})
+            if "compute_s" not in r:
+                why = "skipped" if "skipped" in r else "FAIL"
+                cells.append(f"{why} | | |")
+                continue
+            cells.append(roofline.RooflineReport(**{
+                k: r[k] for k in roofline.RooflineReport.__dataclass_fields__
+            }).cells())
+        if any(not c.startswith("skipped") for c in cells):
+            rows.append(f"| {arch} | {shape} | " + " | ".join(cells) + " |")
+    return "\n".join(rows)
+
+
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="one-card dry run on meta tensors")
+    ap = argparse.ArgumentParser(description="dry run on meta tensors")
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=[*INPUT_SHAPES, None])
-    ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="rank 0 of the 2x16x16 grid (default: one card)")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="rank 0 of the 16x16 and the 2x16x16 grids")
     ap.add_argument("--all", action="store_true", help="all arch x shape")
     ap.add_argument("--butterfly-layer", type=int, default=None)
     ap.add_argument("--d-r", type=int, default=0)
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=OUT_DIR)
     args = ap.parse_args(argv)
-    if args.multi_pod or args.both_meshes:
-        raise NotImplementedError(
-            "--multi-pod and --both-meshes need a meta trace of one rank's "
-            "step over the production grid with its collectives counted, "
-            "not run: the dry run's next slice (ROADMAP section 1)")
 
     archs = ASSIGNED if (args.all or args.arch is None) else [args.arch]
     shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) else [args.shape]
+    meshes = [False, True] if args.both_meshes else \
+        [True] if args.multi_pod else [None]
     results = []
+    t0 = time.time()
     for arch in archs:
         for shape in shapes:
-            try:
-                results.append(run_pair(arch, shape, args.out,
-                                        args.butterfly_layer, args.d_r,
-                                        tag=args.tag))
-            except Exception as e:  # noqa: BLE001 — report and continue
-                print(f"FAIL  {arch:28s} {shape:12s} {'1':8s} "
-                      f"{type(e).__name__}: {e}")
-                results.append({"arch": arch, "shape": shape, "mesh": "1",
-                                "error": f"{type(e).__name__}: {e}"})
+            for mp in meshes:
+                try:
+                    results.append(run_pair(arch, shape, mp, args.out,
+                                            args.butterfly_layer, args.d_r,
+                                            tag=args.tag))
+                except Exception as e:  # noqa: BLE001 — report and continue
+                    print(f"FAIL  {arch:28s} {shape:12s} {_mesh_name(mp):8s} "
+                          f"{type(e).__name__}: {e}")
+                    results.append({"arch": arch, "shape": shape,
+                                    "mesh": _mesh_name(mp),
+                                    "error": f"{type(e).__name__}: {e}"})
     n_ok = sum(1 for r in results if "compute_s" in r)
     n_skip = sum(1 for r in results if "skipped" in r)
     n_fail = len(results) - n_ok - n_skip
-    print(f"\ndone: {n_ok} ok, {n_skip} skipped (documented), {n_fail} failed")
+    if n_ok:
+        print("\n" + table(results, [_mesh_name(mp) for mp in meshes]))
+    print(f"\ndone: {n_ok} ok, {n_skip} skipped (documented), {n_fail} failed "
+          f"in {time.time() - t0:.1f}s")
     return 0 if n_fail == 0 else 1
 
 

@@ -6,8 +6,9 @@ device: ``cuda`` by default, ``cpu`` on request; it raises, never falls
 back, when the device is missing.  ``--checkpoint`` saves in the JAX
 package's ``.npz`` format (``training.checkpoint``).  ``--lower-only`` traces the
 full config's train step at ``train_4k`` on meta tensors
-(``launch/dryrun.py``) and writes its record to ``build/dryrun/``; its
-``--multi-pod`` waits for the dry run's multi-pod trace.  Training across
+(``launch/dryrun.py``) and writes its record to ``build/dryrun/``: on one
+card, or with ``--multi-pod`` as rank 0 of the 2x16x16 grid, its
+collectives counted.  Training across
 ranks is the train step under an automatic context
 (``training.make_train_step(built, opt, pctx)``); the launcher, as the JAX
 package's, trains on one device.
@@ -46,13 +47,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.lower_only:
-        if args.multi_pod:
-            raise NotImplementedError(
-                "--multi-pod needs the dry run's meta trace of one rank's "
-                "step over the multi-pod grid, its collectives counted: the "
-                "dry run's next slice (ROADMAP section 1)")
         from repro_torch.launch.dryrun import OUT_DIR, run_pair
-        run_pair(args.arch, "train_4k", OUT_DIR)
+        run_pair(args.arch, "train_4k", True if args.multi_pod else None,
+                 OUT_DIR)
         return
 
     import torch

@@ -9,6 +9,31 @@ import torch
 import torch.nn.functional as F
 
 # ---------------------------------------------------------------------------
+# sharding helpers
+# ---------------------------------------------------------------------------
+
+MODEL_AXIS = "model"
+
+
+def maybe_axis(dim_size: int, size: Optional[int], axis: str = MODEL_AXIS):
+    """``axis`` where its ``size`` ranks divide a dim of ``dim_size``, else
+    None (replicated).  Unlike the JAX package's, which assumes the
+    production mesh's 16, ``size`` is the axis's real length; None stands
+    for an axis that divides everything (the manual regime's stages, whose
+    divisibility is checked up front)."""
+    return axis if size is None or dim_size % size == 0 else None
+
+
+def dense_spec(shape: tuple, shard_dim: Optional[int],
+               size: Optional[int]) -> Optional[int]:
+    """A leaf's spec over the model axis of ``size`` ranks: ``shard_dim``
+    where the axis divides that dim, else None (see :func:`maybe_axis`)."""
+    if shard_dim is None or maybe_axis(shape[shard_dim], size) is None:
+        return None
+    return shard_dim
+
+
+# ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 

@@ -11,15 +11,19 @@ backbone with its one shared attention block, ``params["shared_attn"]``).
   forward_decode(params, built, tokens, caches, pos, pctx) -> (logits, caches)
   lm_loss(logits, targets, pctx=pctx)         -> masked next-token NLL
   input_specs(built, shape, pctx)             -> (meta batch, batch specs)
-  param_specs(built)                          -> {axis: spec tree}
+  decode_state_specs(built, shape, pctx, seq_axis) -> (meta caches, {axis: specs})
+  param_specs(built, grid)                    -> {axis: spec tree}
 
 Under an automatic ``ParallelContext`` (``models/parallel.make_context``)
 every function takes and returns this rank's block of the batch
 (``data.pipeline.shard_batch``) and this rank's shards of the params
-(``parallel.shard_grid(params, param_specs(built), pctx.grid)``): attention,
-GLU and the shared block run Megatron's shards over the model axis,
-replicated over the data axes, and MoE its own expert parallelism; the
-loss and the wire's rate are means over the global batch.
+(``parallel.shard_grid(params, param_specs(built, grid), grid)``):
+attention, GLU, the shared block and whisper's encoder and cross attention
+run Megatron's shards over the model axis in whole heads where the axis
+divides them and whole otherwise, replicated over the data axes, and MoE
+its own expert parallelism; the loss and the wire's rate are means over the
+global batch.  Decode caches may shard their length over grid axes too
+(:func:`decode_state_specs`, ``ParallelContext.for_cache``).
 
 ``use_kernel=True`` runs full-sequence attention through the flash kernel
 and the in-graph butterfly wire through the fused butterfly kernels (the
@@ -38,7 +42,7 @@ sinusoid position embeddings where the others rotate q and k.
 """
 from __future__ import annotations
 
-import dataclasses
+import os
 from dataclasses import dataclass
 
 import torch
@@ -54,7 +58,6 @@ from repro_torch.models import parallel
 from repro_torch.models.parallel import LOCAL, ParallelContext
 from repro_torch.models.common import embed, init_embedding, init_mlp, \
     init_rms_norm, rms_norm, sinusoid_angles, sinusoid_positions, unembed
-from repro_torch.tree import tree_leaves
 
 
 @dataclass(frozen=True)
@@ -121,23 +124,34 @@ def tp_param_specs(built: BuiltModel, *, with_butterfly=None) -> dict:
     same way; embeddings, norms, LM head and butterfly replicated.  What a
     tensor-parallel stage's params are cut by (``parallel.shard_params``).
     An encoder-decoder has no tensor-parallel stages and raises."""
-    cfg = built.cfg
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: enc-dec archs have no "
+    if built.cfg.is_encdec:
+        raise NotImplementedError(f"{built.cfg.name}: enc-dec archs have no "
                                   f"tensor-parallel stages")
+    return _model_specs(built, None, with_butterfly)
+
+
+def _model_specs(built: BuiltModel, mp, with_butterfly=None) -> dict:
+    """The model axis's spec tree at ``mp`` ranks (``transformer.
+    tp_layer_specs``' rule; None shards every head, d_ff and expert)."""
+    cfg = built.cfg
     dt = dev_lib.torch_dtype(cfg.dtype)
     if with_butterfly is None:
         with_butterfly = built.has_butterfly
     specs: dict = {"embed": None, "final_norm": None,
-                   "stages": [tfm.tp_stage_specs(list(segs), cfg, dt)
+                   "stages": [tfm.tp_stage_specs(list(segs), cfg, dt, mp)
                               for segs in built.stages]}
     if not cfg.tie_embeddings:
         specs["head"] = None
     if with_butterfly:
         specs["butterfly"] = {"w_reduce": None, "w_restore": None}
     if cfg.hybrid_attn_every is not None:
-        specs["shared_attn"] = {"mixer": attn_lib.tp_attention_specs(cfg),
-                                "ffn": tfm.tp_mlp_specs()}
+        specs["shared_attn"] = {"mixer": attn_lib.attention_specs(cfg, mp),
+                                "ffn": tfm.mlp_specs(cfg, mp)}
+    if cfg.is_encdec:
+        specs["encoder"] = {
+            "segments": tfm.tp_stage_specs(list(built.enc_segments), cfg, dt,
+                                           mp),
+            "final_norm": None}
     return specs
 
 
@@ -167,33 +181,37 @@ def _expert_specs(built: BuiltModel, of_moe) -> dict:
     return specs
 
 
-def param_specs(built: BuiltModel) -> dict:
-    """The automatic regime's layout of :func:`init_model`'s params, a spec
-    tree for each grid axis (what ``parallel.shard_grid`` cuts by; the
-    counterpart of JAX's ``PartitionSpec`` trees): ``model`` the
-    tensor-parallel shards of :func:`tp_param_specs` (None for an
-    encoder-decoder, which has none), ``data`` the experts' FSDP d_ff
-    (:func:`fsdp_param_specs`), ``pod`` the experts' dim under
-    ``moe.EXPERTS_OVER_POD`` (else None)."""
+def param_specs(built: BuiltModel, grid=None) -> dict:
+    """The automatic regime's layout of :func:`init_model`'s params over
+    ``grid`` (a ``parallel.RankGrid``), a spec tree for each grid axis
+    (what ``parallel.shard_grid`` cuts by; the counterpart of JAX's
+    ``PartitionSpec`` trees): ``model`` the whole-head tensor-parallel rule
+    at the grid's model axis (``transformer.tp_layer_specs``: attention
+    where its heads allow, the MLP where the axis divides d_ff, the
+    experts; the encoder and cross attention likewise; embeddings, the LM
+    head, the butterfly and recurrent mixers replicated), ``data`` the
+    experts' FSDP d_ff (:func:`fsdp_param_specs`), ``pod`` the experts' dim
+    under ``moe.EXPERTS_OVER_POD`` (else None).  Without a grid the model
+    axis is taken to divide every head, d_ff and expert count."""
     cfg = built.cfg
     pod = None
     if cfg.moe is not None and moe_lib.EXPERTS_OVER_POD:
         pod = _expert_specs(built, lambda: {"wg": 1, "wu": 1, "wd": 1})
+    mp = None if grid is None else grid.axis_size("model")
     return {"pod": pod, "data": fsdp_param_specs(built),
-            "model": None if cfg.is_encdec else tp_param_specs(built)}
+            "model": _model_specs(built, mp)}
 
 
 def _check_automatic(built: BuiltModel, pctx: ParallelContext) -> None:
-    """An automatic context with a model axis shards what the manual
-    regime's stages shard; raise where that cannot be done."""
-    if not pctx.automatic or pctx.mp_size == 1:
-        return
-    if built.cfg.is_encdec:
-        raise NotImplementedError(f"{built.cfg.name}: enc-dec archs have no "
-                                  f"tensor-parallel stages")
-    defs = [ldef for segs in built.stages for seg in segs
-            for _ in range(seg.repeats) for ldef in seg.unit]
-    tfm.check_tp_divisibility(defs, built.cfg, pctx.mp_size)
+    """An automatic context with a model axis lays the model out by
+    :func:`param_specs`' rule, which replicates what does not divide; only
+    MoE's expert parallelism has no replicated form, so raise where the
+    model axis does not divide the experts."""
+    moe = built.cfg.moe
+    if pctx.automatic and pctx.mp_size > 1 and moe is not None and \
+            moe.num_experts % pctx.mp_size:
+        raise ValueError(f"{built.cfg.name}: the model axis ({pctx.mp_size}) "
+                         f"must divide num_experts ({moe.num_experts})")
 
 
 def _embed_inputs(params, built: BuiltModel, batch: dict, pos=None):
@@ -302,7 +320,18 @@ def forward_prefill(params, built: BuiltModel, batch: dict,
     ring order (``min(S, window)`` rows) for windowed ones, and the
     encoder's keys and values (``cross_kv``) for cross-attention layers.
     A VLM's S counts its patches.  Under an automatic ``pctx`` the caches
-    are this rank's: its block of the batch, its model rank's kv heads."""
+    are this rank's: its block of the batch and the kv heads its attention
+    reads.  With ``REPRO_PREFILL_CACHE_SHARDED=1`` (the JAX dry run's
+    option, ``dryrun.py:97-107`` there) an automatic prefill returns them
+    laid out batch -> data, seq -> model, every kv head: each layer's kv
+    head shards are all-gathered over ``model`` and each rank keeps its
+    block of the rows (``pctx.for_cache("model")``, unless ``pctx`` names
+    its own sequence axes), so those gathers are in what the dry run
+    counts.  Decode from them through :func:`pad_decode_caches` under the
+    same context."""
+    if os.environ.get("REPRO_PREFILL_CACHE_SHARDED", "0") == "1" and \
+            pctx.automatic and not pctx.seq_axes:
+        pctx = pctx.for_cache("model")
     enc_out = _encode(params, built, batch, use_kernel, pctx)
     x = _embed_inputs(params, built, batch)
     x, caches, _, _ = _run_stages(params, built, x, mode="prefill",
@@ -315,17 +344,38 @@ def pad_decode_caches(built: BuiltModel, caches, length: int,
                       pctx: ParallelContext = LOCAL):
     """Zero-pad prefill caches to decode capacity ``length``: global caches
     to ``length`` rows, ring caches to exactly ``min(length, window)``, even
-    when the prompt was shorter than the window; recurrent state passes
-    through.  Under tensor parallelism a rank's caches hold its kv heads."""
-    cfg = built.cfg
-    if pctx.tensor_parallel:
-        cfg = dataclasses.replace(cfg, num_kv_heads=cfg.num_kv_heads //
-                                  pctx.mp_size)
-    batch = tree_leaves(caches)[0].shape[1]           # leaves: (reps, B, S, ..)
-    dtype = dev_lib.torch_dtype(cfg.dtype)
-    return [tfm.pad_to_template(
-                stage_cache,
-                tfm.init_stage_cache(list(segs), cfg, batch, length, dtype, "meta"))
+    when the prompt was shorter than the window; recurrent state and
+    cross-attention caches pass through.  Each rank's caches keep their
+    own kv heads.  Under sequence-sharded caches (``pctx.for_cache``) the
+    prompt's blocks are all-gathered over the sequence group first, and
+    each rank keeps its block of the padded rows (``ValueError`` where the
+    group does not divide them)."""
+    n, i = pctx.seq_size, pctx.seq_rank
+
+    def pad(a, rows):
+        if n > 1:
+            a = parallel.all_gather(a, 2, pctx.seq_group)
+            if rows % n:
+                raise ValueError(f"a cache of {rows} rows does not split "
+                                 f"over {n} sequence ranks")
+        if a.shape[2] > rows:
+            raise ValueError(f"cache leaf {tuple(a.shape)} is longer than "
+                             f"its decode capacity {rows}")
+        if a.shape[2] < rows:
+            out = a.new_zeros(a.shape[:2] + (rows,) + a.shape[3:])
+            out[:, :, :a.shape[2]] = a
+            a = out
+        # the block in storage of its own, not a view of the whole
+        return a[:, :, i * (rows // n):(i + 1) * (rows // n)].clone() if n > 1 else a
+
+    def layer(ldef, c):
+        if ldef.mixer != "attn":
+            return c
+        rows = min(length, ldef.window) if ldef.window else length
+        return dict(c, kv={k: pad(a, rows) for k, a in c["kv"].items()})
+
+    return [[[layer(ldef, c) for ldef, c in zip(seg.unit, seg_cache)]
+             for seg, seg_cache in zip(segs, stage_cache)]
             for segs, stage_cache in zip(built.stages, caches)]
 
 
@@ -333,8 +383,11 @@ def forward_decode(params, built: BuiltModel, tokens, caches, pos,
                    pctx: ParallelContext = LOCAL, use_kernel: bool = False):
     """tokens: (B, 1); pos: int or (B,) tensor of absolute positions.  The
     caches (at decode capacity, see :func:`pad_decode_caches`) are updated
-    in place and returned.  ``use_kernel`` reaches only the butterfly wire:
-    decode attention is the plain path, as in the JAX package."""
+    in place and returned.  Under a context with sequence axes
+    (``pctx.for_cache``, the layout of :func:`decode_state_specs`) each
+    rank's caches are its block of the length, and ``pos`` must be one
+    position for every row.  ``use_kernel`` reaches only the butterfly
+    wire: decode attention is the plain path, as in the JAX package."""
     x = _embed_inputs(params, built, {"tokens": tokens}, pos)
     x, new_caches, _, _ = _run_stages(params, built, x, mode="decode",
                                       caches=caches, pos=pos,
@@ -386,3 +439,27 @@ def input_specs(built: BuiltModel, shape, pctx: ParallelContext = LOCAL):
         sds["tokens"] = meta(B, 1)
     spec = {k: bx for k in sds}
     return sds, spec
+
+
+def decode_state_specs(built: BuiltModel, shape, pctx: ParallelContext = LOCAL,
+                       seq_axis=None):
+    """The caches of a decode step at ``shape`` and their layout, as the
+    JAX package's ``decode_state_specs``: meta tensors of the global
+    shapes (``shape.seq_len`` rows, every kv head) and a spec tree for
+    each of the grid's axes (each leaf's sharded dim, or None), what
+    ``parallel.shard_grid`` cuts a rank's block by.  The batch shards over
+    the data axes where it splits (as :func:`input_specs`), the length
+    over ``seq_axis`` (a grid axis, a tuple of them, or None); recurrent
+    state and cross-attention caches shard their batch only.  Decode over
+    such blocks runs under ``pctx.for_batch(B).for_cache(seq_axis)``."""
+    cfg = built.cfg
+    B, S = shape.global_batch, shape.seq_len
+    bx = pctx.batch_spec_axes() if pctx.grid is not None and \
+        pctx.batch_sharded(B) else None
+    dt = dev_lib.torch_dtype(cfg.dtype)
+    caches = [tfm.init_stage_cache(list(segs), cfg, B, S, dt, "meta")
+              for segs in built.stages]
+    axes = pctx.grid.axes if pctx.grid is not None else ()
+    specs = {a: [tfm.stage_cache_spec(list(segs), cfg, bx, seq_axis, axis=a)
+                 for segs in built.stages] for a in axes}
+    return caches, specs

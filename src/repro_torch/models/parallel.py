@@ -10,7 +10,7 @@ rank in it, where JAX carries a mesh and an axis name, and
 :func:`model_psum` is ``all_reduce(SUM)`` on that group.  Attention heads,
 d_ff columns and MoE experts shard over the ranks Megatron-style
 (column-parallel projections in, row-parallel projections out); the specs
-live beside the layers (``attention.tp_attention_specs``,
+live beside the layers (``attention.attention_specs``,
 ``transformer.tp_*_specs``, ``model.tp_param_specs``) as trees whose leaves
 are the sharded dim or None, leaf for leaf JAX's ``PartitionSpec`` trees.
 
@@ -29,8 +29,9 @@ named axes over the ranks, rank ``r`` at ``np.arange(world).reshape(shape)``'s
 position of ``r``.  :func:`make_context` gives a context whose data axes
 are the grid's ``pod`` and ``data``.  Eager PyTorch has no sharding
 propagation, so the layout is explicit: dense layers run the manual
-regime's Megatron shards over the ``model`` axis, replicated over the data
-axes, and every rank holds one block of the batch (pod-major: block
+regime's Megatron shards over the ``model`` axis in whole heads where the
+axis divides them and whole otherwise (``attention.head_layout``),
+replicated over the data axes, and every rank holds one block of the batch (pod-major: block
 ``pod * |data| + data``); MoE runs its own expert parallelism
 (``models/moe.py``).  The collectives below carry autograd rules, so a
 train step differentiates through them: :func:`model_copy` and
@@ -38,9 +39,16 @@ train step differentiates through them: :func:`model_copy` and
 :func:`all_gather` reduce-scatters its gradient, :func:`psum_scatter`
 all-gathers it, and :func:`reduce_sum` (a loss-level sum) passes it
 through.
+
+Decode caches may shard their length as well (:meth:`ParallelContext.
+for_cache`, the JAX dry run's ``decode_state_specs(seq_axis=)``), and
+:func:`fake_world` makes this process one rank of a world of any size
+whose collectives do nothing: the dry run traces one rank's step of a
+256- or 512-rank grid on meta tensors through this module's real code.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import itertools
@@ -166,6 +174,8 @@ class ParallelContext:
     data_axes: Tuple[str, ...] = ()
     data_rank: int = 0
     replicated_batch: bool = False
+    seq_axes: Tuple[str, ...] = ()
+    seq_rank: int = 0
 
     @property
     def enabled(self) -> bool:
@@ -221,6 +231,43 @@ class ParallelContext:
         be run under the context this returns."""
         return dataclasses.replace(
             self, replicated_batch=not self.batch_sharded(batch))
+
+    @property
+    def seq_size(self) -> int:
+        if self.grid is None:
+            return 1
+        return int(np.prod([self.grid.axis_size(a) for a in self.seq_axes]))
+
+    @property
+    def seq_group(self):
+        """The process group over the caches' sequence axes (None for one
+        rank)."""
+        return None if self.grid is None else self.grid.group(self.seq_axes)
+
+    def for_cache(self, seq_axis) -> "ParallelContext":
+        """This context for decode caches whose length dim shards over
+        ``seq_axis`` (a grid axis, a tuple of them, or None for whole
+        caches), as the JAX dry run's ``decode_state_specs(seq_axis=)``
+        lays them out: rank block ``i`` along the axes (major to minor in
+        the grid's order) holds positions ``[i*T/n, (i+1)*T/n)`` of every
+        kv head.  Attention decode then gathers the new token's heads,
+        writes its key and value on the rank that holds the slot, and
+        merges the blocks' partial softmaxes over :attr:`seq_group`."""
+        if seq_axis is None:
+            return dataclasses.replace(self, seq_axes=(), seq_rank=0)
+        if not self.automatic:
+            raise ValueError("sequence-sharded caches need an automatic "
+                             "context (parallel.make_context)")
+        axes = (seq_axis,) if isinstance(seq_axis, str) else tuple(seq_axis)
+        if any(a not in self.grid.axes for a in axes):
+            raise ValueError(f"cache axes {axes} are not all axes of the "
+                             f"grid {self.grid.axes}")
+        axes = tuple(a for a in self.grid.axes if a in axes)
+        at = self.grid.coords(dist.get_rank())
+        rank = 0
+        for a in axes:
+            rank = rank * self.grid.axis_size(a) + at[a]
+        return dataclasses.replace(self, seq_axes=axes, seq_rank=rank)
 
 
 LOCAL = ParallelContext()
@@ -406,6 +453,35 @@ def model_group(mp: int, tag: str = "model"):
     return _GROUPS[key]
 
 
+@contextlib.contextmanager
+def fake_world(grid: RankGrid, rank: int = 0):
+    """A ``torch.distributed`` world of ``grid.size`` ranks in which this
+    process is rank ``rank`` and no other rank exists: PyTorch's ``"fake"``
+    backend, whose collectives return at once and leave their tensors as
+    they are.  Inside it, one rank's step over ``grid`` runs on meta
+    tensors through the real process-group code, each collective a
+    dispatched ``c10d`` op that ``launch.roofline.CostCounter`` counts
+    (the dry run's grid trace).  Refuses to start inside a live world;
+    destroys its own on exit.  The group caches are cleared on entry and
+    exit: they are keyed by the world group's ``id``, which a new world
+    may reuse."""
+    if dist.is_initialized():
+        raise RuntimeError("a fake world cannot start while a "
+                           "torch.distributed world is initialized")
+    if not 0 <= rank < grid.size:
+        raise ValueError(f"rank {rank} is not in a world of {grid.size}")
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    _GROUPS.clear()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=grid.size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        _GROUPS.clear()
+
+
 def backend_for(devices: Sequence) -> str:
     """The collective backend for ranks on ``devices`` (one entry a rank):
     gloo for CPU tensors and for ranks that share a card, nccl where every
@@ -504,6 +580,17 @@ def shard_params(params, specs, rank: int, mp: int):
         return a.narrow(dim, rank * (n // mp), n // mp)
 
     return _map_spec(one, specs, params)
+
+
+def axis_dim(parts, axis: str) -> Optional[int]:
+    """The dim that ``parts`` (one entry a dim, as a ``PartitionSpec``'s:
+    an axis name, a tuple of names, or None) shards over grid axis
+    ``axis``; None where no dim does."""
+    dims = [i for i, part in enumerate(parts) if part is not None and axis in
+            ((part,) if isinstance(part, str) else tuple(part))]
+    if len(dims) > 1:
+        raise ValueError(f"axis {axis!r} shards more than one dim of {parts}")
+    return dims[0] if dims else None
 
 
 def spec_leaves(spec, tree) -> list:

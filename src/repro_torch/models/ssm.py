@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import parallel
 from repro_torch.models.common import dense_init, rms_norm
 
 
@@ -63,6 +64,13 @@ def init_ssm_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
         "conv": torch.zeros((batch, s.conv_width - 1, conv_ch), dtype=dtype,
                             device=device),
     }
+
+
+def ssm_state_spec(batch_axis=None, axis: str = "model") -> dict:
+    """The state's spec over grid axis ``axis`` (its sharded dim, or None):
+    the batch only, as the JAX package's ``ssm_state_spec``."""
+    dim = parallel.axis_dim((batch_axis,), axis)
+    return {"ssm": dim, "conv": dim}
 
 
 # ---------------------------------------------------------------------------

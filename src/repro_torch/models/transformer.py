@@ -27,7 +27,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.common import apply_mlp, init_mlp, init_rms_norm, rms_norm
+from repro_torch.models import parallel
+from repro_torch.models.common import apply_mlp, dense_spec, init_mlp, \
+    init_rms_norm, rms_norm
 from repro_torch.models.parallel import (LOCAL, ParallelContext, model_copy,
                                          model_psum)
 from repro_torch.tree import tree_map
@@ -245,23 +247,38 @@ def check_tp_divisibility(defs: Sequence[LayerDef], cfg: ModelConfig,
                              f"({cfg.moe.num_experts})")
 
 
-def tp_mlp_specs() -> dict:
-    return {"w_gate": 1, "w_up": 1, "w_down": 0}
+def mlp_specs(cfg: Optional[ModelConfig], mp: Optional[int]) -> dict:
+    """A GLU MLP's specs over a model axis of ``mp`` ranks: column-parallel
+    in, row-parallel out, where ``mp`` divides d_ff (``common.dense_spec``;
+    ``mp=None`` always shards); replicated otherwise."""
+    if mp is None:
+        return {"w_gate": 1, "w_up": 1, "w_down": 0}
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"w_gate": dense_spec((d, ff), 1, mp),
+            "w_up": dense_spec((d, ff), 1, mp),
+            "w_down": dense_spec((ff, d), 0, mp)}
 
 
-def tp_layer_specs(ldef: LayerDef, cfg: ModelConfig, dtype) -> dict:
+def tp_layer_specs(ldef: LayerDef, cfg: ModelConfig, dtype,
+                   mp: Optional[int] = None) -> dict:
     """Spec tree (each leaf's sharded dim, or None) of one layer's params
-    with attention heads, d_ff and experts sharded over the model axis and
-    everything else replicated; the structure is :func:`init_layer`'s.
-    MoE's router and shared expert stay replicated: their outputs are
-    whole, so only the routed experts' partials are summed."""
+    over a model axis of ``mp`` ranks, everything else replicated; the
+    structure is :func:`init_layer`'s.  Attention (self and cross) follows
+    ``attention.head_layout``'s whole-head rule, the MLP shards its d_ff
+    where ``mp`` divides it, MoE its experts.  ``mp=None`` shards them
+    all: the manual regime's stages, whose divisibility
+    :func:`check_tp_divisibility` checks.  MoE's router and shared expert
+    stay replicated: their outputs are whole, so only the routed experts'
+    partials are summed."""
     with dev_lib.OnMeta():              # the layer's layout, no data
         layout = init_layer(torch.Generator(), ldef, cfg, dtype, "cpu")
     specs = tree_map(lambda _: None, layout)
     if ldef.mixer == "attn" and not ldef.shared:
-        specs["mixer"] = attn.tp_attention_specs(cfg)
+        specs["mixer"] = attn.attention_specs(cfg, mp)
+    if ldef.cross:
+        specs["cross"] = attn.attention_specs(cfg, mp)
     if ldef.mixer == "attn" and ldef.ffn == "mlp" and not ldef.shared:
-        specs["ffn"] = tp_mlp_specs()
+        specs["ffn"] = mlp_specs(cfg, mp)
     elif ldef.mixer == "attn" and ldef.ffn == "moe":
         specs["ffn"].update(wg=0, wu=0, wd=0)      # the expert dim
     return specs
@@ -273,10 +290,11 @@ def _prepend_none(spec_tree):
     return tree_map(lambda d: d + 1, spec_tree)
 
 
-def tp_stage_specs(segments: Sequence[Segment], cfg: ModelConfig, dtype):
+def tp_stage_specs(segments: Sequence[Segment], cfg: ModelConfig, dtype,
+                   mp: Optional[int] = None):
     """Spec tree of a whole stage's stacked params (the leading repeats dim
-    unsharded)."""
-    return [[_prepend_none(tp_layer_specs(ldef, cfg, dtype))
+    unsharded) over a model axis of ``mp`` ranks (:func:`tp_layer_specs`)."""
+    return [[_prepend_none(tp_layer_specs(ldef, cfg, dtype, mp))
              for ldef in seg.unit] for seg in segments]
 
 
@@ -371,22 +389,40 @@ def init_stage_cache(segments: List[Segment], cfg, batch, length, dtype,
     return out
 
 
-def stage_cache_spec(segments: List[Segment], cfg, head_axis=None) -> list:
-    """Spec tree of a stage's stacked caches (each leaf's sharded dim, or
-    None).  ``head_axis`` (any name, e.g. ``"model"``) shards the attention
-    kv-head dim, which tensor-parallel stages keep with their head shard;
-    cross-attention caches and recurrent state stay replicated."""
-    out = []
-    for seg in segments:
-        unit = []
-        for ldef in seg.unit:
-            c = tree_map(lambda _: None, init_layer_cache(
-                ldef, cfg, 1, 1, torch.float32, "meta"))
-            if ldef.mixer == "attn" and head_axis is not None:
-                c["kv"] = {"k": 3, "v": 3}
-            unit.append(c)
-        out.append(unit)
-    return out
+def layer_cache_spec(ldef: LayerDef, batch_axis=None, seq_axis=None,
+                     head_axis=None, axis: str = "model") -> dict:
+    """One layer's cache spec over grid axis ``axis`` (each leaf's sharded
+    dim, or None), laid out as the JAX package's ``layer_cache_spec``:
+    ``batch_axis``, ``seq_axis`` and ``head_axis`` (each a grid axis, a
+    tuple of them, or None) name what shards the batch, the kv length and
+    the kv heads.  A cross-attention cache shards its batch only, and
+    recurrent state (no sequence axis) too."""
+    if ldef.mixer == "attn":
+        c = {"kv": attn.kv_cache_spec(batch_axis, seq_axis, head_axis, axis)}
+        if ldef.cross:
+            c["cross_kv"] = attn.kv_cache_spec(batch_axis, None, None, axis)
+        return c
+    if ldef.mixer == "mamba":
+        return ssm_lib.ssm_state_spec(batch_axis, axis)
+    if ldef.mixer == "mlstm":
+        return xlstm_lib.mlstm_state_spec(batch_axis, axis)
+    if ldef.mixer == "slstm":
+        return xlstm_lib.slstm_state_spec(batch_axis, axis)
+    raise ValueError(ldef.mixer)
+
+
+def stage_cache_spec(segments: List[Segment], cfg, batch_axis=None,
+                     seq_axis=None, head_axis=None, *,
+                     axis: str = "model") -> list:
+    """Spec tree of a stage's stacked caches over grid axis ``axis`` (each
+    leaf's sharded dim, or None; :func:`layer_cache_spec`).  ``head_axis``
+    (e.g. ``"model"``) shards the attention kv-head dim, which
+    tensor-parallel stages keep with their head shard; the dry run's
+    decode shards the batch over the data axes and the length over
+    ``seq_axis`` (``model.decode_state_specs``)."""
+    return [[_prepend_none(layer_cache_spec(ldef, batch_axis, seq_axis,
+                                            head_axis, axis))
+             for ldef in seg.unit] for seg in segments]
 
 
 def pad_to_template(cache, template):
@@ -440,12 +476,16 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
     its new state is written into ``cache`` in place, as attention writes
     its key and value rows.
 
-    Under tensor parallelism (``pctx``) ``wo`` and ``w_down`` are
-    row-sharded, so attention's and the MLP's outputs are this rank's
-    partial sums, reduced with :func:`model_psum` (an MoE layer reduces its
-    own); the kv cache stays this rank's whole-head slice.  Recurrent
-    mixers replicate.  Where autograd records (a train step across ranks)
-    the sums take Megatron's g rule and the sharded blocks' inputs its f
+    Under tensor parallelism (``pctx``) a sharded attention's ``wo`` and
+    a sharded MLP's ``w_down`` are row-sharded, so their outputs are this
+    rank's partial sums, reduced with :func:`model_psum` (an MoE layer
+    reduces its own); a part the automatic rule replicates
+    (``attention.head_layout``, ``mlp_specs``) runs whole and is not
+    summed.  The kv cache holds the kv heads this rank's attention reads,
+    or, under sequence-sharded caches (``pctx.for_cache``), every kv head
+    over this rank's block of the length.  Recurrent mixers replicate.
+    Where autograd records (a train step across ranks) the sums take
+    Megatron's g rule and the sharded blocks' inputs its f
     (``parallel.model_copy``).  ``pending``/``defer_psum`` implement psum
     overlap: with ``defer_psum`` an attention+MLP layer returns its MLP output
     unreduced as ``pending_out`` (None where nothing is pending), and the
@@ -473,34 +513,38 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
         return x + out, st, None, None
     rope = not cfg.is_encdec          # whisper uses sinusoid embeds, no RoPE
     new_cache = None
-    mixer = p["mixer"]
-    if pctx.tensor_parallel:
-        # Megatron's f: the heads' gradients, and the replicated qk-norm
-        # weights' that each rank's heads read, sum over the model axis
+    mixer, attn_tp = _rank_attention(p["mixer"], cfg, pctx)
+    if attn_tp:
         h = model_copy(h, pctx)
-        mixer = {k: model_copy(v, pctx) if k in ("q_norm", "k_norm") else v
-                 for k, v in mixer.items()}
     if mode == "decode":
-        out, kv = attn.attention_decode(mixer, h, cache["kv"], pos,
-                                        cfg=cfg, window=ldef.window, rope=rope)
+        out, kv = attn.attention_decode(mixer, h, cache["kv"], pos, cfg=cfg,
+                                        window=ldef.window, rope=rope,
+                                        pctx=pctx)
         new_cache = {"kv": kv}
     else:
         out, kv = attn.attention_fullseq(mixer, h, cfg=cfg,
                                          window=ldef.window,
                                          use_kernel=use_kernel, causal=causal,
-                                         rope=rope)
+                                         rope=rope, pctx=pctx)
         if mode == "prefill":
-            new_cache = {"kv": to_ring(kv, ldef.window) if ldef.window else kv}
-    x = x + model_psum(out, pctx)
+            kv = to_ring(kv, ldef.window) if ldef.window else kv
+            new_cache = {"kv": _seq_block(kv, cfg, pctx)}
+    x = x + (model_psum(out, pctx) if attn_tp else out)
     if ldef.cross:
+        cross, cross_tp = _rank_attention(p["cross"], cfg, pctx)
         hc = rms_norm(x, p["norm_cross"], cfg.rms_eps)
+        if cross_tp:
+            hc = model_copy(hc, pctx)
         if mode == "decode":
             ckv = cache["cross_kv"]
         else:
-            ckv = attn.encoder_kv(p["cross"], enc_out, cfg=cfg)
-        x = x + attn.cross_attention(p["cross"], hc, ckv, cfg=cfg)
+            enc = model_copy(enc_out, pctx) if cross_tp else enc_out
+            ckv = attn.encoder_kv(cross, enc, cfg=cfg)
+        out = attn.cross_attention(cross, hc, ckv, cfg=cfg, pctx=pctx)
+        x = x + (model_psum(out, pctx) if cross_tp else out)
         if new_cache is not None:
-            new_cache["cross_kv"] = ckv
+            new_cache["cross_kv"] = ckv if mode == "decode" else \
+                _seq_block(ckv, cfg, pctx, cut=False)
     h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
     if ldef.ffn == "moe":
         out, moe_aux = moe_lib.apply_moe(p["ffn"], h2, cfg=cfg, act=cfg.act,
@@ -508,12 +552,58 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
         x = x + out
         aux = torch.stack([moe_aux["load_balance"], moe_aux["router_z"]])
     else:
-        part = apply_mlp(p["ffn"], model_copy(h2, pctx), cfg.act)
-        if defer_psum:
+        mlp_tp = pctx.tensor_parallel and p["ffn"]["w_down"].shape[0] < cfg.d_ff
+        part = apply_mlp(p["ffn"], model_copy(h2, pctx) if mlp_tp else h2,
+                         cfg.act)
+        if defer_psum and mlp_tp:
             pending_out = part
         else:
-            x = x + model_psum(part, pctx)
+            x = x + (model_psum(part, pctx) if mlp_tp else part)
     return x, new_cache, aux, pending_out
+
+
+def _rank_attention(params, cfg: ModelConfig, pctx: ParallelContext):
+    """(params, sharded): an attention param set as this rank reads it,
+    and whether its q heads are a model-axis shard (its output then a
+    partial sum).  Where they are, Megatron's f goes on the replicated
+    weights that only the rank's heads read, as on the block's input: the
+    qk-norm weights, and the kv projections where kv is replicated
+    (``attention.head_layout``); their gradients sum over the model
+    axis."""
+    hd = cfg.resolved_head_dim
+    sharded = pctx.tensor_parallel and \
+        params["wq"].shape[1] < attn._padded_heads(cfg) * hd
+    if not sharded:
+        return params, False
+    kv_whole = params["wk"].shape[1] == cfg.num_kv_heads * hd
+    copied = {"q_norm", "k_norm"} | ({"wk", "wv"} if kv_whole else set())
+    return {k: model_copy(v, pctx) if k in copied else v
+            for k, v in params.items()}, True
+
+
+def _seq_block(kv: dict, cfg: ModelConfig, pctx: ParallelContext,
+               cut: bool = True) -> dict:
+    """A prefill's (B, S, K', hd) keys and values as sequence-sharded
+    caches keep them (``pctx.for_cache``): every kv head (a model-axis
+    shard of them gathered over the model group) and, with ``cut``, this
+    rank's block of the S rows over the sequence group.  ``kv`` itself
+    without sequence axes."""
+    if pctx.seq_size <= 1:
+        return kv
+    n, i = pctx.seq_size, pctx.seq_rank
+
+    def one(a):
+        if a.shape[2] < cfg.num_kv_heads:
+            a = parallel.all_gather(a, 2, pctx.group)
+        if not cut:
+            return a
+        S = a.shape[1]
+        if S % n:
+            raise ValueError(f"a cache of {S} rows does not split over "
+                             f"{n} sequence ranks")
+        return a[:, i * (S // n):(i + 1) * (S // n)]
+
+    return {k: one(a) for k, a in kv.items()}
 
 
 def apply_segment(seg: Segment, seg_params, x, *, cfg, mode, seg_cache, pos,

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import parallel
 from repro_torch.models.common import dense_init, rms_norm
 from repro_torch.models.ssm import _causal_mask, causal_conv, check_chunks, \
     conv_step
@@ -72,6 +73,13 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
         "conv": torch.zeros((batch, xcfg.conv_width - 1, d_inner), dtype=dtype,
                             device=device),
     }
+
+
+def mlstm_state_spec(batch_axis=None, axis: str = "model") -> dict:
+    """The mLSTM state's spec over grid axis ``axis``: the batch only, as
+    the JAX package's ``layer_cache_spec``."""
+    dim = parallel.axis_dim((batch_axis,), axis)
+    return {"C": dim, "n": dim, "conv": dim}
 
 
 def _mlstm_gates(params, xi):
@@ -192,6 +200,12 @@ def init_slstm_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
     zeros = lambda: torch.zeros((batch, H, Pd), dtype=torch.float32,
                                 device=device)
     return {"c": zeros(), "n": zeros(), "h": zeros(), "m": zeros() - 10.0}
+
+
+def slstm_state_spec(batch_axis=None, axis: str = "model") -> dict:
+    """The sLSTM state's spec over grid axis ``axis``: the batch only."""
+    dim = parallel.axis_dim((batch_axis,), axis)
+    return {k: dim for k in ("c", "n", "h", "m")}
 
 
 def _slstm_step(params, carry, pre, H: int, Pd: int):

@@ -88,7 +88,7 @@ def make_train_step(built: M.BuiltModel, opt_cfg: AdamWConfig,
             "exists: the JAX package cannot differentiate its Pallas kernels "
             "either (_pallas_call_jvp_rule); train with use_kernel=False")
     loss_fn = make_loss_fn(built, pctx)
-    specs = M.param_specs(built) if pctx.automatic else None
+    specs = M.param_specs(built, pctx.grid) if pctx.automatic else None
     if remat:
         plain = loss_fn
         loss_fn = lambda params, batch: torch.utils.checkpoint.checkpoint(
@@ -158,13 +158,13 @@ def make_eval_step(built: M.BuiltModel, pctx: ParallelContext = LOCAL):
 
 
 def init_train_state(gen: torch.Generator, built: M.BuiltModel, *,
-                     device="cuda"):
+                     device="cuda", grid=None):
     """(params, optimizer state, specs) from ``gen`` (a generator on
     ``device``): the whole tree, and the automatic regime's layout of it
-    (``model.param_specs``: a spec tree a grid axis), which
+    over ``grid`` (``model.param_specs``: a spec tree a grid axis), which
     ``parallel.shard_grid`` cuts a rank's shards by."""
     params = M.init_model(gen, built, device=dev_lib.resolve(device))
-    return params, adamw_init(params), M.param_specs(built)
+    return params, adamw_init(params), M.param_specs(built, grid)
 
 
 def opt_state_specs(param_specs: dict) -> dict:

@@ -180,8 +180,16 @@ def test_param_specs(monkeypatch):
     p, opt, s = init_train_state(torch.Generator().manual_seed(0), built,
                                  device="cpu")
     assert set(s) == {"pod", "data", "model"} and set(opt) == {"mu", "nu", "step"}
-    # an encoder-decoder has no model-axis shards
-    assert M.param_specs(M.build(get_config("whisper-base").reduced()))["model"] is None
+    # an encoder-decoder lays out its encoder and its cross attention by
+    # the same whole-head rule: sharded where the model axis divides the
+    # heads (8 at the reduced size), whole at the production grid's 16
+    wh = M.build(get_config("whisper-base").reduced())
+    heads = {"wq": 2, "wk": 2, "wv": 2, "wo": 1}
+    s = M.param_specs(wh)["model"]
+    assert {k: s["encoder"]["segments"][0][0]["mixer"][k] for k in heads} == heads
+    assert {k: s["stages"][0][0][0]["cross"][k] for k in heads} == heads
+    s = M.param_specs(wh, parallel.RankGrid((16, 16), ("data", "model")))["model"]
+    assert {k: s["stages"][0][0][0]["cross"][k] for k in heads} == dict.fromkeys(heads)
 
 
 # ---------------------------------------------------------------------------

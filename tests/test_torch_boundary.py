@@ -122,8 +122,8 @@ runpy.run_module("repro_torch.launch.runtime_sim", run_name="__main__")
 def test_training_needs_a_gpu(tmp_path):
     """``init_train_state``, the training launcher and both training
     examples default to the card and raise without one; the launcher's
-    ``--lower-only`` traces on meta tensors and needs no device, and its
-    ``--multi-pod`` (the dry run's multi-pod trace) still raises."""
+    ``--lower-only`` traces on meta tensors and needs no device, its
+    ``--multi-pod`` (rank 0 of the multi-pod grid in a fake world) too."""
     code = BLOCKED + """
 import dataclasses
 from repro_torch.configs import get_config
@@ -146,15 +146,18 @@ print("ok")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
-    for extra, err in (([], "CUDA"), (["--lower-only", "--multi-pod"],
-                                      "NotImplementedError")):
+    for extra, err in (([], "CUDA"), (["--lower-only", "--multi-pod"], None)):
         argv = ["train", "--steps", "1"] + extra
         proc = _run(BLOCKED + f"""
 import runpy
 sys.argv = {argv!r}
 runpy.run_module("repro_torch.launch.train", run_name="__main__")
 """)
-        assert proc.returncode != 0 and err in proc.stderr, proc.stderr
+        if err is None:
+            assert proc.returncode == 0, proc.stderr
+            assert "2x16x16" in proc.stdout and "OK" in proc.stdout
+        else:
+            assert proc.returncode != 0 and err in proc.stderr, proc.stderr
     proc = _run(BLOCKED + """
 import runpy
 sys.argv = ["train", "--lower-only"]

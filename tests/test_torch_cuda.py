@@ -7,9 +7,11 @@ layer's routing and whisper's kernel prefill on the card against the CPU,
 the two-pod prefill pipeline on two streams against one, the dry
 run's counts on the card against those on meta tensors, and the model axis:
 two ranks sharing the card over gloo, their all_reduce and the reduced
-families at (pod=2, model=2) against the CPU; and the MoE layer's
+families at (pod=2, model=2) against the CPU; the MoE layer's
 automatic branch at (data=2, model=2) over four ranks on the card against
-the CPU.
+the CPU; the fake backend's 512-rank world and its c10d ops on meta
+tensors under the card machine's PyTorch; and decode over
+sequence-sharded caches over four ranks on the card against the CPU.
 
 These tests import no JAX, so a GPU machine with PyTorch alone runs them,
 without the JAX package's conftest:
@@ -1211,3 +1213,109 @@ def test_moe_automatic_branch_on_the_card_matches_cpu(cuda):
             assert len(ec) == len(eg) == 1 and torch.equal(ec[0], eg[0]), name
             mate = ranks[r ^ 1][name, "cuda"][0]
             assert torch.equal(og, mate), name
+
+
+def test_fake_world_counts_c10d_on_meta(cuda):
+    """The dry run's premise on the card's PyTorch: the ``"fake"`` backend
+    starts a 512-rank world, builds the grid's groups, runs all_reduce,
+    all_gather and reduce_scatter on meta tensors as dispatched ``c10d``
+    ops the cost counter counts by their output bytes, and a reduced
+    model's grid trace matches between two fake worlds in a row."""
+    import torch.distributed as dist
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import parallel
+    grid = make_production_mesh(multi_pod=True)
+    with parallel.fake_world(grid, 5):
+        pctx = parallel.make_context(grid)
+        x = torch.empty((4, 8), device="meta")
+        with roofline.CostCounter() as counter:
+            parallel.model_psum(x, pctx)
+            parallel.all_gather(x, 0, pctx.group)
+            parallel.psum_scatter(torch.empty((32, 8), device="meta"), 0, 1,
+                                  16, pctx.group)
+        assert counter.collectives["all-reduce"] == 4 * 8 * 4 + 32 * 8 * 4
+        assert counter.collectives["all-gather"] == 16 * 4 * 8 * 4
+    assert not dist.is_initialized()
+    built = M.build(dataclasses.replace(get_config("qwen3-8b").reduced(),
+                                        num_kv_heads=1))
+    shape = InputShape("d", 32, 64, "decode")
+    runs = []
+    for _ in range(2):
+        with parallel.fake_world(grid, 0):
+            counter, memory = dryrun.count_step(built, shape, grid=grid)
+        runs.append((counter.flops, counter.bytes, dict(counter.collectives),
+                     memory))
+    assert runs[0] == runs[1] and runs[0][2]["all-reduce"] > 0
+
+
+def _seq_rank(rank, device):
+    """Reduced f32 configs at (data=2, model=2), from one CPU init, on the
+    card and on the CPU: a prefill of 20 tokens into sequence-sharded
+    caches and 3 greedy decode steps at capacity 32, the caches on
+    "model" (a batch of 4) and on ("data", "model") (a batch of 1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import shard_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import parallel
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grid = parallel.RankGrid((2, 2), ("data", "model"))
+    base = parallel.make_context(grid)
+    out = {}
+    for name, (arch, over) in SEQ_CASES.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                                  **over)
+        built = M.build(cfg)
+        params = M.init_model(torch.Generator().manual_seed(0), built, device="cpu")
+        mine = parallel.shard_grid(params, M.param_specs(built, grid), grid)
+        rng = np.random.default_rng(2)
+        for B, axis in ((4, "model"), (1, ("data", "model"))):
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, 20))}
+            if cfg.is_encdec:
+                batch["frames"] = rng.standard_normal(
+                    (B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+            pctx = base.for_batch(B).for_cache(axis)
+            for dev in ("cpu", "cuda"):
+                d = device if dev == "cuda" else "cpu"
+                p = tree_map(lambda t: t.to(d), mine)
+                b = shard_batch(batch, pctx, device=d)
+                logits, caches = M.forward_prefill(p, built, b, pctx,
+                                                   use_kernel=True)
+                caches = M.pad_decode_caches(built, caches, 32, pctx)
+                tok, steps = logits[:, -1].argmax(-1, keepdim=True), [logits]
+                for i in range(3):
+                    lg, caches = M.forward_decode(p, built, tok, caches, 20 + i,
+                                                  pctx, use_kernel=True)
+                    tok = lg[:, -1].argmax(-1, keepdim=True)
+                    steps.append(lg)
+                out[name, B, dev] = ([s.cpu() for s in steps], tok.cpu(),
+                                     logits.device.type)
+    return out
+
+
+SEQ_CASES = {"kv replicated": ("qwen3-8b", {"num_kv_heads": 1}),
+             "attention replicated": ("qwen3-8b", {"num_heads": 3,
+                                                   "num_kv_heads": 1}),
+             "ring": ("gemma3-12b", {"sliding_window": 16}),
+             "whisper": ("whisper-base", {})}
+
+
+def test_seq_sharded_decode_on_the_card_matches_cpu(cuda):
+    """Four ranks on card 0 (gloo): decode over sequence-sharded caches
+    with kv replicated, the attention replicated, a windowed ring and
+    whisper's cross attention, each prefill and step's logits on the card
+    within rtol 1e-4 (atol 1e-5) of the CPU's in f32 without TF32, the
+    greedy ids equal."""
+    from repro_torch.models import parallel
+    ranks = parallel.spawn(_seq_rank, 4, devices="cuda:0")
+    for out in ranks:
+        for name in SEQ_CASES:
+            for B in (4, 1):
+                (sc, tc, _), (sg, tg, where) = out[name, B, "cpu"], out[name, B, "cuda"]
+                assert where == "cuda"
+                for g, c in zip(sg, sc):
+                    torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-5)
+                assert torch.equal(tg, tc), (name, B)

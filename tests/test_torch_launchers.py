@@ -212,13 +212,26 @@ def test_dry_run_skips_what_supports_shape_refuses(tmp_path, monkeypatch):
     assert len(traced) == len(ASSIGNED) * len(INPUT_SHAPES) - len(want)
 
 
-def test_dry_run_refuses_the_model_axis():
+def test_dry_run_traces_the_production_grids(tmp_path, monkeypatch):
+    """``--multi-pod`` traces rank 0 of the 2x16x16 grid and
+    ``--both-meshes`` the 16x16 grid too (full-width gemma3-12b at
+    long_500k: a batch of one, its caches' length over ``("data",
+    "model")``, rings of the window's rows); ``launch/train.py
+    --lower-only --multi-pod`` writes the train_4k record of the 2x16x16
+    grid."""
     from repro_torch.launch import dryrun, train
-    for argv in (["--multi-pod"], ["--both-meshes"]):
-        with pytest.raises(NotImplementedError):
-            dryrun.main(argv)
-    with pytest.raises(NotImplementedError):
-        train.main(["--lower-only", "--multi-pod"])
+    out = str(tmp_path)
+    assert dryrun.main(["--arch", "gemma3-12b", "--shape", "long_500k",
+                        "--multi-pod", "--out", out]) == 0
+    assert dryrun.main(["--arch", "gemma3-12b", "--shape", "long_500k",
+                        "--both-meshes", "--out", out]) == 0
+    for mesh, chips in (("2-16-16", 512), ("16-16", 256)):
+        rec = json.loads((tmp_path / f"gemma3-12b_long_500k_{mesh}.json").read_text())
+        assert rec["chips"] == chips and rec["collectives"]["all-reduce"] > 0
+    monkeypatch.setattr(dryrun, "OUT_DIR", out)
+    train.main(["--lower-only", "--multi-pod"])
+    rec = json.loads((tmp_path / "qwen3-8b_train_4k_2-16-16.json").read_text())
+    assert rec["mesh"] == "2x16x16" and rec["collectives"]["all-reduce"] > 0
 
 
 def test_dry_run_prefill_flops_equal_the_closed_form():
