@@ -20,7 +20,10 @@ result line):
                dequant_restore's row-tile switches; d=3840, d_r=60; and the
                dense configs' d=5120, d_r=80 and d=3072, d_r=48 at 1, 128
                and 2,048 rows; bf16) and a small f32 shape, with
-               reduce_quant's worst share of differing codes; flash
+               reduce_quant's worst share of differing codes; the int16
+               variants of both (the 16-bit wire) at d=4096, d_r=64 at 1,
+               4, 128 and 2,048 rows, gemma3-12b's width at 100 and a small
+               f32 shape (codes within 1, their share printed); flash
                attention at every head dim (32-256) in f32 (the CUDA-core
                kernel) and bf16 (the tensor-core kernel, whose bf16 weights
                give it its own bound: see _flash_excess), causal, windowed and
@@ -35,8 +38,10 @@ result line):
                128 and 2,048 rows of the d=5120 and d=3072 wires; flash at
                the paths' shapes, gemma-7b's MHA and qwen3-14b's included,
                beside the least time the card could take (bytes or
-               operations over its data-sheet rates); for flash also its
-               TFLOP/s and the host time of encoding its TMA tensor maps;
+               operations over its data-sheet rates), and the int16
+               variants at phase 3's int16 shapes (2-byte codes in the
+               bound); for flash also its TFLOP/s and the host time of
+               encoding its TMA tensor maps;
   5. serving - full-width qwen3-8b (36 layers, d_model 4096, bf16, random
                weights from seed 0) split after layer 4 with a d_r=64 int8
                butterfly: four requests prefill through edge_half -> host
@@ -45,6 +50,17 @@ result line):
                through edge_step/stream_step.  Both butterfly kernels'
                launch counts must grow on this path, and the cloud logits
                must stay within 5% of the reference forward's largest logit;
+               then the 16-bit wire on the same weights (banks at
+               wire_bits=16 and "reduced" sharing the params and the
+               butterfly): three prompts, 8 tokens each, through each wire,
+               teacher-forced on the reduced wire's ids, the int16 ids
+               equal to its at every step but a near tie (within the int8
+               wire's distance there), its logits within phase 5's 5% and
+               closer to it than the int8 wire's, and in f32 at least 64
+               times closer; in the engine's own run the ids equal the
+               reduced wire's up to such a tie; 2 B a code plus the scales
+               on the wire, each int16 kernel launched once a prefill and
+               once a decode step (see phase_int16_wire);
   7. pipeline - on the same qwen3-8b bank: the fused restore+norm and RMSNorm
                kernels against their plain versions (f32 and bf16, d 4096
                and 3840, d_r 16-1024, 1 to 4,096 rows; restore+norm also at
@@ -216,10 +232,15 @@ result line):
                only its shards of full-width qwen3-8b (36 layers, butterfly
                after layer 4 at d_r 64): a kernel prefill of 4 x 128 tokens
                into caches sharded on "model" (REPRO_PREFILL_CACHE_SHARDED)
-               and 8 decode steps at capacity 256, then one of 1 x 1,024
-               into caches sharded on ("data", "model") and 8 steps at
+               and 4 decode steps at capacity 256, then one of 1 x 1,024
+               into caches sharded on ("data", "model") and 4 steps at
                2,048, each step within phase 5's 5% of degree 1 with its
-               greedy tokens; exact launches a rank; each rank's counts of
+               greedy tokens; the first layout again with ragged rows (row
+               b at position 128 + i + (0, -9, 3, -11)[b], so each data
+               block's rows write both halves of the length) against degree 1's ragged
+               decode; each rank holds its block of the vocab (the
+               embedding and LM head shard over model, as the JAX
+               layout places them); exact launches a rank; each rank's counts of
                one plain decode step equal its meta trace in a fake world
                (parallel.fake_world) exactly; first the reduced f32
                card-vs-CPU run (kv replicated, attention replicated, a
@@ -296,6 +317,11 @@ DENSE_ROWS = (1, 128, 2048)
 # a decode row and a 128-token prompt
 RECURRENT_WIDTHS = ((3584, 56), (768, 48))
 RECURRENT_ROWS = (1, 128)
+# the 16-bit wire's int16 kernel variants, checked and timed: qwen3-8b's
+# width at a decode row, a pipeline tick, a prompt and a long prefill, and
+# gemma3-12b's at its 100-token prompt, in bf16; and a small f32 shape
+INT16_SHAPES = [(T, D, D_R, "bfloat16") for T in (1, 4, 128, 2048)] + \
+    [(100, GEMMA_D, GEMMA_D_R, "bfloat16"), (256, 256, 16, "float32")]
 
 
 def fail(msg: str):
@@ -544,12 +570,14 @@ def _timed_shapes():
         [(T, d, d_r) for d, d_r in RECURRENT_WIDTHS for T in RECURRENT_ROWS]
 
 
-def _bounds(rates, T, d, d_r):
-    """(reduce_quant, dequant_restore) least times in ms at bf16, each as
-    (ms, "bytes" | "operations")."""
+def _bounds(rates, T, d, d_r, code_bytes: int = 1, elem: int = 2):
+    """(reduce_quant, dequant_restore) least times in ms, each as (ms,
+    "bytes" | "operations"): ``elem``-byte activations and weights (bf16
+    by default), ``code_bytes``-byte codes (int8; 2 for the int16
+    variants), the operations at the bf16 tensor-core rate."""
     bw, bf16_ops = rates
-    rq_bytes = T * d * 2 + d * d_r * 2 + T * d_r + T * 4
-    dr_bytes = T * d_r + T * 4 + d_r * d * 2 + T * d * 2
+    rq_bytes = T * d * elem + d * d_r * elem + T * d_r * code_bytes + T * 4
+    dr_bytes = T * d_r * code_bytes + T * 4 + d_r * d * elem + T * d * elem
     ops = 2 * T * d * d_r
 
     def pick(nbytes):
@@ -670,6 +698,80 @@ def phase_times(rates):
     return out
 
 
+def phase_int16_kernels():
+    """The int16 variants (the 16-bit wire) against their plain versions at
+    INT16_SHAPES.  At 15 bits a step is 1/32,767 of the row's absmax, so the
+    kernel's other order of f32 sums moves a code by 1 far more often than
+    at int8: codes within 1 (the share that differs printed), scales within
+    rtol 1e-5, and the restore of the same codes within phase 3's bf16 and
+    f32 tolerances.  Returns the worst code difference and restore error."""
+    import torch
+    from repro_torch.kernels import butterfly_kernel as bk, ref
+    worst = {"butterfly_reduce_quant": 0.0, "butterfly_dequant_restore": 0.0}
+    for T, d, d_r, dt in INT16_SHAPES:
+        dtype = getattr(torch, dt)
+        x, w, wr = _inputs(T, d, d_r, dtype, seed=T + 16)
+        codes, scales = bk.reduce_quant(x, w, 16)
+        codes_p, scales_p = ref.butterfly_reduce_quant_ref(x, w, 16)
+        if codes.dtype != torch.int16:
+            fail(f"int16 reduce_quant emitted {codes.dtype} codes")
+        diff = (codes.int() - codes_p.int()).abs()
+        max_diff = int(diff.max())
+        if max_diff > 1:
+            fail(f"int16 reduce_quant T={T} d={d} {dt}: a code differs by "
+                 f"{max_diff} from the plain version's")
+        torch.testing.assert_close(scales, scales_p, rtol=1e-5, atol=0)
+        out = bk.dequant_restore(codes_p, scales_p, wr, dtype)
+        out_p = ref.butterfly_dequant_restore_ref(codes_p, scales_p, wr, dtype)
+        tol = dict(rtol=2 ** -7, atol=1e-3) if dtype == torch.bfloat16 else \
+            dict(rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(out, out_p, **tol)
+        err = float((out.float() - out_p.float()).abs().max())
+        worst["butterfly_reduce_quant"] = max(worst["butterfly_reduce_quant"], max_diff)
+        worst["butterfly_dequant_restore"] = max(worst["butterfly_dequant_restore"], err)
+        print(f"kernels int16: T={T:5d} d={d} d_r={d_r} {dt:8s} codes differ "
+              f"{int((diff > 0).sum())}/{diff.numel()} "
+              f"({float((diff > 0).float().mean()):.4%}, max {max_diff}), "
+              f"restore max |err| {err:.3g}")
+    torch.cuda.synchronize()
+    return worst
+
+
+def phase_int16_times(rates):
+    """The int16 variants' times at INT16_SHAPES, phase 4's way: kernel and
+    plain version, cold in L2, beside the bound with 2-byte codes and the
+    dtype's operation rate (no one PyTorch call computes either function).
+    Returns {(name, T, d): times}."""
+    import torch
+    from repro_torch.kernels import butterfly_kernel as bk, ref
+    out = {}
+    for T, d, d_r, dt in INT16_SHAPES:
+        dtype = getattr(torch, dt)
+        x, w, wr = _inputs(T, d, d_r, dtype, seed=T + 16)
+        codes, scales = ref.butterfly_reduce_quant_ref(x, w, 16)
+        rows = {
+            "butterfly_reduce_quant": (
+                lambda: bk.reduce_quant(x, w, 16),
+                lambda: ref.butterfly_reduce_quant_ref(x, w, 16)),
+            "butterfly_dequant_restore": (
+                lambda: bk.dequant_restore(codes, scales, wr, dtype),
+                lambda: ref.butterfly_dequant_restore_ref(codes, scales, wr, dtype)),
+        }
+        # f32 runs on the CUDA cores: its operations at the f32 rate
+        r = rates if dtype == torch.bfloat16 else (rates[0], H100_F32)
+        bounds = dict(zip(rows, _bounds(r, T, d, d_r, code_bytes=2,
+                                        elem=dtype.itemsize)))
+        for name, (kern, plain) in rows.items():
+            ms, plain_ms = _device_ms(kern), _device_ms(plain)
+            bound_ms, bound_by = bounds[name]
+            out[(name, T, d)] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                     bound_ms=bound_ms, bound_by=bound_by)
+            print(f"times int16: {name:26s} T={T:5d} d={d} d_r={d_r} {dt:8s} "
+                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                  f"{bound_ms:.6f} ms ({bound_by})")
+    return out
+
+
 # --------------------------------------------------------------------------- 5
 def _wrappers():
     from repro_torch.kernels import butterfly_kernel as bk, flash_attention as fa
@@ -705,10 +807,11 @@ def _prompts(n: int, lengths):
     return out
 
 
-def _serve_handoff(runner, engine, prompts, new_tokens):
+def _serve_handoff(runner, engine, prompts, new_tokens, record: bool = False):
     """Cache handoff: each prompt prefills through edge_half -> host wire ->
     cloud_half and joins the engine, which then decodes them together.
-    ``wire`` holds each request's bytes on the wire (codes + scales)."""
+    ``wire`` holds each request's bytes on the wire (codes + scales); with
+    ``record`` each request keeps every step's logits (``logits_history``)."""
     import torch
     params = runner.params
     reqs, logits_out, prefill_ms, wire = [], [], [], []
@@ -726,7 +829,8 @@ def _serve_handoff(runner, engine, prompts, new_tokens):
         raw += len(toks) * runner.cfg.d_model * 2
         logits_out.append(logits[0])
         reqs.append(engine.submit_prefilled(len(toks), [c0, c1], logits[0],
-                                            max_new_tokens=new_tokens))
+                                            max_new_tokens=new_tokens,
+                                            record_logits=record))
     steps0 = engine.decode_steps
     t = time.perf_counter()
     engine.run()
@@ -891,6 +995,213 @@ def phase_serving(arch: str = "qwen3-8b", new_tokens: int = 16,
     print(f"{label}: tokens {[r.generated for r in reqs]}"
           + (f" streamed {sreq.generated}" if streamed else ""))
     return launches, runner
+
+
+def phase_int16_wire(runner, new_tokens: int = 8, lengths=(64, 100, 128)):
+    """The 16-bit wire on phase 5's qwen3-8b weights: banks at
+    ``wire_mode="int8", wire_bits=16`` and "reduced" take the bank's params
+    and the split's butterfly (no second copy), and each wire serves the
+    same prompts through edge_half -> host wire -> cloud_half and
+    ``new_tokens`` handoff decode steps in a 4-slot engine, keeping every
+    step's logits.  Its wire must be 2 B a code plus the f32 scales, and
+    each int16 kernel must launch once a prefill and once a decode step
+    (the engine decodes the hosted model through its in-graph wire).
+
+    The int16 wire is held to the reduced wire (which ships the
+    unquantized d_r-wide product) teacher-forced: each wire prefills each
+    prompt and decodes the reduced wire's ids (:func:`_teacher_forced`),
+    so every step's inputs are shared.  A near tie is one where the
+    reduced wire's logit of the int16 wire's pick lies within the int8
+    wire's max |d| from the reduced wire at that step: the int8 wire's
+    error bounds what bf16 rounding of code * scale alone does to either
+    wire.  At every step the greedy ids must agree but at such a tie and
+    the logits lie within phase 5's 5%; the int16 wire's max |d| must be
+    below the int8 wire's; and in the engine's own run the int16 ids must
+    equal the reduced wire's up to a step where they part at such a tie.
+    Then the same in f32 on the same weights (:func:`_int16_wire_f32`),
+    where bf16 no longer hides the codes' precision."""
+    import torch
+    from repro_torch.runtime.split_exec import SplitModelBank
+    t0 = time.perf_counter()
+    bank, split = runner.bank, runner.split
+    butterfly = {split: runner.params["butterfly"]}
+
+    def wire_runner(mode, bits):
+        return SplitModelBank(bank.base_cfg, bank.d_r, wire_mode=mode,
+                              wire_bits=bits, seed=0, device="cuda",
+                              params=bank.params, butterfly=butterfly).runner(split)
+    runners = {"int16": wire_runner("int8", 16),
+               "reduced": wire_runner("reduced", 8), "int8": runner}
+    prompts = _prompts(len(lengths), lengths)
+    for wire in ("int16", "reduced"):          # phase 5 warmed the int8 wire
+        r = runners[wire]
+        _serve_handoff(r, r.make_engine(max_batch=4, max_len=256, seed=0),
+                       prompts, 2)
+    served = {}
+    for wire, r in runners.items():
+        engine = r.make_engine(max_batch=4, max_len=256, seed=0)
+        if wire == "int16":
+            _zero_counts()
+        served[wire] = _serve_handoff(r, engine, prompts, new_tokens, record=True)
+        if wire == "int16":
+            launches = _counts()
+    ids = {w: [q.generated for q in out[0]] for w, out in served.items()}
+    hist = {w: [[torch.from_numpy(h) for h in q.logits_history] for q in out[0]]
+            for w, out in served.items()}
+    print(f"int16 wire: launches {launches}")
+    # a request's prefill crosses the wire once, and each engine step
+    # decodes its slots through the hosted model's in-graph wire once
+    want = dict.fromkeys(launches, 0)
+    want["butterfly_reduce_quant"] = want["butterfly_dequant_restore"] = \
+        len(prompts) + served["int16"][6]
+    if launches != want:
+        fail(f"int16 wire: launched {launches}, expected {want}")
+    d_r = bank.d_r
+    want_wire = [len(t) * (2 * d_r + 4) for t in prompts]
+    if served["int16"][3] != want_wire:
+        fail(f"int16 wire: {served['int16'][3]} B a request, expected "
+             f"S * 2 * {d_r} + 4 * S = {want_wire}")
+    forced = {w: _teacher_forced(r, prompts, ids["reduced"], new_tokens)
+              for w, r in runners.items()}
+    delta, windows, ties = _hold_int16_wire("int16 wire", forced)
+    # the engine's run: the ids may part only at a near tie of the
+    # teacher-forced run's step, where the inputs were still the same
+    parted = []
+    for i in range(len(prompts)):
+        for k, (a, b) in enumerate(zip(ids["int16"][i], ids["reduced"][i])):
+            _hold_logits(f"int16 wire: request {i} step {k} engine logits vs "
+                         f"the reduced wire's", hist["int16"][i][k],
+                         hist["reduced"][i][k])
+            if a != b:
+                ref = hist["reduced"][i][k]
+                gap = float(ref.max() - ref[a])
+                if not gap <= windows[i][k]:
+                    fail(f"int16 wire: request {i} parts from the reduced "
+                         f"wire at step {k} ({a} vs {b}) {gap:.4g} from its "
+                         f"top, beyond the int8 wire's {windows[i][k]:.4g}")
+                parted.append((i, k, round(gap, 4), round(windows[i][k], 4)))
+                break
+    med = {w: statistics.median(out[2]) for w, out in served.items()}
+    print(f"int16 wire: {len(prompts)} prompts of {list(lengths)} tokens, "
+          f"{new_tokens} steps each, teacher-forced on the reduced wire's "
+          f"ids: greedy ids agree at {len(prompts) * new_tokens - len(ties)} "
+          f"of {len(prompts) * new_tokens} steps, the rest near ties "
+          f"(request, step, gap, window) {ties}; logits max|d| from the "
+          f"reduced wire {delta['int16']:.4g} (int8 wire {delta['int8']:.4g})")
+    print(f"int16 wire: engine ids equal the reduced wire's"
+          + ("" if not parted else " but where they part at a near tie "
+             f"(request, step, gap, window) {parted}")
+          + f"; wire {served['int16'][3]} B a request (S * {2 * d_r} + 4 * S; "
+          f"int8 {served['int8'][3]})")
+    print(f"int16 wire: ids int16 {ids['int16']} reduced {ids['reduced']} "
+          f"int8 {ids['int8']}")
+    print(f"int16 wire: prefill (edge + wire + cloud) median ms a request: "
+          f"int16 {med['int16']:.3f}, int8 {med['int8']:.3f}, reduced "
+          f"{med['reduced']:.3f}")
+    t1 = time.perf_counter()
+    _int16_wire_f32(runner, prompts, ids["reduced"], new_tokens)
+    print(f"int16 wire: phase {time.perf_counter() - t0:.1f} s, the f32 "
+          f"check {time.perf_counter() - t1:.1f} s of it")
+    return launches
+
+
+def _teacher_forced(runner, prompts, ids, steps: int):
+    """Each prompt's f32 logits at each of ``steps`` steps (a list per
+    prompt) where ``runner``'s hosted model prefills the prompt through
+    edge_half -> cloud_half and then decodes ``ids[i]`` one at a time, at
+    batch 1, through the bank's decode step (the engine's, with the wire in
+    the graph)."""
+    import torch
+    params, device = runner.params, runner.bank.device
+    decode = runner.bank._fn("decode", runner.split, 1)
+    out = []
+    for toks, want in zip(prompts, ids):
+        S = len(toks)
+        payload, scales, c0 = runner.edge_half(params, toks[None])
+        logits, c1 = runner.cloud_half(params, payload, scales)
+        caches = [runner.pad_decode_cache(c0, 0, S + steps),
+                  runner.pad_decode_cache(c1, 1, S + steps)]
+        hist = [logits[0].float().cpu()]
+        for k in range(1, steps):
+            tok = torch.tensor([[want[k - 1]]], device=device)
+            pos = torch.tensor([S + k - 1], device=device)
+            logits, caches = decode(params, tok, caches, pos)
+            hist.append(logits.reshape(-1).float().cpu())
+        out.append(hist)
+    return out
+
+
+def _hold_int16_wire(label: str, forced):
+    """Hold the teacher-forced int16 wire (``forced[wire][i][k]``, wires
+    int16, int8 and reduced) to the reduced wire (phase_int16_wire's
+    rules).  Returns the max |d| of the int16 and int8 wires, each step's
+    near-tie window (the int8 wire's max |d| there) and the steps whose
+    ids part at a near tie."""
+    delta = dict.fromkeys(("int16", "int8"), 0.0)
+    windows, ties = [], []
+    for i, steps in enumerate(forced["reduced"]):
+        windows.append([])
+        for k, ref in enumerate(steps):
+            d = {w: float((forced[w][i][k] - ref).abs().max()) for w in delta}
+            for w in delta:
+                delta[w] = max(delta[w], d[w])
+            windows[-1].append(d["int8"])
+            got = forced["int16"][i][k]
+            _hold_logits(f"{label}: request {i} step {k} logits vs the "
+                         f"reduced wire's", got, ref)
+            pick, top = int(got.argmax()), int(ref.argmax())
+            if pick != top:
+                gap = float(ref[top] - ref[pick])
+                if not gap <= d["int8"]:
+                    fail(f"{label}: request {i} step {k} picks {pick}, the "
+                         f"reduced wire {top}, {gap:.4g} apart there: not "
+                         f"a near tie (the int8 wire's max|d| {d['int8']:.4g})")
+                ties.append((i, k, round(gap, 4), round(d["int8"], 4)))
+    if not delta["int16"] < delta["int8"]:
+        fail(f"{label}: logits max|d| from the reduced wire "
+             f"{delta['int16']:.4g}, not below the int8 wire's {delta['int8']:.4g}")
+    return delta, windows, ties
+
+
+def _int16_wire_f32(runner, prompts, ids, steps: int, ratio: float = 64.0):
+    """phase_int16_wire's teacher-forced checks on the same weights in f32
+    (no TF32): banks of the three wires share one f32 copy of the params
+    and the butterfly.  In bf16 the rounding of code * scale to bf16 hides
+    most of what 15 bits buy over 7; in f32 the wires differ only by their
+    codes, so the int16 wire's max |d| from the reduced wire must also lie
+    ``ratio`` times below the int8 wire's (a step is 1/32,767 of a row's
+    absmax against 1/127, about 258 times finer)."""
+    import dataclasses
+    import torch
+    from repro_torch.runtime.split_exec import SplitModelBank
+    from repro_torch.tree import tree_map
+    bank, split = runner.bank, runner.split
+    f32 = lambda tree: tree_map(lambda t: t.float(), tree)
+    cfg = dataclasses.replace(bank.base_cfg, dtype="float32")
+    params = f32(bank.params)
+    butterfly = {split: f32(runner.params["butterfly"])}
+    forced = {}
+    for wire, (mode, bits) in {"int16": ("int8", 16), "int8": ("int8", 8),
+                               "reduced": ("reduced", 8)}.items():
+        r = SplitModelBank(cfg, bank.d_r, wire_mode=mode, wire_bits=bits,
+                           seed=0, device=bank.device, params=params,
+                           butterfly=butterfly).runner(split)
+        forced[wire] = _teacher_forced(r, prompts, ids, steps)
+        del r
+    del params, butterfly
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    delta, _, ties = _hold_int16_wire("int16 wire f32", forced)
+    if not delta["int16"] * ratio <= delta["int8"]:
+        fail(f"int16 wire f32: logits max|d| from the reduced wire "
+             f"{delta['int16']:.4g}, not {ratio:g} times below the int8 "
+             f"wire's {delta['int8']:.4g}")
+    n = len(prompts) * steps
+    print(f"int16 wire f32: teacher-forced, greedy ids agree at "
+          f"{n - len(ties)} of {n} steps (near ties {ties}); logits max|d| "
+          f"from the reduced wire {delta['int16']:.4g}, int8 wire "
+          f"{delta['int8']:.4g} ({delta['int8'] / max(delta['int16'], 1e-30):.4g} "
+          f"times the int16 wire's; at least {ratio:g} required)")
 
 
 def _serving_f32(runner, prompts, label: str):
@@ -1558,7 +1869,9 @@ BINCOUNT_D_R = {16: 4096, 60: 3840, 64: 4096, 1024: 4096}
 BINCOUNT_ROWS = (1, 4, 32, 33, 100, 1024, 1025, 4096)
 BINCOUNT_TIME_ROWS = (1, 128, 1024, 4096)
 # phase 8's cells: 8 requests of 128 tokens from 4 devices on 3g
-RUNTIME = dict(S=128, requests=8, devices=4, handoff_tokens=16,
+# (the handoff runs decode 4 tokens a request, 16 before the int16 wire's
+# and the ragged decode's checks joined the run: the run keeps its time)
+RUNTIME = dict(S=128, requests=8, devices=4, handoff_tokens=4,
                streamed_requests=4, streamed_tokens=8)
 # the bincount entry point's calls: one per phase-8 prompt, then all eight
 BINCOUNT_ENTRY_ROWS = {RUNTIME["S"]: RUNTIME["requests"],
@@ -1669,7 +1982,7 @@ def phase_runtime(runner):
     """Phase 8: the port's runtime simulator with numerics on the card, at
     full width (qwen3-8b as phase 5: 36 layers, bf16, seed 0, split 4, d_r
     64), 4 devices on 3g, the entropy wire: cache handoff (8 requests of 128
-    tokens, 16 new tokens each), streamed and progressive (one request per
+    tokens, 4 new tokens each), streamed and progressive (one request per
     device, 8 new tokens), and the int8 wire's cache handoff on the same
     arrivals; the streamed run is recorded and replayed.  Checks: ids equal
     between the entropy and int8 wires and equal to what phase 5's bank
@@ -3920,8 +4233,14 @@ def phase_automatic(smi: str):
 # run's decode_state_specs(seq_axis=) lays it out
 SEQ = {"m": dict(B=4, S=128, cap=256, axis="model"),
        "dm": dict(B=1, S=1024, cap=2048, axis=("data", "model"))}
-SEQ_STEPS = 8
+# decode steps a layout (8 before the ragged run and the int16 wire's
+# checks joined the run: the run keeps its time)
+SEQ_STEPS = 4
 SEQ_GRID = ((2, 2), ("data", "model"))
+# the layout that also decodes ragged rows (row b at S + i + offset b): each
+# data block's two rows write slots in different blocks of the length
+SEQ_RAGGED = "m"
+SEQ_OFFSETS = (0, -9, 3, -11)
 # the reduced f32 card-vs-CPU run at the same grid: kv replicated, attention
 # replicated, a windowed ring, whisper's cross attention
 SEQ_PARITY = dict(cases={"kv replicated": ("qwen3-8b", {"num_kv_heads": 1}),
@@ -3943,13 +4262,16 @@ def _seq_kinds():
             for k, c in SEQ.items()}
 
 
-def _seq_serve(params, built, pctx, batch, cap, steps, inputs=None):
+def _seq_serve(params, built, pctx, batch, cap, steps, inputs=None,
+               offsets=None):
     """Kernel prefill of ``batch`` under ``pctx`` into sequence-sharded
     caches (on "model" through REPRO_PREFILL_CACHE_SHARDED=1 at a batch
     above one, under for_cache(("data", "model")) at a batch of one), the
     caches padded to ``cap``, and ``steps`` kernel decode steps, greedy or
-    fed ``inputs`` (teacher-forced): the prefill logits, each step's logits
-    and greedy ids, and the walls, on the host."""
+    fed ``inputs`` (teacher-forced), at position S + i, or with
+    ``offsets`` (a (rows,) tensor) at the ragged positions S + i + offsets:
+    the prefill logits, each step's logits and greedy ids, and the walls,
+    on the host."""
     import torch
     from repro_torch.models import model as M
     torch.cuda.synchronize()
@@ -3975,9 +4297,10 @@ def _seq_serve(params, built, pctx, batch, cap, steps, inputs=None):
     for i in range(steps):
         if inputs is not None:
             tok = inputs[i].to(logits.device)
+        pos = S + i if offsets is None else S + i + offsets.to(logits.device)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        lg, caches = M.forward_decode(params, built, tok, caches, S + i, pctx,
+        lg, caches = M.forward_decode(params, built, tok, caches, pos, pctx,
                                       use_kernel=True)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
@@ -4083,6 +4406,14 @@ def _seq_rank(rank, device, refs):
         out[kind] = _seq_serve(mine, built, pctx, toks, c["cap"], SEQ_STEPS,
                                inputs)
         out[kind]["launches"] = _counts()
+        if kind == SEQ_RAGGED:
+            # ragged rows over the same caches: row b at S + i + offset b
+            inputs = [t[lo:lo + rows] for t in refs[kind]["ragged"]["inputs"]]
+            _zero_counts()
+            out["ragged"] = _seq_serve(mine, built, pctx, toks, c["cap"],
+                                       SEQ_STEPS, inputs,
+                                       torch.tensor(SEQ_OFFSETS[lo:lo + rows]))
+            out["ragged"]["launches"] = _counts()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     # the dry run's premise: this rank's counts of one plain decode step
     out["counts"] = {}
@@ -4131,6 +4462,22 @@ def seq_decode_references():
             tok = lg[:, -1].argmax(-1, keepdim=True)
         refs[kind] = dict(prompts=prompts, inputs=inputs, steps=steps, ms=ms,
                           prefill=logits[:, 0].float().cpu(), prefill_ms=prefill_ms)
+        if kind == SEQ_RAGGED:
+            # degree 1's ragged decode: row b at S + i + offset b, over the
+            # caches of a second prefill
+            _, caches = M.forward_prefill(params, built, {"tokens": toks},
+                                          use_kernel=True)
+            caches = M.pad_decode_caches(built, caches, c["cap"])
+            tok, r_inputs, r_steps = logits[:, -1].argmax(-1, keepdim=True), [], []
+            offsets = torch.tensor(SEQ_OFFSETS, device="cuda")
+            for i in range(SEQ_STEPS):
+                r_inputs.append(tok.cpu())
+                lg, caches = M.forward_decode(params, built, tok, caches,
+                                              c["S"] + i + offsets,
+                                              use_kernel=True)
+                r_steps.append(lg[:, 0].float().cpu())
+                tok = lg[:, -1].argmax(-1, keepdim=True)
+            refs[kind]["ragged"] = dict(inputs=r_inputs, steps=r_steps)
         del caches
     del params
     return refs
@@ -4144,10 +4491,12 @@ def phase_seq_decode(smi: str):
     checked), keeps its shards, and runs:
       1. 4 prompts of 128 tokens (2 a data block): a kernel prefill under
          REPRO_PREFILL_CACHE_SHARDED=1 (the caches come out seq -> model),
-         the caches padded to 256 (128 positions a rank), 8 kernel decode
-         steps over caches sharded on "model";
+         the caches padded to 256 (128 positions a rank), 4 kernel decode
+         steps over caches sharded on "model", then again with ragged rows
+         (row b at position 128 + i + SEQ_OFFSETS[b]) against degree 1's
+         ragged decode;
       2. 1 prompt of 1,024 tokens: a kernel prefill under caches sharded
-         on ("data", "model"), padded to 2,048 (512 a rank), 8 steps;
+         on ("data", "model"), padded to 2,048 (512 a rank), 4 steps;
          each step teacher-forced with degree 1's tokens: prefill and step
          logits within phase 5's 5% of degree 1's, the greedy tokens equal
          unless degree 1's top two lie within the bound;
@@ -4214,6 +4563,30 @@ def phase_seq_decode(smi: str):
                     worst = max(worst, d)
             launches = {k: (launches or {}).get(k, 0) + v
                         for k, v in got["launches"].items()}
+        if kind == SEQ_RAGGED:
+            rworst = 0.0
+            for r, out in enumerate(ranks):
+                got = out["ragged"]
+                if got["launches"] != want:
+                    fail(f"seq decode ragged rank {r}: launched "
+                         f"{got['launches']}, expected {want}")
+                rows = got["prefill"].shape[0]
+                lo = grid.coords(r)["data"] * rows
+                for j in range(rows):
+                    for i in range(SEQ_STEPS):
+                        d, _ = _hold_logits(
+                            f"seq decode ragged step {i} rank {r} row {j}",
+                            got["steps"][i][j],
+                            refs[kind]["ragged"]["steps"][i][lo + j],
+                            witness=0.0, greedy=True)
+                        rworst = max(rworst, d)
+                launches = {k: launches.get(k, 0) + v
+                            for k, v in got["launches"].items()}
+            print(f"seq decode {kind} ragged: rows at positions S + i + "
+                  f"{list(SEQ_OFFSETS)} over caches sharded on {c['axis']}: "
+                  f"{SEQ_STEPS} steps within {rworst:.4g} of degree 1's ragged "
+                  f"decode (limit {limit:.4g}), greedy tokens held; launches a "
+                  f"rank {want}")
         ms = ranks[0][kind]["ms"]
         print(f"seq decode {kind}: {c['B']} x {c['S']} tokens, capacity "
               f"{c['cap']} sharded on {c['axis']}: prefill and {SEQ_STEPS} steps "
@@ -4349,11 +4722,15 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     worst = phase_kernels()
+    for kname, err in phase_int16_kernels().items():
+        worst[kname] = max(worst[kname], err)
     worst["flash_attention"] = phase_flash_checks()
     times = phase_times(rates)
+    int16_times = phase_int16_times(rates)
     flash_times = phase_flash_times(rates)
     paths = {}
     paths["qwen3-8b split serving"], runner = phase_serving()
+    paths["qwen3-8b int16 wire"] = phase_int16_wire(runner)
     worst.update(phase_norm_kernels())
     norm_times = phase_norm_times(rates)
     paths["qwen3-8b decode pipeline"] = phase_pipeline(runner)
@@ -4446,12 +4823,14 @@ def main():
     bincount = dict(_launch_mean(bincount_times, BINCOUNT_ENTRY_ROWS), by_shape={
         f"T={T}": t for T, t in bincount_times.items()})
     # the two butterfly kernels: ms at T=128 (comparable across PRs), every
-    # timed shape under by_shape
+    # timed shape under by_shape, the int16 variants' as "T=... int16"
     wire = {}
     for kname in ("butterfly_reduce_quant", "butterfly_dequant_restore"):
-        wire[kname] = dict(times[(kname, JSON_ROWS, D)], by_shape={
-            f"T={T}" + ("" if d == D else f" d={d}"): t
-            for (k, T, d), t in times.items() if k == kname})
+        by_shape = {f"T={T}" + ("" if d == D else f" d={d}"): t
+                    for (k, T, d), t in times.items() if k == kname}
+        by_shape.update({f"T={T}" + ("" if d == D else f" d={d}") + " int16": t
+                         for (k, T, d), t in int16_times.items() if k == kname})
+        wire[kname] = dict(times[(kname, JSON_ROWS, D)], by_shape=by_shape)
     rows = [("butterfly_reduce_quant", "src/repro_torch/csrc/butterfly.cu",
              "src/repro/kernels/butterfly_kernel.py:38",
              wire["butterfly_reduce_quant"]),

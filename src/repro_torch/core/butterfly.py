@@ -7,7 +7,9 @@
 ``use_kernel=True`` runs the fused reduce+quant / dequant+restore wrappers
 (``kernels/ops.py``: the Hopper kernels on a CUDA tensor, their plain
 versions on a CPU tensor, with f32 products; the fused codec emits int8
-codes, so it takes ``wire_bits <= 8`` and raises otherwise);
+codes at ``wire_bits <= 8`` and int16 codes at 16, through the kernels'
+int16 variants, where the JAX package's Pallas codec stops at 8 bits and
+its 16-bit wire runs unfused; any other width raises);
 ``use_kernel=False`` runs the unfused ops in the activation dtype, as the JAX
 package's plain path does.
 ``apply_butterfly(train=True)`` is the training form: the wire is

@@ -63,7 +63,11 @@
 //   absmax, and the arithmetic is IEEE: fmaxf, a true divide for the scale
 //   and for r / scale, rintf (round half to even) and a clamp.  Rows past T
 //   load as zero and are never stored: every row count goes through the
-//   kernel unpadded.
+//   kernel unpadded.  The codes' width is a launch argument (code_bytes):
+//   int8 at bits <= 8, int16 at 16 bits (qmax 32767, the same scale rule;
+//   the reference's 16-bit wire, which its Pallas codec refuses and its
+//   unfused codec quantizes).  The sums, the split-K combine and the
+//   instantiations are the same for both; only the store differs.
 // ---------------------------------------------------------------------------
 // butterfly_reduce_quant_bincount
 //   replaces src/repro/kernels/butterfly_kernel.py:_reduce_quant_bincount_kernel
@@ -136,6 +140,15 @@
 //   kernel does); each thread reads its own w_restore column element once
 //   per channel straight into a register and uses it for all RD rows.
 //   Rows past T and columns past d are masked.
+//   int16 codes (the 16-bit wire, no counterpart among the TPU kernels: the
+//   reference's fused codec takes bits <= 8, and its 16-bit wire runs
+//   unfused, dequantize then matmul): an int16 code is not exact in bf16,
+//   so the tensor-core tile cannot take it.  Both dtypes take the f32
+//   design's walk (dequant_restore_walk_kernel), which reads the codes as
+//   int16; in bf16 it reads w_restore as bf16, rounds each code * scale to
+//   bf16 as it stages it (the reference's dequantize casts to the
+//   activation dtype before the matmul), sums in f32 and rounds the sum
+//   once.  A simple walk, not yet tuned.
 // ---------------------------------------------------------------------------
 // butterfly_dequant_restore_norm
 //   replaces src/repro/kernels/butterfly_kernel.py:_dequant_restore_norm_kernel
@@ -209,12 +222,13 @@ __host__ __device__ constexpr int padded_width(int d_r) {
 struct ReduceArgs {
   const void* x;
   const void* w;
-  int8_t* codes;
+  void* codes;              // int8, or int16 where code_bytes == 2
   float* scales;
   int* counts;              // kCount only
   float* partials;          // tiles x splits x RQ x DRP f32 (splits > 1)
   unsigned int* tickets;    // one a tile, zero between launches (splits > 1)
   int n_rows, d, d_r, qmax;
+  int code_bytes;           // 1 (int8 codes, qmax <= 127) or 2 (int16, qmax 32767)
   int kslice;               // k rows a slice: a multiple of the body's KC
   int splits;               // k slices a tile (gridDim.y)
 };
@@ -593,9 +607,11 @@ __device__ bool combine_partials(const ReduceArgs& a, float* sums, int tile, int
 // One warp a row: a warp-shuffle max gives the absmax, and the arithmetic
 // is IEEE: fmaxf, a true divide for the scale and for r / scale, rintf
 // (round half to even; roundf would round half away from zero) and a clamp.
-// Rows past n_rows are never stored.  With kCount, counts (d_r x 2 *
-// (qmax + 1) int32, zeroed by the caller) gains one in the bin of every
-// code stored.
+// Rows past n_rows are never stored.  The codes are int8 or int16 as
+// code_bytes says, a launch argument: the int16 wire (qmax 32767) runs the
+// same instantiations, and only this store differs.  With kCount (int8
+// codes only), counts (d_r x 2 * (qmax + 1) int32, zeroed by the caller)
+// gains one in the bin of every code stored.
 template <int RQ, int DRP, bool kCount>
 __device__ void quantize_rows(const ReduceArgs& a, const float* sums, int row0) {
   constexpr int CJ = DRP / 32;
@@ -620,7 +636,9 @@ __device__ void quantize_rows(const ReduceArgs& a, const float* sums, int row0) 
       const int c = lane + 32 * j;
       if (c < a.d_r) {
         const float q = fminf(fmaxf(rintf(v[j] / scale), -fq - 1.f), fq);
-        a.codes[(size_t)row * a.d_r + c] = (int8_t)q;
+        const size_t at = (size_t)row * a.d_r + c;
+        if (a.code_bytes == 2) static_cast<int16_t*>(a.codes)[at] = (int16_t)q;
+        else static_cast<int8_t*>(a.codes)[at] = (int8_t)q;
         if constexpr (kCount)
           atomicAdd(&a.counts[c * (2 * (a.qmax + 1)) + (int)q + a.qmax + 1], 1);
       }
@@ -682,23 +700,27 @@ cudaError_t dispatch_reduce(const ReduceArgs& a, const ReducePlan& p, int dtype,
 #undef MMA
 }
 
-bool reduce_args_ok(int n_rows, int d, int d_r, int qmax, int dtype) {
-  return n_rows > 0 && d > 0 && d_r > 0 && d_r <= kMaxDr && qmax >= 0 && qmax <= 127 &&
+bool reduce_args_ok(int n_rows, int d, int d_r, int qmax, int code_bytes, int dtype) {
+  const bool codes_ok = code_bytes == 1 ? qmax >= 0 && qmax <= 127
+                        : code_bytes == 2 && qmax == 32767;
+  return n_rows > 0 && d > 0 && d_r > 0 && d_r <= kMaxDr && codes_ok &&
          (dtype == 0 || dtype == 1);
 }
 
 template <bool kCount>
 int reduce_entry(const void* x, const void* w, void* codes, void* scales, int* counts,
                  void* partials, void* tickets, int n_rows, int d, int d_r, int qmax,
-                 int dtype, void* stream) {
-  if (!reduce_args_ok(n_rows, d, d_r, qmax, dtype)) return (int)cudaErrorInvalidValue;
+                 int code_bytes, int dtype, void* stream) {
+  if (!reduce_args_ok(n_rows, d, d_r, qmax, code_bytes, dtype) ||
+      (kCount && code_bytes != 1))
+    return (int)cudaErrorInvalidValue;
   const ReducePlan p = plan_reduce(n_rows, d, d_r, dtype);
   if (p.splits > 1 && (partials == nullptr || tickets == nullptr))
     return (int)cudaErrorInvalidValue;
   ReduceArgs a;
   a.x = x;
   a.w = w;
-  a.codes = static_cast<int8_t*>(codes);
+  a.codes = codes;
   a.scales = static_cast<float*>(scales);
   a.counts = counts;
   a.partials = static_cast<float*>(partials);
@@ -707,32 +729,39 @@ int reduce_entry(const void* x, const void* w, void* codes, void* scales, int* c
   a.d = d;
   a.d_r = d_r;
   a.qmax = qmax;
+  a.code_bytes = code_bytes;
   a.kslice = p.kslice;
   a.splits = p.splits;
   return (int)dispatch_reduce<kCount>(a, p, dtype, static_cast<cudaStream_t>(stream));
 }
 
-// ---- dequant_restore and restore_norm: the f32 walk (CUDA cores) ----------
+// ---- dequant_restore and restore_norm: the CUDA-core walk -------------------
 // codes * scale of rows [row0, row0 + RD) as f32 in shared memory, k-major
-// (rs[k * RD + r]); rows past n_rows are zeros
-__device__ __forceinline__ void stage_dequant(const int8_t* __restrict__ codes,
+// (rs[k * RD + r]); rows past n_rows are zeros.  C is int8 or int16; kRound
+// rounds each product to bf16 first, as the reference's dequantize casts it
+// to a bf16 activation before the restore (the int16 wire's order)
+template <typename C, bool kRound = false>
+__device__ __forceinline__ void stage_dequant(const C* __restrict__ codes,
                                               const float* __restrict__ scales,
                                               float* rs, int row0, int n_rows, int d_r) {
   for (int e = threadIdx.x; e < RD * d_r; e += blockDim.x) {
     const int r = e / d_r, k = e % d_r, row = row0 + r;
-    rs[k * RD + r] = row < n_rows ? (float)codes[(size_t)row * d_r + k] * scales[row] : 0.f;
+    float v = row < n_rows ? (float)codes[(size_t)row * d_r + k] * scales[row] : 0.f;
+    if constexpr (kRound) v = __bfloat162float(__float2bfloat16_rn(v));
+    rs[k * RD + r] = v;
   }
 }
 
-// acc[r] = sum over k, in order, of rs[k][r] * w[k][col] (f32 fmaf): one
-// output column of the block's RD rows
-__device__ __forceinline__ void restore_column(const float* rs, const float* __restrict__ w,
+// acc[r] = sum over k, in order, of rs[k][r] * w[k][col] (f32 fmaf, w read
+// as f32): one output column of the block's RD rows
+template <typename W>
+__device__ __forceinline__ void restore_column(const float* rs, const W* __restrict__ w,
                                                int col, int d_r, int d, float (&acc)[RD]) {
 #pragma unroll
   for (int r = 0; r < RD; ++r) acc[r] = 0.f;
 #pragma unroll 8
   for (int k = 0; k < d_r; ++k) {
-    const float wv = w[(size_t)k * d + col];
+    const float wv = row_norm::to_f32(w[(size_t)k * d + col]);
 #pragma unroll
     for (int r = 0; r < RD; r += 4) {
       const float4 rv = *reinterpret_cast<const float4*>(&rs[k * RD + r]);
@@ -744,15 +773,19 @@ __device__ __forceinline__ void restore_column(const float* rs, const float* __r
   }
 }
 
+// The f32 restore of int8 or int16 codes (W = float), and the bf16 restore
+// of int16 codes (W = bf16: each code * scale rounded to bf16, the f32 sums
+// rounded once to bf16); int8 codes restore to bf16 on the tensor cores
+template <typename C, typename W>
 __global__ void __launch_bounds__(kThreads)
-dequant_restore_f32_kernel(const int8_t* __restrict__ codes,
-                           const float* __restrict__ scales,
-                           const float* __restrict__ w, float* __restrict__ out,
-                           int n_rows, int d_r, int d) {
+dequant_restore_walk_kernel(const C* __restrict__ codes,
+                            const float* __restrict__ scales,
+                            const W* __restrict__ w, W* __restrict__ out,
+                            int n_rows, int d_r, int d) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* rs = reinterpret_cast<float*>(smem_raw);   // d_r x RD, codes * scale
   const int row0 = blockIdx.x * RD;
-  stage_dequant(codes, scales, rs, row0, n_rows, d_r);
+  stage_dequant<C, sizeof(W) == 2>(codes, scales, rs, row0, n_rows, d_r);
   __syncthreads();
 
   const int col = blockIdx.y * DD + threadIdx.x;
@@ -762,7 +795,7 @@ dequant_restore_f32_kernel(const int8_t* __restrict__ codes,
 #pragma unroll
   for (int r = 0; r < RD; ++r) {
     const int row = row0 + r;
-    if (row < n_rows) out[(size_t)row * d + col] = acc[r];
+    if (row < n_rows) row_norm::from_f32(acc[r], out + (size_t)row * d + col);
   }
 }
 
@@ -1100,7 +1133,32 @@ cudaError_t launch_restore_mma(const RestoreArgs& p, const RestorePlan& plan,
   return cudaGetLastError();
 }
 
-cudaError_t launch_restore(const RestoreArgs& p, int dtype, cudaStream_t s) {
+template <typename C, typename W>
+cudaError_t launch_restore_walk(const void* codes, const float* scales, const void* w,
+                                void* out, int n_rows, int d_r, int d, cudaStream_t s) {
+  auto kern = dequant_restore_walk_kernel<C, W>;
+  const size_t smem = (size_t)RD * d_r * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((n_rows + RD - 1) / RD, (d + DD - 1) / DD);
+  kern<<<grid, kThreads, smem, s>>>(static_cast<const C*>(codes), scales,
+                                    static_cast<const W*>(w), static_cast<W*>(out),
+                                    n_rows, d_r, d);
+  return cudaGetLastError();
+}
+
+// int16 codes (code_bytes 2) take the walk in either dtype
+cudaError_t launch_restore(const RestoreArgs& p, int dtype, int code_bytes, cudaStream_t s) {
+  if (code_bytes == 2) {
+    if (dtype == 1)
+      return launch_restore_walk<int16_t, __nv_bfloat16>(p.codes, p.scales, p.w, p.out,
+                                                         p.n_rows, p.d_r, p.d, s);
+    return launch_restore_walk<int16_t, float>(p.codes, p.scales, p.w, p.out, p.n_rows,
+                                               p.d_r, p.d, s);
+  }
   if (dtype == 1) {
     const RestorePlan plan = plan_restore(p.n_rows, p.d, p.kp);
     switch (plan.bm) {
@@ -1110,17 +1168,8 @@ cudaError_t launch_restore(const RestoreArgs& p, int dtype, cudaStream_t s) {
       default: return launch_restore_mma<128>(p, plan, s);
     }
   }
-  const size_t smem = (size_t)RD * p.d_r * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dequant_restore_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((p.n_rows + RD - 1) / RD, (p.d + DD - 1) / DD);
-  dequant_restore_f32_kernel<<<grid, kThreads, smem, s>>>(
-      p.codes, p.scales, static_cast<const float*>(p.w), static_cast<float*>(p.out),
-      p.n_rows, p.d_r, p.d);
-  return cudaGetLastError();
+  return launch_restore_walk<int8_t, float>(p.codes, p.scales, p.w, p.out, p.n_rows,
+                                            p.d_r, p.d, s);
 }
 
 // ---- restore_norm ----------------------------------------------------------
@@ -1166,7 +1215,7 @@ dequant_restore_norm_kernel(RestoreArgs p, const T* __restrict__ norm_w,
     for (int t = 0; t < sub && row0 + t * RD < n_rows; ++t) {
       const int r0 = row0 + t * RD;
       if (t) __syncthreads();                     // the last tile's rs is read
-      stage_dequant(p.codes, p.scales, rs, r0, n_rows, p.d_r);
+      stage_dequant<int8_t>(p.codes, p.scales, rs, r0, n_rows, p.d_r);
       __syncthreads();
       for (int col = rank * DDN + threadIdx.x; col < d; col += kCluster * DDN) {
         float acc[RD];
@@ -1259,7 +1308,7 @@ extern "C" int butterfly_reduce_width(int d_r) { return padded_width(d_r); }
 // them zero again, so a buffer serves every later launch on one stream).
 extern "C" int butterfly_reduce_scratch(int n_rows, int d, int d_r, int dtype,
                                         long long* sizes) {
-  if (!reduce_args_ok(n_rows, d, d_r, 0, dtype)) return (int)cudaErrorInvalidValue;
+  if (!reduce_args_ok(n_rows, d, d_r, 0, 1, dtype)) return (int)cudaErrorInvalidValue;
   const ReducePlan p = plan_reduce(n_rows, d, d_r, dtype);
   sizes[0] = p.splits > 1 ? (long long)p.tiles * p.splits * p.rq * p.drp : 0;
   sizes[1] = p.splits > 1 ? p.tiles : 0;
@@ -1268,13 +1317,14 @@ extern "C" int butterfly_reduce_scratch(int n_rows, int d, int d_r, int dtype,
 
 // w must hold butterfly_reduce_width(d_r) columns (zeros past d_r) and be
 // 16-byte aligned; partials and tickets as butterfly_reduce_scratch sizes
-// them (may be null where it gives 0).
+// them (may be null where it gives 0).  codes are int8 (code_bytes 1, qmax
+// <= 127) or int16 (code_bytes 2, qmax 32767).
 extern "C" int butterfly_reduce_quant(const void* x, const void* w, void* codes,
                                       void* scales, void* partials, void* tickets,
-                                      int n_rows, int d, int d_r, int qmax, int dtype,
-                                      void* stream) {
+                                      int n_rows, int d, int d_r, int qmax,
+                                      int code_bytes, int dtype, void* stream) {
   return reduce_entry<false>(x, w, codes, scales, nullptr, partials, tickets, n_rows, d,
-                             d_r, qmax, dtype, stream);
+                             d_r, qmax, code_bytes, dtype, stream);
 }
 
 // As butterfly_reduce_quant, and counts (d_r x 2 * (qmax + 1) int32, zeroed by
@@ -1285,25 +1335,28 @@ extern "C" int butterfly_reduce_quant_bincount(const void* x, const void* w,
                                                int n_rows, int d, int d_r, int qmax,
                                                int dtype, void* stream) {
   return reduce_entry<true>(x, w, codes, scales, static_cast<int*>(counts), partials,
-                            tickets, n_rows, d, d_r, qmax, dtype, stream);
+                            tickets, n_rows, d, d_r, qmax, 1, dtype, stream);
 }
 
 bool restore_args_ok(int n_rows, int d_r, int d, int dtype) {
   return n_rows > 0 && d > 0 && d_r > 0 && d_r <= kMaxDr && (dtype == 0 || dtype == 1);
 }
 
-// out has the dtype of w.
+// out has the dtype of w; codes are int8 (code_bytes 1) or int16 (2).
 extern "C" int butterfly_dequant_restore(const void* codes, const void* scales,
                                          const void* w, void* out, int n_rows,
-                                         int d_r, int d, int dtype, void* stream) {
-  if (!restore_args_ok(n_rows, d_r, d, dtype)) return (int)cudaErrorInvalidValue;
+                                         int d_r, int d, int dtype, int code_bytes,
+                                         void* stream) {
+  if (!restore_args_ok(n_rows, d_r, d, dtype) || (code_bytes != 1 && code_bytes != 2))
+    return (int)cudaErrorInvalidValue;
   return (int)launch_restore(restore_args(codes, scales, w, out, n_rows, d_r, d), dtype,
-                             static_cast<cudaStream_t>(stream));
+                             code_bytes, static_cast<cudaStream_t>(stream));
 }
 
-// How butterfly_dequant_restore launches at this shape: plan[0] rows a
-// block, plan[1] blocks, plan[2] dynamic shared memory a block (bytes);
-// plan[3] butterfly_dequant_restore_norm's dynamic shared memory a block.
+// How butterfly_dequant_restore launches at this shape with int8 codes:
+// plan[0] rows a block, plan[1] blocks, plan[2] dynamic shared memory a
+// block (bytes); plan[3] butterfly_dequant_restore_norm's dynamic shared
+// memory a block.
 extern "C" int butterfly_restore_plan(int n_rows, int d_r, int d, int dtype, int* plan) {
   if (!restore_args_ok(n_rows, d_r, d, dtype)) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {

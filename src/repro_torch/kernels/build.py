@@ -32,10 +32,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "butterfly": {
-        "butterfly_reduce_quant": [_P] * 6 + [_I] * 5 + [_P],
+        "butterfly_reduce_quant": [_P] * 6 + [_I] * 6 + [_P],
         "butterfly_reduce_quant_bincount": [_P] * 7 + [_I] * 5 + [_P],
         "butterfly_reduce_scratch": [_I] * 4 + [_P],
-        "butterfly_dequant_restore": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "butterfly_dequant_restore": [_P] * 4 + [_I] * 5 + [_P],
         "butterfly_dequant_restore_norm": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
         "butterfly_reduce_width": [_I],
         "butterfly_restore_norm_wave": [_I, _I, _P],

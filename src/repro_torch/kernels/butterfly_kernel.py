@@ -4,7 +4,11 @@ Each wrapper takes 2-D CUDA tensors, checks device, dtype, shape and
 contiguity, allocates its outputs, launches on the current stream and
 raises if the launch was refused.  ``launches`` on each wrapper counts the
 kernel launches (and nothing else), so a run can show that its path went
-through the kernel.  The TPU kernels these replace are
+through the kernel.  reduce_quant and dequant_restore also take the 16-bit
+wire's int16 codes (their int16 variants, which no TPU kernel has: the
+reference quantizes that wire unfused); the bincount and restore+norm
+kernels take int8 codes only, as the reference runs them at 8 bits or
+fewer.  The TPU kernels these replace are
 ``repro/kernels/butterfly_kernel.py:butterfly_reduce_quant_kernel``,
 ``:butterfly_reduce_quant_bincount_kernel``,
 ``:butterfly_dequant_restore_kernel`` and
@@ -53,19 +57,32 @@ def _reduce_scratch(lib, x: torch.Tensor, d_r: int):
     return partials, partials.data_ptr(), tickets.data_ptr()
 
 
-def _reduce_args(x: torch.Tensor, w_reduce: torch.Tensor, bits: int):
+def code_dtype(bits: int) -> torch.dtype:
+    """The codes of a ``bits``-wide wire: int8 at 1-8 bits, int16 at 16
+    (the widths the reduce kernel emits); any other width raises."""
+    if 1 <= bits <= 8:
+        return torch.int8
+    if bits == 16:
+        return torch.int16
+    raise ValueError(f"the fused codec emits int8 codes at 1-8 bits or "
+                     f"int16 codes at 16 bits; bits={bits}")
+
+
+def _reduce_args(x: torch.Tensor, w_reduce: torch.Tensor, bits: int,
+                 max_bits: int = 16):
     """Check the reduce kernels' inputs; returns (library, w_reduce as the
     kernel reads it, codes, scales)."""
     check(x, "x", DTYPE_CODE)
     check(w_reduce, "w_reduce", (x.dtype,))
-    if not 1 <= bits <= 8:
-        raise ValueError(f"the fused codec emits int8 codes; bits={bits}")
+    if bits > max_bits:
+        raise ValueError(f"this kernel emits int8 codes; bits={bits} > {max_bits}")
+    cdt = code_dtype(bits)
     T, d = x.shape
     if w_reduce.shape[0] != d or not 1 <= w_reduce.shape[1] <= MAX_D_R:
         raise ValueError(f"w_reduce shape {tuple(w_reduce.shape)} does not "
                          f"fit x {tuple(x.shape)} (d_r <= {MAX_D_R})")
     d_r = w_reduce.shape[1]
-    codes = torch.empty((T, d_r), dtype=torch.int8, device=x.device)
+    codes = torch.empty((T, d_r), dtype=cdt, device=x.device)
     scales = torch.empty((T, 1), dtype=torch.float32, device=x.device)
     if T == 0:
         return None, w_reduce, codes, scales
@@ -82,7 +99,7 @@ def _reduce_args(x: torch.Tensor, w_reduce: torch.Tensor, bits: int):
 
 def reduce_quant(x: torch.Tensor, w_reduce: torch.Tensor, bits: int = 8):
     """x (T, d) f32|bf16, w_reduce (d, d_r) of the same dtype ->
-    (codes (T, d_r) int8, scales (T, 1) f32)."""
+    (codes (T, d_r) int8 at bits 1-8, int16 at 16, scales (T, 1) f32)."""
     lib, w, codes, scales = _reduce_args(x, w_reduce, bits)
     if lib is None:
         return codes, scales
@@ -91,7 +108,7 @@ def reduce_quant(x: torch.Tensor, w_reduce: torch.Tensor, bits: int = 8):
     err = lib.butterfly_reduce_quant(
         x.data_ptr(), w.data_ptr(), codes.data_ptr(), scales.data_ptr(),
         p_ptr, t_ptr, T, d, codes.shape[1], 2 ** (bits - 1) - 1,
-        DTYPE_CODE[x.dtype], stream(x))
+        codes.element_size(), DTYPE_CODE[x.dtype], stream(x))
     raise_on(err, "butterfly_reduce_quant")
     reduce_quant.launches += 1
     return codes, scales
@@ -106,7 +123,7 @@ def reduce_quant_bincount(x: torch.Tensor, w_reduce: torch.Tensor,
     symbols (``code + 2**(bits-1)``): (codes (T, d_r) int8, scales (T, 1)
     f32, counts (d_r, 2**bits) int32).  Codes and scales are bit for bit
     those of :func:`reduce_quant`."""
-    lib, w, codes, scales = _reduce_args(x, w_reduce, bits)
+    lib, w, codes, scales = _reduce_args(x, w_reduce, bits, max_bits=8)
     counts = torch.zeros((codes.shape[1], 1 << bits), dtype=torch.int32,
                          device=x.device)
     if lib is None:
@@ -127,9 +144,10 @@ reduce_quant_bincount.launches = 0
 
 def dequant_restore(codes: torch.Tensor, scales: torch.Tensor,
                     w_restore: torch.Tensor, out_dtype=torch.float32):
-    """codes (T, d_r) int8, scales (T, 1) f32, w_restore (d_r, d) f32|bf16 ->
-    (T, d) in ``out_dtype``, which must be the dtype of ``w_restore``."""
-    check(codes, "codes", (torch.int8,))
+    """codes (T, d_r) int8 or int16, scales (T, 1) f32, w_restore (d_r, d)
+    f32|bf16 -> (T, d) in ``out_dtype``, which must be the dtype of
+    ``w_restore``."""
+    check(codes, "codes", (torch.int8, torch.int16))
     check(scales, "scales", (torch.float32,))
     check(w_restore, "w_restore", DTYPE_CODE)
     if out_dtype != w_restore.dtype:
@@ -147,7 +165,8 @@ def dequant_restore(codes: torch.Tensor, scales: torch.Tensor,
         return out
     err = build.load("butterfly").butterfly_dequant_restore(
         codes.data_ptr(), scales.data_ptr(), w_restore.data_ptr(),
-        out.data_ptr(), T, d_r, d, DTYPE_CODE[out_dtype], stream(codes))
+        out.data_ptr(), T, d_r, d, DTYPE_CODE[out_dtype], codes.element_size(),
+        stream(codes))
     raise_on(err, "butterfly_dequant_restore")
     dequant_restore.launches += 1
     return out
@@ -207,9 +226,10 @@ def restore_norm_wave(d_r: int, dtype=torch.bfloat16) -> int:
 
 
 def restore_plan(T: int, d: int, d_r: int, dtype=torch.bfloat16) -> dict:
-    """How :func:`dequant_restore` launches at this shape (the kernel asks
-    the same): ``rows`` a block, ``blocks``, ``smem`` (dynamic shared memory
-    a block, bytes), and ``norm_smem``, :func:`dequant_restore_norm`'s."""
+    """How :func:`dequant_restore` launches at this shape with int8 codes
+    (the kernel asks the same): ``rows`` a block, ``blocks``, ``smem``
+    (dynamic shared memory a block, bytes), and ``norm_smem``,
+    :func:`dequant_restore_norm`'s."""
     plan = (ctypes.c_int * 4)()
     raise_on(build.load("butterfly").butterfly_restore_plan(
         T, d_r, d, DTYPE_CODE[dtype], plan), "butterfly_restore_plan")

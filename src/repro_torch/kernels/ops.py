@@ -33,9 +33,11 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 def butterfly_reduce_quant(x: torch.Tensor, w_reduce: torch.Tensor, *,
                            bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (..., d) -> (codes (..., d_r) int8, scales (..., 1) f32)."""
-    if bits > 8:
-        raise ValueError(f"the fused codec emits int8 codes: bits={bits} > 8")
+    """x: (..., d) -> (codes (..., d_r), scales (..., 1) f32): int8 codes at
+    bits 1-8, int16 at 16 (the 16-bit wire, which the JAX package's Pallas
+    codec refuses and its unfused codec quantizes); any other width
+    raises."""
+    butterfly_kernel.code_dtype(bits)
     shape = x.shape
     d_r = w_reduce.shape[1]
     xf = x.reshape(-1, shape[-1])
@@ -73,7 +75,8 @@ def butterfly_reduce_quant_bincount(x: torch.Tensor, w_reduce: torch.Tensor,
 def butterfly_dequant_restore(codes: torch.Tensor, scales: torch.Tensor,
                               w_restore: torch.Tensor, *,
                               out_dtype=torch.float32) -> torch.Tensor:
-    """codes: (..., d_r) int8, scales (..., 1) f32 -> (..., d) ``out_dtype``."""
+    """codes: (..., d_r) int8 or int16, scales (..., 1) f32 -> (..., d)
+    ``out_dtype``."""
     shape = codes.shape
     d = w_restore.shape[1]
     cf = codes.reshape(-1, shape[-1])

@@ -14,13 +14,14 @@ import torch
 
 def butterfly_reduce_quant_ref(x: torch.Tensor, w_reduce: torch.Tensor,
                                bits: int = 8):
-    """x: (T, d), w_reduce: (d, d_r) -> (codes int8 (T, d_r), scales f32 (T, 1))."""
+    """x: (T, d), w_reduce: (d, d_r) -> (codes (T, d_r), scales f32 (T, 1));
+    the codes are int8 at bits <= 8 and int16 at 16 bits."""
     qmax = 2 ** (bits - 1) - 1
     r = x.float() @ w_reduce.float()
     absmax = r.abs().amax(dim=-1, keepdim=True)
     scale = torch.clamp(absmax, min=1e-8) / qmax
-    codes = torch.clamp(torch.round(r / scale), -qmax - 1, qmax).to(torch.int8)
-    return codes, scale
+    codes = torch.clamp(torch.round(r / scale), -qmax - 1, qmax)
+    return codes.to(torch.int8 if bits <= 8 else torch.int16), scale
 
 
 def symbol_counts(codes: torch.Tensor, bits: int = 8) -> torch.Tensor:
@@ -45,8 +46,14 @@ def butterfly_reduce_quant_bincount_ref(x: torch.Tensor,
 def butterfly_dequant_restore_ref(codes: torch.Tensor, scales: torch.Tensor,
                                   w_restore: torch.Tensor,
                                   out_dtype=torch.float32) -> torch.Tensor:
-    """codes: (T, d_r) int8, scales (T, 1) f32, w_restore (d_r, d) -> (T, d)."""
+    """codes: (T, d_r) int8 or int16, scales (T, 1) f32, w_restore (d_r, d)
+    -> (T, d).  int16 codes (the 16-bit wire) dequantize in the reference's
+    unfused order: ``code * scale`` rounded to w_restore's dtype, then the
+    f32 product; int8 codes as its Pallas kernel, the f32 ``code * scale``
+    straight into the product."""
     r = codes.float() * scales
+    if codes.dtype == torch.int16:
+        r = r.to(w_restore.dtype).float()
     return (r @ w_restore.float()).to(out_dtype)
 
 

@@ -298,23 +298,21 @@ def _decode_seq_sharded(params, x, cache, cache_pos, *, cfg: ModelConfig,
     this rank holds positions ``[i*Tl, (i+1)*Tl)`` (ring slots, for a
     windowed layer) of every kv head, ``i = pctx.seq_rank``.  The new
     token's q heads (and its k/v heads, where kv shards) are gathered over
-    the model axis; only the rank whose block holds the slot writes k/v;
-    every rank attends all heads over its block, and the blocks' partial
-    softmaxes merge over the sequence group by log-sum-exp (an all-reduce
-    MAX of the row max, then one SUM of the rescaled outputs and sums).
-    The rank then keeps its own q heads for the row-parallel ``wo``.  The
-    positions must be aligned (an int or 0-d ``pos``)."""
-    if isinstance(cache_pos, torch.Tensor):
-        if cache_pos.dim():
-            raise ValueError("a sequence-sharded cache decodes aligned rows: "
-                             "pos must be an int or a 0-d tensor")
-        cache_pos = int(cache_pos)
-    pos = int(cache_pos)
+    the model axis; each row's slot is ``pos % T`` on a ring, else
+    ``min(pos, T-1)``, and only the rank whose block holds a row's slot
+    writes that row's k/v; every rank attends all heads over its block
+    under each row's own mask, and the blocks' partial softmaxes merge over
+    the sequence group by log-sum-exp (an all-reduce MAX of the row max,
+    then one SUM of the rescaled outputs and sums).  The rank then keeps
+    its own q heads for the row-parallel ``wo``.  ``cache_pos`` is an int,
+    a 0-d tensor or a (B,) tensor (ragged rows), as in
+    :func:`attention_decode`."""
     B = x.shape[0]
     hd, n_pad = cfg.resolved_head_dim, _padded_heads(cfg)
     Tl = cache["k"].shape[1]
     T = Tl * pctx.seq_size
-    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    pos = torch.as_tensor(cache_pos, dtype=torch.int64, device=x.device)
+    positions = pos.expand(B)[:, None] if pos.dim() == 0 else pos[:, None]
     q, k_new, v_new = _project_qkv(params, x, cfg, positions, rope=rope)
     n_q = q.shape[2]
     if n_q < n_pad:
@@ -322,18 +320,26 @@ def _decode_seq_sharded(params, x, cache, cache_pos, *, cfg: ModelConfig,
     if k_new.shape[2] < cfg.num_kv_heads:
         k_new = parallel.all_gather(k_new, 2, pctx.group)
         v_new = parallel.all_gather(v_new, 2, pctx.group)
-    slot = pos % T if window is not None else min(pos, T - 1)
     lo = pctx.seq_rank * Tl
     k, v = cache["k"], cache["v"]
-    if lo <= slot < lo + Tl:
-        k[:, slot - lo] = k_new[:, 0].to(k.dtype)
-        v[:, slot - lo] = v_new[:, 0].to(v.dtype)
+    slots = positions[:, 0] % T if window is not None else \
+        torch.clamp(positions[:, 0], max=T - 1)
+    mine = ((slots >= lo) & (slots < lo + Tl))[:, None, None]
+    # every row writes a slot of this block: its new k/v where the slot is
+    # this rank's, else what the slot held (no host sync, and the same
+    # shapes on meta tensors in the dry run)
+    b_idx = torch.arange(B, device=x.device)
+    local = torch.clamp(slots - lo, 0, Tl - 1)
+    k[b_idx, local] = torch.where(mine, k_new[:, 0].to(k.dtype), k[b_idx, local])
+    v[b_idx, local] = torch.where(mine, v_new[:, 0].to(v.dtype), v[b_idx, local])
     scores = _gqa_scores(q, k)                                 # (B,K,G,1,Tl)
-    idx = torch.arange(lo, lo + Tl, device=x.device)
+    idx = torch.arange(lo, lo + Tl, device=x.device)[None, :]
     if window is not None:
-        valid = (slot - idx) % T < min(pos + 1, window)        # ring ages
+        # ring ages, per row
+        valid = (slots[:, None] - idx) % T < torch.clamp(positions + 1, max=window)
     else:
-        valid = idx <= pos
+        valid = idx <= positions
+    valid = valid[:, None, None, None, :]
     scores = scores.masked_fill(~valid, MASK_VALUE)
     m = scores.amax(dim=-1, keepdim=True)
     dist.all_reduce(m, op=dist.ReduceOp.MAX, group=pctx.seq_group)

@@ -8,11 +8,17 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import parallel
+from repro_torch.models.parallel import LOCAL, ParallelContext
+
 # ---------------------------------------------------------------------------
 # sharding helpers
 # ---------------------------------------------------------------------------
 
 MODEL_AXIS = "model"
+# the production mesh's model axis, which the JAX package's dense_spec
+# assumes for the leaves it shards by divisibility alone
+MODEL_AXIS_SIZE = 16
 
 
 def maybe_axis(dim_size: int, size: Optional[int], axis: str = MODEL_AXIS):
@@ -31,6 +37,18 @@ def dense_spec(shape: tuple, shard_dim: Optional[int],
     if shard_dim is None or maybe_axis(shape[shard_dim], size) is None:
         return None
     return shard_dim
+
+
+def fixed_axis_spec(shape: tuple, shard_dim: Optional[int],
+                    size: Optional[int]) -> Optional[int]:
+    """The JAX package's ``dense_spec`` rule, which the automatic layout
+    keeps for the leaves the reference places that way (the embedding's
+    and the LM head's vocab, the recurrent mixers' projections):
+    ``shard_dim`` where :data:`MODEL_AXIS_SIZE` divides that dim, whatever
+    the axis's real size, and the axis's ``size`` ranks divide it too."""
+    if shard_dim is None or shape[shard_dim] % MODEL_AXIS_SIZE:
+        return None
+    return dense_spec(shape, shard_dim, size)
 
 
 # ---------------------------------------------------------------------------
@@ -143,8 +161,22 @@ def init_embedding(gen, vocab: int, d_model: int, dtype, device) -> torch.Tensor
     return trunc_normal(gen, (vocab, d_model), 1.0 / d_model, dtype, device)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor, scale: bool = False) -> torch.Tensor:
-    out = table[tokens]
+def embed(table: torch.Tensor, tokens: torch.Tensor, scale: bool = False,
+          pctx: ParallelContext = LOCAL,
+          vocab: Optional[int] = None) -> torch.Tensor:
+    """The rows of ``tokens``.  Where ``table`` is this rank's block of a
+    ``vocab``-row table over ``pctx``'s model axis (the automatic layout),
+    the rank looks up the tokens in its rows, zeros the others, and one
+    :func:`~repro_torch.models.parallel.model_psum` sums the blocks."""
+    block = _vocab_block(table, vocab, pctx)
+    if block is not None:
+        lo, n = block
+        local = tokens - lo
+        hit = (local >= 0) & (local < n)
+        out = table[torch.where(hit, local, 0)] * hit[..., None].to(table.dtype)
+        out = parallel.model_psum(out, pctx)
+    else:
+        out = table[tokens]
     if scale:
         out = out * torch.tensor(math.sqrt(table.shape[-1]), dtype=out.dtype,
                                  device=out.device)
@@ -152,10 +184,31 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, scale: bool = False) -> tor
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor,
-            softcap: Optional[float] = None) -> torch.Tensor:
+            softcap: Optional[float] = None, pctx: ParallelContext = LOCAL,
+            vocab: Optional[int] = None, gather: bool = True) -> torch.Tensor:
+    """f32 logits of x against ``table``.  Where ``table`` is this rank's
+    block of a ``vocab``-row table (the automatic layout), the rank
+    computes its block of logits (the softcap is elementwise) and, with
+    ``gather``, all-gathers the blocks over the model axis; without, it
+    returns its block, as the sharded loss (``model.lm_loss``) takes it."""
+    block = _vocab_block(table, vocab, pctx) is not None
+    if block:
+        x = parallel.model_copy(x, pctx)
     # the product is taken in x's dtype and only then cast to f32: at bf16
     # the logits round to bf16 first, as in the JAX package
     logits = (x @ table.t()).float()
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
+    if block and gather:
+        logits = parallel.model_gather(logits, -1, pctx)
     return logits
+
+
+def _vocab_block(table: torch.Tensor, vocab: Optional[int],
+                 pctx: ParallelContext):
+    """(first row, rows) of this rank's block where ``table`` is a model
+    rank's block of a ``vocab``-row table, else None."""
+    n = table.shape[0]
+    if vocab is None or n == vocab or not pctx.tensor_parallel:
+        return None
+    return pctx.rank * n, n

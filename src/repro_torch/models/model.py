@@ -6,6 +6,7 @@ backbone with its one shared attention block, ``params["shared_attn"]``).
   build(cfg)                                  -> BuiltModel
   init_model(gen, built, device=...)          -> params
   forward_train(params, built, batch, pctx)   -> (logits, aux)
+  forward_loss(params, built, batch, pctx)    -> (lm_loss, aux), vocab blocks kept
   forward_prefill(params, built, batch, pctx) -> (last-position logits, caches)
   pad_decode_caches(built, caches, length, pctx) -> caches at decode capacity
   forward_decode(params, built, tokens, caches, pos, pctx) -> (logits, caches)
@@ -46,6 +47,7 @@ import os
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as dev_lib
 from repro_torch.configs.base import ModelConfig
@@ -56,8 +58,9 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import parallel
 from repro_torch.models.parallel import LOCAL, ParallelContext
-from repro_torch.models.common import embed, init_embedding, init_mlp, \
-    init_rms_norm, rms_norm, sinusoid_angles, sinusoid_positions, unembed
+from repro_torch.models.common import embed, fixed_axis_spec, \
+    init_embedding, init_mlp, init_rms_norm, rms_norm, sinusoid_angles, \
+    sinusoid_positions, unembed
 
 
 @dataclass(frozen=True)
@@ -130,18 +133,27 @@ def tp_param_specs(built: BuiltModel, *, with_butterfly=None) -> dict:
     return _model_specs(built, None, with_butterfly)
 
 
-def _model_specs(built: BuiltModel, mp, with_butterfly=None) -> dict:
+def _model_specs(built: BuiltModel, mp, with_butterfly=None,
+                 automatic: bool = False) -> dict:
     """The model axis's spec tree at ``mp`` ranks (``transformer.
-    tp_layer_specs``' rule; None shards every head, d_ff and expert)."""
+    tp_layer_specs``' rule; None shards every head, d_ff and expert).
+    ``automatic`` adds the leaves the JAX package's automatic layout
+    shards by ``dense_spec`` alone (``common.fixed_axis_spec``): the
+    vocab of the embedding and the LM head, and the recurrent mixers'
+    projections; the manual regime keeps them replicated, as JAX's
+    ``pipeline_param_specs`` does."""
     cfg = built.cfg
     dt = dev_lib.torch_dtype(cfg.dtype)
     if with_butterfly is None:
         with_butterfly = built.has_butterfly
-    specs: dict = {"embed": None, "final_norm": None,
-                   "stages": [tfm.tp_stage_specs(list(segs), cfg, dt, mp)
+    vocab = fixed_axis_spec((cfg.vocab_size, cfg.d_model), 0, mp) \
+        if automatic else None
+    specs: dict = {"embed": vocab, "final_norm": None,
+                   "stages": [tfm.tp_stage_specs(list(segs), cfg, dt, mp,
+                                                 automatic)
                               for segs in built.stages]}
     if not cfg.tie_embeddings:
-        specs["head"] = None
+        specs["head"] = vocab
     if with_butterfly:
         specs["butterfly"] = {"w_reduce": None, "w_restore": None}
     if cfg.hybrid_attn_every is not None:
@@ -150,7 +162,7 @@ def _model_specs(built: BuiltModel, mp, with_butterfly=None) -> dict:
     if cfg.is_encdec:
         specs["encoder"] = {
             "segments": tfm.tp_stage_specs(list(built.enc_segments), cfg, dt,
-                                           mp),
+                                           mp, automatic),
             "final_norm": None}
     return specs
 
@@ -192,14 +204,20 @@ def param_specs(built: BuiltModel, grid=None) -> dict:
     head, the butterfly and recurrent mixers replicated), ``data`` the
     experts' FSDP d_ff (:func:`fsdp_param_specs`), ``pod`` the experts' dim
     under ``moe.EXPERTS_OVER_POD`` (else None).  Without a grid the model
-    axis is taken to divide every head, d_ff and expert count."""
+    axis is taken to divide every head, d_ff and expert count.  The
+    vocab of the embedding and the LM head and the recurrent mixers'
+    projections (Mamba2's ``in_proj`` columns and ``out_proj`` rows,
+    xLSTM's ``up_z``/``up_x`` columns and ``down`` rows, the sLSTM MLP's
+    ``w_ff1`` columns and ``w_ff2`` rows) shard as the JAX package's
+    ``dense_spec`` places them: where 16 divides the dim
+    (``common.fixed_axis_spec``)."""
     cfg = built.cfg
     pod = None
     if cfg.moe is not None and moe_lib.EXPERTS_OVER_POD:
         pod = _expert_specs(built, lambda: {"wg": 1, "wu": 1, "wd": 1})
     mp = None if grid is None else grid.axis_size("model")
     return {"pod": pod, "data": fsdp_param_specs(built),
-            "model": _model_specs(built, mp)}
+            "model": _model_specs(built, mp, automatic=True)}
 
 
 def _check_automatic(built: BuiltModel, pctx: ParallelContext) -> None:
@@ -214,14 +232,17 @@ def _check_automatic(built: BuiltModel, pctx: ParallelContext) -> None:
                          f"must divide num_experts ({moe.num_experts})")
 
 
-def _embed_inputs(params, built: BuiltModel, batch: dict, pos=None):
+def _embed_inputs(params, built: BuiltModel, batch: dict, pos=None,
+                  pctx: ParallelContext = LOCAL):
     """Token (+ stub modality) embeddings -> (B, S, d).  An encoder-decoder
     adds the sinusoid at positions 0..S-1, or in decode at ``pos`` (an int
     or a (B,) tensor); a VLM places its patch embeddings before the
-    tokens."""
+    tokens.  A vocab-sharded table (the automatic layout) is looked up
+    block by block and summed over the model axis (``common.embed``)."""
     cfg = built.cfg
     scale = cfg.arch_type == "dense" and cfg.act == "gelu"   # gemma family
-    x = embed(params["embed"], batch["tokens"], scale=scale)
+    x = embed(params["embed"], batch["tokens"], scale=scale, pctx=pctx,
+              vocab=cfg.vocab_size)
     if cfg.is_encdec:
         if pos is None:
             sin = sinusoid_positions(x.shape[1], cfg.d_model, x.device)[None]
@@ -254,11 +275,15 @@ def _encode(params, built: BuiltModel, batch: dict, use_kernel: bool,
     return rms_norm(x, params["encoder"]["final_norm"], cfg.rms_eps)
 
 
-def _logits(params, built: BuiltModel, x):
+def _logits(params, built: BuiltModel, x, pctx: ParallelContext = LOCAL,
+            gather: bool = True):
+    """f32 logits of the final norm of x; a vocab-sharded head gives this
+    rank's block, all-gathered over the model axis with ``gather``."""
     cfg = built.cfg
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     table = params["embed"] if cfg.tie_embeddings else params["head"]
-    return unembed(table, x, cfg.logit_softcap)
+    return unembed(table, x, cfg.logit_softcap, pctx=pctx,
+                   vocab=cfg.vocab_size, gather=gather)
 
 
 def _run_stages(params, built: BuiltModel, x, *, mode, caches, pos,
@@ -304,14 +329,30 @@ def forward_train(params, built: BuiltModel, batch: dict,
     plain path (``training.make_train_step`` refuses the kernels).  Under
     an automatic ``pctx``: this rank's block and shards (module docstring);
     the aux terms are the global batch's."""
+    return _forward_train(params, built, batch, pctx, use_kernel, gather=True)
+
+
+def forward_loss(params, built: BuiltModel, batch: dict,
+                 pctx: ParallelContext = LOCAL, use_kernel: bool = False):
+    """(:func:`lm_loss` of ``batch["targets"]``, aux) of
+    :func:`forward_train`.  A rank whose LM head is a vocab block takes the
+    loss on its block of the logits, so no rank holds the whole B x S x V."""
+    logits, aux = _forward_train(params, built, batch, pctx, use_kernel,
+                                 gather=False)
+    return lm_loss(logits, batch["targets"], pctx=pctx,
+                   vocab=built.cfg.vocab_size), aux
+
+
+def _forward_train(params, built: BuiltModel, batch: dict,
+                   pctx: ParallelContext, use_kernel: bool, gather: bool):
     enc_out = _encode(params, built, batch, use_kernel, pctx)
-    x = _embed_inputs(params, built, batch)
+    x = _embed_inputs(params, built, batch, pctx=pctx)
     x, _, aux, rate = _run_stages(params, built, x, mode="train", caches=None,
                                   pos=None, use_kernel=use_kernel,
                                   enc_out=enc_out, pctx=pctx)
-    return _logits(params, built, x), {"load_balance": aux[0],
-                                       "router_z": aux[1],
-                                       "wire_rate_bits": rate}
+    logits = _logits(params, built, x, pctx, gather=gather)
+    return logits, {"load_balance": aux[0], "router_z": aux[1],
+                    "wire_rate_bits": rate}
 
 
 def forward_prefill(params, built: BuiltModel, batch: dict,
@@ -333,11 +374,11 @@ def forward_prefill(params, built: BuiltModel, batch: dict,
             pctx.automatic and not pctx.seq_axes:
         pctx = pctx.for_cache("model")
     enc_out = _encode(params, built, batch, use_kernel, pctx)
-    x = _embed_inputs(params, built, batch)
+    x = _embed_inputs(params, built, batch, pctx=pctx)
     x, caches, _, _ = _run_stages(params, built, x, mode="prefill",
                                   caches=None, pos=None, use_kernel=use_kernel,
                                   enc_out=enc_out, pctx=pctx)
-    return _logits(params, built, x[:, -1:]), caches
+    return _logits(params, built, x[:, -1:], pctx), caches
 
 
 def pad_decode_caches(built: BuiltModel, caches, length: int,
@@ -385,26 +426,43 @@ def forward_decode(params, built: BuiltModel, tokens, caches, pos,
     caches (at decode capacity, see :func:`pad_decode_caches`) are updated
     in place and returned.  Under a context with sequence axes
     (``pctx.for_cache``, the layout of :func:`decode_state_specs`) each
-    rank's caches are its block of the length, and ``pos`` must be one
-    position for every row.  ``use_kernel`` reaches only the butterfly
+    rank's caches are its block of the length; ``pos`` may be ragged there
+    too.  ``use_kernel`` reaches only the butterfly
     wire: decode attention is the plain path, as in the JAX package."""
-    x = _embed_inputs(params, built, {"tokens": tokens}, pos)
+    x = _embed_inputs(params, built, {"tokens": tokens}, pos, pctx)
     x, new_caches, _, _ = _run_stages(params, built, x, mode="decode",
                                       caches=caches, pos=pos,
                                       use_kernel=use_kernel, pctx=pctx)
-    return _logits(params, built, x), new_caches
+    return _logits(params, built, x, pctx), new_caches
 
 
 def lm_loss(logits, targets, ignore: int = -1,
-            pctx: ParallelContext = LOCAL):
+            pctx: ParallelContext = LOCAL, vocab=None):
     """Cross entropy in f32; targets equal to ``ignore`` are masked.  Under
     data axes the mean is the global batch's: the masked sum and the count
     are summed over the data ranks before the division (the ranks' means
-    differ wherever their masks count differently)."""
+    differ wherever their masks count differently).  Where ``logits`` are
+    this model rank's block of a ``vocab``-wide row (:func:`forward_loss`),
+    the loss is taken on the blocks: the row max
+    (all-reduced MAX, held constant) and the sum of exponentials
+    (:func:`parallel.model_psum`) over the model axis, and the target's
+    logit picked by the rank that holds it and summed."""
     mask = targets != ignore
     tgt = torch.where(mask, targets, 0).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    n = logits.shape[-1]
+    if vocab is not None and n < vocab and pctx.tensor_parallel:
+        lf = logits.float()
+        m = lf.detach().amax(dim=-1, keepdim=True)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=pctx.group)
+        total = parallel.model_psum(torch.exp(lf - m).sum(dim=-1), pctx)
+        local = tgt - pctx.rank * n
+        hit = (local >= 0) & (local < n)
+        picked = torch.gather(lf, -1, torch.where(hit, local, 0)[..., None])[..., 0]
+        picked = parallel.model_psum(picked * hit, pctx)
+        nll = torch.log(total) + m[..., 0] - picked
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
     num, den = (nll * mask).sum(), mask.sum()
     group = pctx.data_group
     if group is not None:

@@ -38,7 +38,13 @@ train step differentiates through them: :func:`model_copy` and
 :func:`model_psum` are Megatron's f and g over the model axis,
 :func:`all_gather` reduce-scatters its gradient, :func:`psum_scatter`
 all-gathers it, and :func:`reduce_sum` (a loss-level sum) passes it
-through.
+through.  :func:`model_gather` and :func:`model_split` move between a
+model-axis block and the whole of a value every model rank computes alike
+(their gradients take the block and gather the whole), which
+:func:`column_parallel` and :func:`row_parallel` use where the automatic
+layout shards a projection the reference shards (JAX's ``dense_spec``
+rule: the vocab, the recurrent mixers' projections) but the mixer
+between them runs whole on every rank.
 
 Decode caches may shard their length as well (:meth:`ParallelContext.
 for_cache`, the JAX dry run's ``decode_state_specs(seq_axis=)``), and
@@ -416,6 +422,83 @@ def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """A loss-level sum over ``group``: every rank gets the total and
     backpropagates only its own term (identity backward)."""
     return x if group is None else _Reduce.apply(x, group)
+
+
+class _GatherBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        x = x.contiguous()
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        ctx.dim, ctx.block, ctx.me = dim, x.shape[dim], me
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.me * ctx.block, ctx.block), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        block = x.shape[dim] // n
+        return x.narrow(dim, me * block, block).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        parts = [torch.empty_like(g) for _ in range(ctx.n)]
+        dist.all_gather(parts, g, group=ctx.group)
+        return torch.cat(parts, ctx.dim), None, None
+
+
+def model_gather(x: torch.Tensor, dim: int, pctx: ParallelContext) -> torch.Tensor:
+    """The model ranks' blocks of a value concatenated along ``dim`` (an
+    all-gather), for a whole value that every model rank then computes
+    with alike; backward, this rank's block of the gradient, which every
+    rank holds whole (Megatron's gather, the inverse of
+    :func:`model_split`)."""
+    if not pctx.tensor_parallel:
+        return x
+    return _GatherBlock.apply(x, dim % x.dim(), pctx.group)
+
+
+def model_split(x: torch.Tensor, dim: int, pctx: ParallelContext) -> torch.Tensor:
+    """This model rank's block of ``x`` along ``dim`` (equal blocks in rank
+    order), where ``x`` is whole and alike on every model rank; backward,
+    the blocks' gradients gathered, so the whole value's gradient is whole
+    on every rank (Megatron's scatter)."""
+    if not pctx.tensor_parallel:
+        return x
+    return _Split.apply(x, dim % x.dim(), pctx.group)
+
+
+def column_parallel(x: torch.Tensor, ws, full: int,
+                    pctx: ParallelContext) -> list:
+    """``[x @ w for w in ws]``, each product whole.  Where the ``ws`` are
+    this rank's contiguous blocks of their ``full`` columns (the automatic
+    layout's shards), each rank multiplies its blocks (their input under
+    :func:`model_copy`) and one all-gather over the model axis joins the
+    blocks of every product."""
+    if not pctx.tensor_parallel or ws[0].shape[-1] == full:
+        return [x @ w for w in ws]
+    x = model_copy(x, pctx)
+    parts = torch.stack([x @ w for w in ws])
+    return list(model_gather(parts, -1, pctx).unbind(0))
+
+
+def row_parallel(y: torch.Tensor, w: torch.Tensor,
+                 pctx: ParallelContext) -> torch.Tensor:
+    """``y @ w`` for a ``y`` whole on every model rank.  Where ``w`` is this
+    rank's block of rows (the automatic layout's shard), the rank
+    multiplies its block of ``y``'s last dim (:func:`model_split`) and the
+    partial products sum over the model axis (:func:`model_psum`)."""
+    if not pctx.tensor_parallel or w.shape[0] == y.shape[-1]:
+        return y @ w
+    return model_psum(model_split(y, -1, pctx) @ w, pctx)
 
 
 # ---------------------------------------------------------------------------

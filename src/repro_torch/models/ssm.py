@@ -20,7 +20,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import parallel
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import dense_init, fixed_axis_spec, rms_norm
+from repro_torch.models.parallel import LOCAL, ParallelContext
 
 
 def _dims(cfg: ModelConfig):
@@ -66,6 +67,20 @@ def init_ssm_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
     }
 
 
+def mamba_specs(cfg: ModelConfig, mp) -> dict:
+    """The automatic layout's model-axis specs of a Mamba2 mixer, as the
+    JAX package's ``init_mamba`` places them: ``in_proj``'s columns and
+    ``out_proj``'s rows where 16 divides them (``common.fixed_axis_spec``);
+    the rest replicated.  The column cut of the fused [z, x, B, C, dt]
+    projection need not fall on a head, so a rank gathers the whole
+    projection before the mixer (:func:`_split_proj`)."""
+    s, d_inner, _ = _dims(cfg)
+    d = cfg.d_model
+    proj_out = 2 * d_inner + 2 * s.state_dim + s.num_heads
+    return {"in_proj": fixed_axis_spec((d, proj_out), 1, mp),
+            "out_proj": fixed_axis_spec((d_inner, d), 0, mp)}
+
+
 def ssm_state_spec(batch_axis=None, axis: str = "model") -> dict:
     """The state's spec over grid axis ``axis`` (its sharded dim, or None):
     the batch only, as the JAX package's ``ssm_state_spec``."""
@@ -78,9 +93,10 @@ def ssm_state_spec(batch_axis=None, axis: str = "model") -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _split_proj(params, x, cfg: ModelConfig):
-    _, d_inner, conv_ch = _dims(cfg)
-    zxbcdt = x @ params["in_proj"]
+def _split_proj(params, x, cfg: ModelConfig, pctx: ParallelContext = LOCAL):
+    s, d_inner, conv_ch = _dims(cfg)
+    full = 2 * d_inner + 2 * s.state_dim + s.num_heads
+    zxbcdt, = parallel.column_parallel(x, [params["in_proj"]], full, pctx)
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner:d_inner + conv_ch]
     dt = zxbcdt[..., d_inner + conv_ch:].float()                 # (..., H)
@@ -115,9 +131,9 @@ def check_chunks(S: int, chunk: int) -> int:
     return L
 
 
-def _gated_out(params, y, z, cfg: ModelConfig):
+def _gated_out(params, y, z, cfg: ModelConfig, pctx: ParallelContext = LOCAL):
     y = rms_norm(y * F.silu(z), params["norm_w"], cfg.rms_eps)
-    return y @ params["out_proj"]
+    return parallel.row_parallel(y, params["out_proj"], pctx)
 
 
 def _causal_mask(L: int, device) -> torch.Tensor:
@@ -131,14 +147,15 @@ def _causal_mask(L: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def mamba_fullseq(params, x, *, cfg: ModelConfig, return_state: bool = False):
+def mamba_fullseq(params, x, *, cfg: ModelConfig, return_state: bool = False,
+                  pctx: ParallelContext = LOCAL):
     s, d_inner, _ = _dims(cfg)
     Bsz, S, _ = x.shape
     H, Pd, N = s.num_heads, s.head_dim, s.state_dim
     L = check_chunks(S, s.chunk_size)
     C = S // L
 
-    z, xbc_in, dt = _split_proj(params, x, cfg)
+    z, xbc_in, dt = _split_proj(params, x, cfg, pctx)
     xbc = causal_conv(xbc_in, params["conv_w"], params["conv_b"], s.conv_width)
     xs = xbc[..., :d_inner].reshape(Bsz, S, H, Pd)
     Bm = xbc[..., d_inner:d_inner + N]
@@ -184,7 +201,7 @@ def mamba_fullseq(params, x, *, cfg: ModelConfig, return_state: bool = False):
     y = (y_intra.float() + y_inter).reshape(Bsz, S, H, Pd)
     y = y + params["D"][None, None, :, None] * xs.float()
     y = y.reshape(Bsz, S, d_inner).to(x.dtype)
-    out = _gated_out(params, y, z, cfg)
+    out = _gated_out(params, y, z, cfg, pctx)
     if return_state:
         # the conv state is the tail of the pre-activation conv input
         return out, {"ssm": state, "conv": xbc_in[:, -(s.conv_width - 1):, :]}
@@ -196,14 +213,17 @@ def mamba_fullseq(params, x, *, cfg: ModelConfig, return_state: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def mamba_decode(params, x, state, *, cfg: ModelConfig):
+def mamba_decode(params, x, state, *, cfg: ModelConfig,
+                 pctx: ParallelContext = LOCAL):
     """x: (B, 1, d); state: {"ssm": (B,H,P,N) f32, "conv": (B,W-1,Cc)}.
-    Returns (out, new state); ``state`` is not written."""
+    Returns (out, new state); ``state`` is not written.  Under the
+    automatic layout the projections are column- and row-parallel, the
+    state whole on every rank."""
     s, d_inner, _ = _dims(cfg)
     Bsz = x.shape[0]
     H, Pd, N = s.num_heads, s.head_dim, s.state_dim
 
-    z, xbc_new, dt = _split_proj(params, x, cfg)                 # (B,1,*)
+    z, xbc_new, dt = _split_proj(params, x, cfg, pctx)           # (B,1,*)
     window = torch.cat([state["conv"], xbc_new], dim=1)          # (B,W,Cc)
     xbc = conv_step(window, params["conv_w"], params["conv_b"])  # (B,Cc) f32
 
@@ -219,5 +239,5 @@ def mamba_decode(params, x, state, *, cfg: ModelConfig):
     y = torch.einsum("bhpn,bn->bhp", ssm, Cm)
     y = y + params["D"][None, :, None] * xs
     y = y.reshape(Bsz, 1, d_inner).to(x.dtype)
-    out = _gated_out(params, y, z, cfg)
+    out = _gated_out(params, y, z, cfg, pctx)
     return out, {"ssm": ssm, "conv": window[:, 1:, :].to(state["conv"].dtype)}

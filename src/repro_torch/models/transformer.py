@@ -260,7 +260,7 @@ def mlp_specs(cfg: Optional[ModelConfig], mp: Optional[int]) -> dict:
 
 
 def tp_layer_specs(ldef: LayerDef, cfg: ModelConfig, dtype,
-                   mp: Optional[int] = None) -> dict:
+                   mp: Optional[int] = None, automatic: bool = False) -> dict:
     """Spec tree (each leaf's sharded dim, or None) of one layer's params
     over a model axis of ``mp`` ranks, everything else replicated; the
     structure is :func:`init_layer`'s.  Attention (self and cross) follows
@@ -269,7 +269,10 @@ def tp_layer_specs(ldef: LayerDef, cfg: ModelConfig, dtype,
     all: the manual regime's stages, whose divisibility
     :func:`check_tp_divisibility` checks.  MoE's router and shared expert
     stay replicated: their outputs are whole, so only the routed experts'
-    partials are summed."""
+    partials are summed.  ``automatic`` (the automatic layout) also
+    shards a recurrent mixer's projections where the JAX package's
+    ``dense_spec`` does (``ssm.mamba_specs``, ``xlstm.mlstm_specs``,
+    ``xlstm.slstm_specs``); the manual regime replicates them."""
     with dev_lib.OnMeta():              # the layer's layout, no data
         layout = init_layer(torch.Generator(), ldef, cfg, dtype, "cpu")
     specs = tree_map(lambda _: None, layout)
@@ -281,6 +284,10 @@ def tp_layer_specs(ldef: LayerDef, cfg: ModelConfig, dtype,
         specs["ffn"] = mlp_specs(cfg, mp)
     elif ldef.mixer == "attn" and ldef.ffn == "moe":
         specs["ffn"].update(wg=0, wu=0, wd=0)      # the expert dim
+    if automatic and ldef.mixer != "attn":
+        of = {"mamba": ssm_lib.mamba_specs, "mlstm": xlstm_lib.mlstm_specs,
+              "slstm": xlstm_lib.slstm_specs}[ldef.mixer]
+        specs["mixer"].update(of(cfg, mp))
     return specs
 
 
@@ -291,10 +298,10 @@ def _prepend_none(spec_tree):
 
 
 def tp_stage_specs(segments: Sequence[Segment], cfg: ModelConfig, dtype,
-                   mp: Optional[int] = None):
+                   mp: Optional[int] = None, automatic: bool = False):
     """Spec tree of a whole stage's stacked params (the leading repeats dim
     unsharded) over a model axis of ``mp`` ranks (:func:`tp_layer_specs`)."""
-    return [[_prepend_none(tp_layer_specs(ldef, cfg, dtype, mp))
+    return [[_prepend_none(tp_layer_specs(ldef, cfg, dtype, mp, automatic))
              for ldef in seg.unit] for seg in segments]
 
 
@@ -483,7 +490,10 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
     (``attention.head_layout``, ``mlp_specs``) runs whole and is not
     summed.  The kv cache holds the kv heads this rank's attention reads,
     or, under sequence-sharded caches (``pctx.for_cache``), every kv head
-    over this rank's block of the length.  Recurrent mixers replicate.
+    over this rank's block of the length.  A recurrent mixer runs whole
+    on every rank, its projections column- and row-parallel where the
+    automatic layout shards them (``parallel.column_parallel``,
+    ``row_parallel``).
     Where autograd records (a train step across ranks) the sums take
     Megatron's g rule and the sharded blocks' inputs its f
     (``parallel.model_copy``).  ``pending``/``defer_psum`` implement psum
@@ -504,12 +514,12 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
             "slstm": (xlstm_lib.slstm_fullseq, xlstm_lib.slstm_decode),
         }[ldef.mixer]
         if mode == "decode":
-            out, st = decode(p["mixer"], h, cache, cfg=cfg)
+            out, st = decode(p["mixer"], h, cache, cfg=cfg, pctx=pctx)
             for name, leaf in st.items():
                 cache[name].copy_(leaf)
             return x + out, cache, None, None
         out, st = fullseq(p["mixer"], h, cfg=cfg,
-                          return_state=mode == "prefill")
+                          return_state=mode == "prefill", pctx=pctx)
         return x + out, st, None, None
     rope = not cfg.is_encdec          # whisper uses sinusoid embeds, no RoPE
     new_cache = None

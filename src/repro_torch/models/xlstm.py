@@ -21,7 +21,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import parallel
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import dense_init, fixed_axis_spec, rms_norm
+from repro_torch.models.parallel import LOCAL, ParallelContext
 from repro_torch.models.ssm import _causal_mask, causal_conv, check_chunks, \
     conv_step
 
@@ -75,6 +76,20 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
     }
 
 
+def mlstm_specs(cfg: ModelConfig, mp) -> dict:
+    """The automatic layout's model-axis specs of an mLSTM mixer, as the
+    JAX package's ``init_mlstm`` places them: ``up_z``/``up_x`` columns
+    and ``down`` rows where 16 divides d_inner (``common.fixed_axis_spec``);
+    the rest replicated.  A rank gathers both up projections whole before
+    the mixer and multiplies its block of the output by its rows of
+    ``down``."""
+    _, d_inner, _, _ = _mlstm_dims(cfg)
+    d = cfg.d_model
+    return {"up_z": fixed_axis_spec((d, d_inner), 1, mp),
+            "up_x": fixed_axis_spec((d, d_inner), 1, mp),
+            "down": fixed_axis_spec((d_inner, d), 0, mp)}
+
+
 def mlstm_state_spec(batch_axis=None, axis: str = "model") -> dict:
     """The mLSTM state's spec over grid axis ``axis``: the batch only, as
     the JAX package's ``layer_cache_spec``."""
@@ -89,14 +104,16 @@ def _mlstm_gates(params, xi):
     return -F.softplus(-g[..., :H]), -F.softplus(-g[..., H:])
 
 
-def mlstm_fullseq(params, x, *, cfg: ModelConfig, return_state: bool = False):
+def mlstm_fullseq(params, x, *, cfg: ModelConfig, return_state: bool = False,
+                  pctx: ParallelContext = LOCAL):
     xcfg, d_inner, H, Pd = _mlstm_dims(cfg)
     Bsz, S, _ = x.shape
     L = check_chunks(S, xcfg.chunk_size)
     C = S // L
 
-    z = F.silu(x @ params["up_z"])
-    xi_in = x @ params["up_x"]
+    z, xi_in = parallel.column_parallel(x, [params["up_z"], params["up_x"]],
+                                        d_inner, pctx)
+    z = F.silu(z)
     xi = causal_conv(xi_in, params["conv_w"], params["conv_b"], xcfg.conv_width)
     q = (xi @ params["wq"]).reshape(Bsz, S, H, Pd) / math.sqrt(Pd)
     k = (xi @ params["wk"]).reshape(Bsz, S, H, Pd)
@@ -138,19 +155,22 @@ def mlstm_fullseq(params, x, *, cfg: ModelConfig, return_state: bool = False):
     y = num / torch.clamp(den.abs(), min=1.0)[..., None]
     y = y.reshape(Bsz, S, d_inner).to(x.dtype)
     y = rms_norm(y, params["norm_w"], cfg.rms_eps) * z
-    out = y @ params["down"]
+    out = parallel.row_parallel(y, params["down"], pctx)
     if return_state:
         return out, {"C": Cs, "n": ns,
                      "conv": xi_in[:, -(xcfg.conv_width - 1):, :]}
     return out, None
 
 
-def mlstm_decode(params, x, state, *, cfg: ModelConfig):
+def mlstm_decode(params, x, state, *, cfg: ModelConfig,
+                 pctx: ParallelContext = LOCAL):
     """x: (B, 1, d) -> (out, new state); ``state`` is not written."""
     _, d_inner, H, Pd = _mlstm_dims(cfg)
     Bsz = x.shape[0]
-    z = F.silu(x @ params["up_z"])[:, 0]                         # (B,di)
-    window = torch.cat([state["conv"], x @ params["up_x"]], dim=1)
+    z, xi_new = parallel.column_parallel(x, [params["up_z"], params["up_x"]],
+                                         d_inner, pctx)
+    z = F.silu(z)[:, 0]                                          # (B,di)
+    window = torch.cat([state["conv"], xi_new], dim=1)
     xi = conv_step(window, params["conv_w"], params["conv_b"]).to(x.dtype)
 
     q = (xi @ params["wq"]).reshape(Bsz, H, Pd).float() / math.sqrt(Pd)
@@ -167,7 +187,7 @@ def mlstm_decode(params, x, state, *, cfg: ModelConfig):
     den = torch.clamp(torch.einsum("bhp,bhp->bh", n, q).abs(), min=1.0)
     y = (num / den[..., None]).reshape(Bsz, d_inner).to(x.dtype)
     y = rms_norm(y, params["norm_w"], cfg.rms_eps) * z
-    out = (y @ params["down"])[:, None, :]
+    out = parallel.row_parallel(y, params["down"], pctx)[:, None, :]
     return out, {"C": C, "n": n,
                  "conv": window[:, 1:, :].to(state["conv"].dtype)}
 
@@ -177,10 +197,14 @@ def mlstm_decode(params, x, state, *, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def _slstm_ff(d: int) -> int:
+    return max(int(d * 8 / 3) // 64 * 64, 64)
+
+
 def init_slstm(gen, cfg: ModelConfig, dtype, device) -> dict:
     H, Pd = _slstm_dims(cfg)
     d = cfg.d_model
-    d_ff = max(int(d * 8 / 3) // 64 * 64, 64)
+    d_ff = _slstm_ff(d)
     f32 = torch.float32
     return {
         "w_in": dense_init(gen, d, 4 * d, f32, device),          # i,f,z,o pre-acts
@@ -200,6 +224,17 @@ def init_slstm_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
     zeros = lambda: torch.zeros((batch, H, Pd), dtype=torch.float32,
                                 device=device)
     return {"c": zeros(), "n": zeros(), "h": zeros(), "m": zeros() - 10.0}
+
+
+def slstm_specs(cfg: ModelConfig, mp) -> dict:
+    """The automatic layout's model-axis specs of an sLSTM mixer, as the
+    JAX package's ``init_slstm`` places them: its MLP's ``w_ff1`` columns
+    and ``w_ff2`` rows where 16 divides d_ff (``common.fixed_axis_spec``),
+    a Megatron MLP; the recurrence's weights replicated."""
+    d = cfg.d_model
+    ff = _slstm_ff(d)
+    return {"w_ff1": fixed_axis_spec((d, ff), 1, mp),
+            "w_ff2": fixed_axis_spec((ff, d), 0, mp)}
 
 
 def slstm_state_spec(batch_axis=None, axis: str = "model") -> dict:
@@ -224,12 +259,19 @@ def _slstm_step(params, carry, pre, H: int, Pd: int):
     return (c, n, h, m_new), h
 
 
-def _slstm_out(params, h, x, cfg: ModelConfig):
+def _slstm_out(params, h, x, cfg: ModelConfig, pctx: ParallelContext):
+    """The norm of the cell output and its MLP; a sharded MLP (the
+    automatic layout) runs its d_ff block and sums over the model axis."""
     y = rms_norm(h.reshape(x.shape).to(x.dtype), params["norm_w"], cfg.rms_eps)
-    return y + F.gelu(y @ params["w_ff1"], approximate="tanh") @ params["w_ff2"]
+    w1, w2 = params["w_ff1"], params["w_ff2"]
+    if not pctx.tensor_parallel or w1.shape[1] == _slstm_ff(cfg.d_model):
+        return y + F.gelu(y @ w1, approximate="tanh") @ w2
+    part = F.gelu(parallel.model_copy(y, pctx) @ w1, approximate="tanh") @ w2
+    return y + parallel.model_psum(part, pctx)
 
 
-def slstm_fullseq(params, x, *, cfg: ModelConfig, return_state: bool = False):
+def slstm_fullseq(params, x, *, cfg: ModelConfig, return_state: bool = False,
+                  pctx: ParallelContext = LOCAL):
     H, Pd = _slstm_dims(cfg)
     Bsz, S, _ = x.shape
     pre = x.float() @ params["w_in"] + params["b"]               # (B,S,4d)
@@ -239,16 +281,17 @@ def slstm_fullseq(params, x, *, cfg: ModelConfig, return_state: bool = False):
     for t in range(S):
         carry, h = _slstm_step(params, carry, pre[:, t], H, Pd)
         hs.append(h)
-    y = _slstm_out(params, torch.stack(hs, dim=1), x, cfg)
+    y = _slstm_out(params, torch.stack(hs, dim=1), x, cfg, pctx)
     if return_state:
         return y, dict(zip(("c", "n", "h", "m"), carry))
     return y, None
 
 
-def slstm_decode(params, x, state, *, cfg: ModelConfig):
+def slstm_decode(params, x, state, *, cfg: ModelConfig,
+                 pctx: ParallelContext = LOCAL):
     """x: (B, 1, d) -> (out, new state); ``state`` is not written."""
     H, Pd = _slstm_dims(cfg)
     pre = x[:, 0].float() @ params["w_in"] + params["b"]
     carry = tuple(state[k] for k in ("c", "n", "h", "m"))
     carry, h = _slstm_step(params, carry, pre, H, Pd)
-    return _slstm_out(params, h, x, cfg), dict(zip(("c", "n", "h", "m"), carry))
+    return _slstm_out(params, h, x, cfg, pctx), dict(zip(("c", "n", "h", "m"), carry))

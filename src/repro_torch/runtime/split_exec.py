@@ -9,10 +9,11 @@ logits, tokens and caches, while the simulator's durations come from
 :class:`SplitModelBank` holds ONE backbone param tree; every candidate
 split's edge/cloud halves run views of its stacked layer params
 (``models/transformer.slice_stage_params``), so only the per-split
-butterfly projections are materialised per candidate.  The int8 wire runs
-through the butterfly unit's fused wrappers (``core/butterfly.py`` ->
-``kernels/ops.py``): the Hopper kernels on the card, their plain versions on
-the CPU.  The unfused codec runs only in :meth:`SplitRunner.reference_prefill`.
+butterfly projections are materialised per candidate.  The quantized
+wires (int8, int4 and entropy at ``wire_bits`` 8, or 16-bit codes at
+``wire_bits=16``) run through the butterfly unit's fused wrappers
+(``core/butterfly.py`` -> ``kernels/ops.py``): the Hopper kernels on the
+card (their int16 variants at 16 bits), their plain versions on the CPU.  The unfused codec runs only in :meth:`SplitRunner.reference_prefill`.
 
 Each half runs at a model-axis degree (``edge_mp``, ``cloud_mp``).  The JAX
 bank wraps a degree-``mp`` half in a ``shard_map`` over ``mp`` devices; the
@@ -223,14 +224,16 @@ class SplitModelBank:
     ``params``/``butterfly`` take ready trees (``butterfly`` maps split ->
     {"w_reduce", "w_restore"}), which is how ``repro_torch.bridge`` feeds
     JAX weights in; otherwise the bank initialises on ``device`` from
-    ``seed``.  ``edge_mp``/``cloud_mp`` are the default model-axis degrees
+    ``seed``.  ``wire_bits`` is the quantized wires' code width, as in the
+    JAX bank: 8, or 16 for int16 codes (2 B a code; "int4" always
+    quantizes to 4 bits).  ``edge_mp``/``cloud_mp`` are the default model-axis degrees
     of the halves (a runner may override them per half); a degree above 1
     runs on that many ranks (see the module note).  ``profiler`` (a
     ``runtime.metrics.JitProfiler``) times every keyed dispatch of the bank
     and of its engines."""
 
-    def __init__(self, base_cfg, d_r: int, *, wire_mode: str = "int8",
-                 seed: int = 0, device="cuda", params: Optional[dict] = None,
+    def __init__(self, base_cfg, d_r: int, *, wire_bits: int = 8,
+                 wire_mode: str = "int8", seed: int = 0, device="cuda", params: Optional[dict] = None,
                  butterfly: Optional[Dict[int, dict]] = None,
                  edge_mp: int = 1, cloud_mp: int = 1, profiler=None):
         self.device = dev_lib.resolve(device)
@@ -259,6 +262,7 @@ class SplitModelBank:
             base_cfg = dataclasses.replace(base_cfg, butterfly=None)
         self.base_cfg = base_cfg
         self.d_r = d_r
+        self.wire_bits = wire_bits
         self.wire_mode = wire_mode
         self.seed = seed
         self.edge_mp = int(edge_mp)
@@ -279,9 +283,10 @@ class SplitModelBank:
         self._seq_bucket_ok = all(d.mixer == "attn" and d.window is None
                                   and not d.cross for d in self._defs)
         self._batch_bucket_ok = all(d.ffn != "moe" for d in self._defs)
-        # the fused codec emits int8 codes: the int8 wire, and the int4 wire
-        # as codes in [-8, 7] packed two to a byte after the kernel
-        self.wire_eff_bits = 4 if wire_mode == "int4" else 8
+        # the effective code width: int4 quantizes to codes in [-8, 7],
+        # packed two to a byte after the kernel, whatever wire_bits says;
+        # the fused codec emits int8 codes up to 8 bits and int16 at 16
+        self.wire_eff_bits = 4 if wire_mode == "int4" else wire_bits
         self.row_block = ROW_BLOCK
         self._wire_sig = (wire_mode, self.wire_eff_bits, self.row_block)
 

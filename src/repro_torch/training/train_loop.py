@@ -60,10 +60,10 @@ def make_loss_fn(built: M.BuiltModel, pctx: ParallelContext = LOCAL,
     rate_weight = bf.rate_weight if bf is not None else 0.0
 
     def loss_fn(params, batch):
-        logits, aux = M.forward_train(params, built, batch, pctx, use_kernel)
         # next-token objective: batch["targets"] is already shifted by the
-        # data pipeline (targets[t] = tokens[t+1], -1 where masked)
-        loss = M.lm_loss(logits, batch["targets"], pctx=pctx)
+        # data pipeline (targets[t] = tokens[t+1], -1 where masked); a
+        # vocab-sharded head's logits stay blocks, and the loss is taken on them
+        loss, aux = M.forward_loss(params, built, batch, pctx, use_kernel)
         rate = aux["wire_rate_bits"]
         total = loss + aux["load_balance"] + aux["router_z"] + rate_weight * rate
         metrics = {"loss": loss, "load_balance": aux["load_balance"],

@@ -12,7 +12,11 @@ whole tensors; ``global_norm`` over each rank's shards to the norm of the
 whole tree; a dense model's train step across ranks to the local step on
 the whole batch (the same numbers: only MoE's per-shard capacity changes
 them), with one row's targets masked, under ``remat`` and ``accum_steps``
-too, and with a batch smaller than the data axes.
+too, and with a batch smaller than the data axes.  The recurrent families
+at (data=2, model=2), whose vocab and mixer projections the layout shards
+(zamba2 with 16 heads of 16, so that its fused ``in_proj`` shards off a
+head boundary, and xLSTM), against the local run: the logits of
+``forward_train``, a prefill and two decode steps, and two train steps.
 """
 import dataclasses
 
@@ -151,7 +155,10 @@ def test_input_specs():
 def test_param_specs(monkeypatch):
     built = M.build(get_config("qwen3-moe-235b-a22b").reduced())
     specs = M.param_specs(built)
-    assert specs["model"] == M.tp_param_specs(built) and specs["pod"] is None
+    # the manual regime's layout, with the vocab sharded as JAX's
+    # dense_spec shards it (16 divides the reduced vocab of 512)
+    assert specs["model"] == dict(M.tp_param_specs(built), embed=0, head=0)
+    assert specs["pod"] is None
     for stage in specs["data"]["stages"]:
         for unit in stage:
             assert unit == [{"ffn": {"wg": 3, "wu": 3, "wd": 2}}]
@@ -161,7 +168,9 @@ def test_param_specs(monkeypatch):
     shard = parallel.shard_grid(params, specs, grid, rank=3)
     got = shard["stages"][0][0][0]["ffn"]["wg"]
     assert torch.equal(got, wg[:, 2:4, :, 64:128])
-    assert shard["embed"] is params["embed"]
+    V = built.cfg.vocab_size
+    assert torch.equal(shard["embed"], params["embed"][V // 2:])      # model 1
+    assert shard["final_norm"] is params["final_norm"]
     monkeypatch.setattr(moe, "EXPERTS_OVER_POD", True)
     specs = M.param_specs(built)
     assert specs["pod"]["stages"][0][0][0] == {"ffn": {"wg": 1, "wu": 1, "wd": 1}}
@@ -208,6 +217,35 @@ def _moe_built():
     return M.build(cfg)
 
 
+def _recurrent():
+    """zamba2 (Mamba2 with in_proj's 560 columns and out_proj's 256 rows
+    sharded, the shared block's attention and MLP) and xLSTM (mLSTM's
+    up/down and the sLSTM MLP sharded), reduced, in f32."""
+    z = get_config("zamba2-7b").reduced()
+    z = dataclasses.replace(z, dtype="float32", ssm=dataclasses.replace(
+        z.ssm, num_heads=16, head_dim=16))
+    x = dataclasses.replace(get_config("xlstm-125m").reduced(), dtype="float32")
+    return {"zamba2": M.build(z), "xlstm": M.build(x)}
+
+
+def _recurrent_runs(built, params, batch, pctx):
+    """forward_train's logits, a prefill's and two decode steps' logits
+    (each this rank's block of the batch), and two train steps' metrics."""
+    toks = batch["tokens"]
+    out = {"train": M.forward_train(params, built, {"tokens": toks}, pctx)[0]}
+    logits, caches = M.forward_prefill(params, built, {"tokens": toks}, pctx)
+    caches = M.pad_decode_caches(built, caches, toks.shape[1] + 2, pctx)
+    steps = [logits]
+    for i in range(2):
+        tok = steps[-1][:, -1].argmax(-1, keepdim=True)
+        logits, caches = M.forward_decode(params, built, tok, caches,
+                                          toks.shape[1] + i, pctx)
+        steps.append(logits)
+    out["serve"] = torch.stack(steps)
+    out["steps"] = _steps(built, params, batch, pctx)[0]
+    return out
+
+
 def _train_batch(vocab, rows=4, seq=16):
     rng = np.random.default_rng(5)
     toks = rng.integers(0, vocab, (rows, seq + 1))
@@ -245,6 +283,21 @@ def _collective_grads(pctx):
     x = X.clone().requires_grad_()
     (C[rank] * parallel.model_copy(x, pctx)).sum().backward()
     out["model_copy"] = x.grad
+    # the gather and split of a value alike on every model rank: the same
+    # downstream on every rank
+    m, mi = grid.axis_size("model"), grid.index("model")
+    cols = 3 * m
+    W = torch.randn(8, cols, generator=gen)
+    x = W[:, mi * 3:(mi + 1) * 3].clone().requires_grad_()
+    y = parallel.model_gather(x, -1, pctx)
+    assert torch.equal(y, W)
+    (C[0].repeat(1, m) * y).sum().backward()
+    out["model_gather"] = x.grad
+    x = W.clone().requires_grad_()
+    y = parallel.model_split(x, -1, pctx)
+    assert torch.equal(y, W[:, mi * 3:(mi + 1) * 3])
+    parallel.model_psum((C[0] * y).sum(), pctx).backward()
+    out["model_split"] = x.grad
     p = P[rank].clone().requires_grad_()
     y = parallel.model_psum(p, pctx)
     assert torch.allclose(y, P[grid.members("model", rank)].sum(0))
@@ -314,6 +367,11 @@ def _rank(rank, device, dense_params, grads):
     small = {k: v[:1] for k, v in batch.items()}
     out["small"] = _steps(built, mine, shard_batch(small, pctx, device="cpu"),
                           pctx.for_batch(1))[0]
+    for name, rb in _recurrent().items():
+        params = M.init_model(torch.Generator().manual_seed(2), rb, device="cpu")
+        mine = parallel.shard_grid(params, M.param_specs(rb, grid), grid)
+        block = shard_batch(_train_batch(rb.cfg.vocab_size), pctx, device="cpu")
+        out[name] = _recurrent_runs(rb, mine, block, pctx)
     return out
 
 
@@ -346,10 +404,15 @@ def _want_collectives(grid):
         # f: each model rank weighs the one x by its own C
         xf = X.clone().requires_grad_()
         sum((C[q] * xf).sum() for q in model).backward()
+        # the gather's input is rank r's block of W, its gradient that
+        # block of C[0] tiled; the split's, the whole C[0] tiled
+        m, mi = grid.axis_size("model"), grid.index("model", r)
         want.append({"all_gather": xg.grad[d * rows:(d + 1) * rows],
                      "psum_scatter": ps.grad[r],
                      "model_copy": xf.grad,
                      "model_psum": C[0],
+                     "model_gather": C[0].repeat(1, m)[:, mi * 3:(mi + 1) * 3],
+                     "model_split": C[0].repeat(1, m),
                      "reduce_sum": C[r]})
     return want
 
@@ -431,3 +494,36 @@ def test_train_step_across_ranks_equals_local(ranks, variant):
             for k in ("loss", "wire_rate_bits", "total", "grad_norm"):
                 assert got[k] == pytest.approx(w[k], rel=rel), (variant, i, k)
         assert o[variant] == dm[0][variant]
+
+
+@pytest.mark.subprocess
+@pytest.mark.parametrize("name", ["zamba2", "xlstm"])
+def test_recurrent_shards_across_ranks_equal_local(ranks, name):
+    """The recurrent families with their vocab and mixer projections
+    sharded over model (column-parallel in, the mixer whole, row-parallel
+    out) at (data=2, model=2), against the local run on the whole batch:
+    forward_train's logits and a prefill's and two decode steps' within
+    1e-5 of the largest (sums in another order), the same greedy tokens,
+    and two train steps' losses, totals and grad norms within rtol 1e-5,
+    as the dense steps are held."""
+    _, _, dm = ranks
+    built = _recurrent()[name]
+    specs = M.param_specs(built, parallel.RankGrid(*GRIDS["dm"]))["model"]
+    mixers = [u["mixer"] for u in specs["stages"][0][0] if "mixer" in u]
+    assert specs["embed"] == 0 and any(
+        v is not None for m in mixers for v in m.values())
+    params = M.init_model(torch.Generator().manual_seed(2), built, device="cpu")
+    batch = shard_batch(_train_batch(built.cfg.vocab_size), device="cpu")
+    want = _recurrent_runs(built, params, batch, parallel.LOCAL)
+    for r, o in enumerate(dm):
+        got = o[name]
+        rows = slice(2 * (r // 2), 2 * (r // 2) + 2)        # the data block
+        for key, sl in (("train", (rows,)), ("serve", (slice(None), rows))):
+            w = want[key][sl]
+            torch.testing.assert_close(got[key], w, rtol=0,
+                                       atol=1e-5 * max(1.0, float(w.abs().max())))
+        assert torch.equal(got["serve"][..., -1, :].argmax(-1),
+                           want["serve"][:, rows, -1].argmax(-1))
+        for g, w in zip(got["steps"], want["steps"]):
+            for k in ("loss", "total", "grad_norm"):
+                assert g[k] == pytest.approx(w[k], rel=1e-5), (name, r, k)

@@ -33,7 +33,15 @@ weights through ``repro_torch.bridge``, take their shards
   * (d) 3 steps of ``make_train_step(built, opt, pctx)``, JAX's jitted with
     the dry run's param, optimizer and batch shardings, for the same two
     configs with a butterfly and its rate term, one row's targets masked
-    (the loss is the global masked mean).
+    (the loss is the global masked mean);
+  * (e) the layout of the leaves JAX's ``dense_spec`` shards by
+    divisibility alone (the embedding's and LM head's vocab, Mamba2's
+    ``in_proj``/``out_proj``, xLSTM's ``up_z``/``up_x``/``down`` and the
+    sLSTM MLP's ``w_ff1``/``w_ff2``), for reduced dense qwen3, tied gemma3,
+    zamba2 with 16 heads of 16 (a fused ``in_proj`` cut off its heads) and
+    xLSTM: each rank's block from ``param_specs(built, grid)`` equals the
+    ``addressable_shards`` of JAX's params placed with ``init_model``'s
+    specs, bit for bit (no rank spawned).
 
 Bounds: f32 outputs and logits within atol 1e-5 * max(1, max|ref|); the
 experts chosen for every token, and the greedy ids, identical; the aux
@@ -86,6 +94,14 @@ def model_cfg(get_config, kind, train):
     if c.moe is not None:
         c = dataclasses.replace(c, moe=dataclasses.replace(c.moe, num_experts=4, top_k=2))
     return c.with_butterfly(1, 16, rate_weight=0.01) if train else c
+def layout_cfgs(get_config):
+    z = get_config("zamba2-7b").reduced()
+    z = dataclasses.replace(z, ssm=dataclasses.replace(z.ssm, num_heads=16, head_dim=16))
+    return {"dense": model_cfg(get_config, "dense", False),
+            "gemma3": get_config("gemma3-12b").reduced(), "zamba2": z,
+            "xlstm": get_config("xlstm-125m").reduced()}
+GAP2 = ("['embed']", "['head']", "['in_proj']", "['out_proj']", "['up_z']",
+        "['up_x']", "['down']", "['w_ff1']", "['w_ff2']")
 """
 exec(CFG_CODE)
 
@@ -225,6 +241,20 @@ for kind in ("dense", "moe"):
     trees[f"stepped/{kind}"] = host(params)
     trees[f"near0/{kind}"] = near0
     trees[f"metrics/{kind}"] = metrics
+
+# (e): the leaves dense_spec shards, as each device of the (data, model)
+# mesh holds them (device i of the mesh is rank i)
+rank_of = {d.id: i for i, d in enumerate(mesh.devices.reshape(-1))}
+for name, cfg in layout_cfgs(get_config).items():
+    params, pspecs = JM.init_model(jax.random.key(4), JM.build(cfg))
+    trees[f"layout/{name}"] = host(params)
+    placed = jax.device_put(params, sh(mesh, pspecs))
+    for path, leaf in jax.tree_util.tree_flatten_with_path(placed)[0]:
+        key = jax.tree_util.keystr(path)
+        if key.endswith(GAP2):
+            for part in leaf.addressable_shards:
+                refs[f"layout/{name}/{key}/{rank_of[part.device.id]}"] = \
+                    np.asarray(part.data)
 np.savez(os.path.join(out, "refs.npz"), **refs)
 with open(os.path.join(out, "weights.pkl"), "wb") as f:
     pickle.dump(trees, f)
@@ -438,3 +468,39 @@ def test_train_steps_match_jax(runs, kind):
             np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=2 * 1e-3 * STEPS)
     losses = [m["loss"] for m in ranks["dm"][0][f"metrics/{kind}"]]
     assert losses[-1] < losses[0]
+
+
+def _paths(tree, prefix=""):
+    """A tree's leaves by ``jax.tree_util.keystr``'s path strings."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree
+                for k, v in _paths(tree[key], f"{prefix}['{key}']").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, t in enumerate(tree)
+                for k, v in _paths(t, f"{prefix}[{i}]").items()}
+    return {} if tree is None else {prefix: tree}
+
+
+@pytest.mark.subprocess
+@pytest.mark.parametrize("name", ("dense", "gemma3", "zamba2", "xlstm"))
+def test_dense_spec_leaves_match_jax_shards(runs, name):
+    """Each rank's block of every leaf JAX's ``dense_spec`` shards by
+    divisibility alone equals that device's ``addressable_shards`` of
+    JAX's params, and at least one of them is a real shard (half the
+    leaf) in every config."""
+    refs, trees, _ = runs
+    grid = parallel.RankGrid(*LAYOUTS["dm"])
+    built = TM.build(layout_cfgs(get_config)[name])
+    params = _paths(bridge.to_torch(trees[f"layout/{name}"], device="cpu"))
+    sharded = 0
+    for r in range(grid.size):
+        mine = _paths(parallel.shard_grid(
+            bridge.to_torch(trees[f"layout/{name}"], device="cpu"),
+            TM.param_specs(built, grid), grid, rank=r))
+        keys = [k for k in mine if k.endswith(GAP2)]
+        assert keys
+        for k in keys:
+            want = refs[f"layout/{name}/{k}/{r}"]
+            assert np.array_equal(mine[k].numpy(), want), (name, k, r)
+            sharded += mine[k].numel() < params[k].numel()
+    assert sharded

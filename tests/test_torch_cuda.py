@@ -140,6 +140,55 @@ def test_kernels_match_plain(cuda, T, d, d_r, dtype):
     torch.testing.assert_close(out, out_p, **tol)
 
 
+# the int16 variants (the 16-bit wire): reduce_quant's int16 store at every
+# body (f32 and bf16, both row tiles, split-K on and off) and the restore's
+# CUDA-core walk in f32 and bf16, past 48 KB of shared memory at d_r = 1024
+@pytest.mark.parametrize("T", [1, 4, 33, 128, 1025, 2048])
+@pytest.mark.parametrize("d,d_r,dtype", [(4096, 64, torch.bfloat16),
+                                         (3840, 60, torch.bfloat16),
+                                         (256, 16, torch.float32),
+                                         (64, 64, torch.bfloat16),
+                                         (128, 32, torch.float32),
+                                         (256, 1024, torch.float32),
+                                         (256, 1024, torch.bfloat16),
+                                         (1001, 33, torch.bfloat16)])
+def test_int16_kernels_match_plain(cuda, T, d, d_r, dtype):
+    """At 15 bits a step is 1/32,767 of the row's absmax, so the kernel's
+    other order of f32 sums moves a code by 1 far more often than at int8:
+    codes within 1 (no bound on the share), scales within rtol 1e-5, and
+    the restore of the same codes as the int8 restore's bounds hold it."""
+    x, w = (t.to(cuda) for t in _inputs(T, d, d_r, dtype, seed=T + 16))
+    n0 = butterfly_kernel.reduce_quant.launches
+    codes, scales = ops.butterfly_reduce_quant(x, w, bits=16)
+    assert butterfly_kernel.reduce_quant.launches == n0 + 1
+    codes_p, scales_p = ref.butterfly_reduce_quant_ref(x, w, 16)
+    assert codes.dtype == codes_p.dtype == torch.int16
+    assert int((codes.int() - codes_p.int()).abs().max()) <= 1
+    torch.testing.assert_close(scales, scales_p, rtol=1e-5, atol=0)
+    wr = w.t().contiguous()
+    n0 = butterfly_kernel.dequant_restore.launches
+    out = ops.butterfly_dequant_restore(codes_p, scales_p, wr, out_dtype=dtype)
+    assert butterfly_kernel.dequant_restore.launches == n0 + 1
+    out_p = ref.butterfly_dequant_restore_ref(codes_p, scales_p, wr, dtype)
+    if dtype == torch.float32 and d_r > 64:
+        r64 = (codes_p.float() * scales_p).double()
+        exact = r64 @ wr.double()
+        bound = 1.01 * d_r * 2 ** -24 * (r64.abs() @ wr.double().abs())
+        for o in (out, out_p):
+            assert bool(((o.double() - exact).abs() <= bound).all())
+    else:
+        tol = dict(rtol=2 ** -7, atol=1e-3) if dtype == torch.bfloat16 else \
+            dict(rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(out, out_p, **tol)
+    # the bincount and restore+norm kernels take int8 codes only
+    with pytest.raises(ValueError):
+        butterfly_kernel.reduce_quant_bincount(x, w, bits=16)
+    with pytest.raises(TypeError):
+        butterfly_kernel.dequant_restore_norm(
+            codes_p, scales_p, wr, torch.zeros(d, dtype=dtype, device=cuda),
+            out_dtype=dtype)
+
+
 # the bincount variant of every compiled reduce_quant variant (each channel
 # width in f32 and bf16, both bf16 row tiles, split-K on and off), at both
 # widths of the code alphabet: codes and scales bit for bit reduce_quant's,
@@ -202,8 +251,8 @@ def test_kernel_wrappers_refuse_bad_input(cuda):
     with pytest.raises(TypeError):                               # out != w dtype
         butterfly_kernel.dequant_restore(codes, scales, w.t().contiguous(),
                                          torch.bfloat16)
-    with pytest.raises(ValueError):                              # wider than int8
-        ops.butterfly_reduce_quant(x, w, bits=16)
+    with pytest.raises(ValueError):                     # neither int8 nor int16
+        ops.butterfly_reduce_quant(x, w, bits=12)
     with pytest.raises(ValueError):
         ops.butterfly_reduce_quant_bincount(x, w, bits=16)
     with pytest.raises(TypeError):

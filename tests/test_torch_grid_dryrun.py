@@ -208,12 +208,11 @@ def test_every_assigned_arch_takes_a_layout_at_model_16(arch, monkeypatch):
 
 
 def test_seq_sharded_decode_refuses_ragged_positions_and_uneven_blocks():
-    """Over sequence-sharded caches the rows decode one position (an int
-    or a 0-d tensor): a (B,) position raises; so does a capacity the
-    sequence group does not divide, and a context that is not
-    automatic."""
+    """The name is from when a (B,) position raised over sequence-sharded
+    caches; ragged rows decode there now (``test_torch_seq_decode_jax.py``
+    holds them to JAX).  A capacity the sequence group does not divide
+    still raises, and so does a context that is not automatic."""
     from repro_torch.configs import get_config
-    from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tfm
     built = M.build(get_config("qwen3-8b").reduced())
     cfg = built.cfg
@@ -223,16 +222,25 @@ def test_seq_sharded_decode_refuses_ragged_positions_and_uneven_blocks():
     with parallel.fake_world(grid, 1):
         pctx = parallel.make_context(grid).for_cache("model")
         assert (pctx.seq_axes, pctx.seq_rank, pctx.seq_size) == (("model",), 1, 2)
-        params = parallel.shard_grid(dryrun.init_params(built),
-                                     M.param_specs(built, grid), grid)
-        mixer = params["stages"][0][0][0]["mixer"]
-        mixer = {k: v[0] for k, v in mixer.items()}
-        x = torch.empty((2, 1, cfg.d_model), device="meta")
-        kv = attn.init_kv_cache(cfg, 2, 8, torch.float32, "meta")
-        with pytest.raises(ValueError, match="aligned"):
-            attn.attention_decode(mixer, x, kv, torch.tensor([3, 4]), cfg=cfg,
-                                  window=None, pctx=pctx)
         caches = [tfm.init_stage_cache(list(built.stages[0]), cfg, 2, 10,
                                        torch.float32, "meta")]
         with pytest.raises(ValueError, match="does not split"):
             M.pad_decode_caches(built, caches, 33, pctx)
+
+
+def test_vocab_leaves_leave_the_production_rank():
+    """At the 16x16 grid full-width qwen3-8b's embedding and LM head shard
+    their vocab over model (JAX's dense_spec: 16 divides 151,936), so a
+    rank's parameter bytes fall by 15/16 of the two tables' 2.49 GB
+    against the layout that replicated them."""
+    from repro_torch.launch.mesh import make_production_mesh
+    built = M.build(get_config("qwen3-8b"))
+    grid = make_production_mesh()
+    params = dryrun.init_params(built)
+    specs = M.param_specs(built, grid)
+    assert specs["model"]["embed"] == specs["model"]["head"] == 0
+    replicated = dict(specs, model=dict(specs["model"], embed=None, head=None))
+    V, d = built.cfg.vocab_size, built.cfg.d_model
+    tables = 2 * V * d * 2                                   # bf16
+    assert _block_bytes(params, replicated, grid) - \
+        _block_bytes(params, specs, grid) == tables - tables // 16

@@ -146,3 +146,22 @@ def test_ragged_decode_positions_match_jax():
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-4)
     for a, b in zip(tree_leaves(_np(tc)), jax.tree.leaves(jc)):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=1e-4)
+
+
+def test_kernel_prefill_with_16_bit_wire_matches_jax():
+    """forward_prefill(use_kernel=True) under a 16-bit butterfly: the port's
+    fused wire quantizes to int16 codes (the kernels' int16 variants on the
+    card, their plain versions here), where JAX's fused codec stops at 8
+    bits and its kernel prefill takes the unfused 16-bit wire.  The f32
+    products sum in different orders, so a code may land one step (1/32,767
+    of its row's absmax) apart: the same greedy tokens, and logits within
+    1e-4."""
+    jbuilt, jparams, tbuilt, tparams = _models((2, 16, 16))
+    assert tbuilt.cfg.butterfly.wire_bits == 16
+    toks = np.random.default_rng(5).integers(0, 512, (2, 64)).astype(np.int32)
+    jl, _ = JM.forward_prefill(jparams, jbuilt, {"tokens": jnp.asarray(toks)},
+                               use_kernel=True)
+    tl, _ = TM.forward_prefill(tparams, tbuilt, {"tokens": torch.from_numpy(toks)},
+                               use_kernel=True)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-4)
+    assert np.array_equal(tl.numpy().argmax(-1), np.asarray(jl).argmax(-1))

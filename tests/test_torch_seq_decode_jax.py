@@ -23,6 +23,14 @@ rule picks at a model axis of 2:
   * zamba2: Mamba2 state beside the shared attention block;
   * whisper: cross attention over replicated-batch encoder caches.
 
+The kv-replicated and ring cases also decode ragged rows from the same
+prefill under the ``model``-sharded caches: row b at position ``20 + step
++ OFFSETS[b]``, offsets (0, -7, 3, -9) (the serving engine's ragged
+decode).  Each data block's two rows then write slots in different blocks
+of the length, in the global caches (16 slots a block: positions 11-25)
+and on the ring (8 slots a block: slots 4-15), and on the ring at
+different ages.
+
 Bounds: logits within atol 1e-5 * max(1, max|ref|), the greedy ids
 identical, each rank's block of every cache leaf (cut from JAX's final
 caches by ``decode_state_specs``' specs) within the same bound.  Then 3
@@ -55,6 +63,10 @@ CASES = {"kv_replicated": ("qwen3-8b", {"num_kv_heads": 1}),
          "zamba2": ("zamba2-7b", {}),
          "whisper": ("whisper-base", {})}
 SEQS = {"m": ("model", 4), "dm": (("data", "model"), 1)}
+# the cases that also decode ragged rows over the "model"-sharded caches,
+# and each row's offset from the aligned position
+RAGGED = ("kv_replicated", "ring")
+OFFSETS = (0, -7, 3, -9)
 GRID = ((2, 2), ("data", "model"))
 PROMPT, CAP, STEPS, TRAIN_STEPS, TRAIN_B, TRAIN_S = 20, 32, 3, 3, 4, 16
 
@@ -83,7 +95,8 @@ from repro.training.optimizer import AdamWConfig, adamw_init, cosine_schedule
 from repro.training.train_loop import make_loss_fn, make_train_step
 
 out = sys.argv[1]
-CASES, SEQS = eval(sys.argv[2]), eval(sys.argv[3])
+CASES, SEQS, RAGGED = eval(sys.argv[2]), eval(sys.argv[3]), eval(sys.argv[10])
+OFFSETS = np.asarray(eval(sys.argv[11]))
 PROMPT, CAP, STEPS, TRAIN_STEPS, TRAIN_B, TRAIN_S = map(int, sys.argv[4:10])
 mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
 pctx = make_context(mesh)
@@ -137,16 +150,22 @@ for name, (arch, over) in CASES.items():
                                     sh(cspecs), None),
                       out_shardings=(None, sh(cspecs)))
         caches = pad(built, caches)
-        tok = np.asarray(logits)[:, -1].argmax(-1)[:, None].astype(np.int32)
-        steps, ids = [], []
-        for i in range(STEPS):
-            lg, caches = dec(params, tok, caches, jnp.asarray(PROMPT + i, jnp.int32))
-            steps.append(np.asarray(lg))
-            tok = np.asarray(lg)[:, -1].argmax(-1)[:, None].astype(np.int32)
-            ids.append(tok[:, 0])
-        refs[f"{key}/decode"] = np.stack(steps)
-        refs[f"{key}/ids"] = np.stack(ids)
-        trees[f"{key}/caches"] = host(caches)
+        first = np.asarray(logits)[:, -1].argmax(-1)[:, None].astype(np.int32)
+        runs = [("", caches, 0)]
+        if kind == "m" and name in RAGGED:
+            runs.append(("/ragged", caches, 1))
+        for tag, caches, ragged in runs:
+            tok = first
+            steps, ids = [], []
+            for i in range(STEPS):
+                pos = PROMPT + i + OFFSETS if ragged else PROMPT + i
+                lg, caches = dec(params, tok, caches, jnp.asarray(pos, jnp.int32))
+                steps.append(np.asarray(lg))
+                tok = np.asarray(lg)[:, -1].argmax(-1)[:, None].astype(np.int32)
+                ids.append(tok[:, 0])
+            refs[f"{key}{tag}/decode"] = np.stack(steps)
+            refs[f"{key}{tag}/ids"] = np.stack(ids)
+            trees[f"{key}{tag}/caches"] = host(caches)
 
 # three train steps of the kv-replicated layout
 built = JM.build(case_cfg(get_config, *CASES["kv_replicated"]).with_butterfly(1, 16, rate_weight=0.01))
@@ -184,7 +203,8 @@ def _references(tmp: str):
     env.pop("XLA_FLAGS", None)
     res = subprocess.run(
         [sys.executable, "-c", JAX_CODE, tmp, repr(CASES), repr(SEQS),
-         *map(str, (PROMPT, CAP, STEPS, TRAIN_STEPS, TRAIN_B, TRAIN_S))],
+         *map(str, (PROMPT, CAP, STEPS, TRAIN_STEPS, TRAIN_B, TRAIN_S)),
+         repr(RAGGED), repr(OFFSETS)],
         env=env, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0 and "REFS_OK" in res.stdout, res.stderr[-3000:]
     refs = dict(np.load(os.path.join(tmp, "refs.npz")))
@@ -220,18 +240,28 @@ def _rank(rank, device, refs, trees):
                 logits, caches = TM.forward_prefill(params, built, batch, pctx)
             out[f"{key}/prefill"] = logits.numpy()
             caches = TM.pad_decode_caches(built, caches, CAP, pctx)
-            tok = logits[:, -1].argmax(-1, keepdim=True)
-            steps, ids = [], []
-            for i in range(STEPS):
-                lg, caches = TM.forward_decode(params, built, tok, caches,
-                                               PROMPT + i, pctx)
-                steps.append(lg.numpy())
-                tok = lg[:, -1].argmax(-1, keepdim=True)
-                ids.append(tok[:, 0].numpy())
-            out[f"{key}/decode"] = np.stack(steps)
-            out[f"{key}/ids"] = np.stack(ids)
-            out[f"{key}/caches"] = _keyed(tree_map(lambda a: a.numpy().copy(),
-                                                   caches))
+            runs = [("", caches, 0)]
+            if kind == "m" and name in RAGGED:
+                # decode updates the caches in place: the ragged run gets
+                # its own copy of the prefill's
+                runs.append(("/ragged", tree_map(torch.clone, caches), 1))
+            # this rank's rows of the global batch
+            b0 = grid.coords(rank)["data"] * 2 if B > 1 else 0
+            for tag, caches, ragged in runs:
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+                steps, ids = [], []
+                for i in range(STEPS):
+                    pos = PROMPT + i + torch.tensor(
+                        OFFSETS[b0:b0 + tok.shape[0]]) if ragged else PROMPT + i
+                    lg, caches = TM.forward_decode(params, built, tok, caches,
+                                                   pos, pctx)
+                    steps.append(lg.numpy())
+                    tok = lg[:, -1].argmax(-1, keepdim=True)
+                    ids.append(tok[:, 0].numpy())
+                out[f"{key}{tag}/decode"] = np.stack(steps)
+                out[f"{key}{tag}/ids"] = np.stack(ids)
+                out[f"{key}{tag}/caches"] = _keyed(tree_map(
+                    lambda a: a.numpy().copy(), caches))
 
     built = TM.build(case_cfg(get_config, *CASES["kv_replicated"]).with_butterfly(
         1, 16, rate_weight=0.01))
@@ -271,10 +301,7 @@ def _bound(want) -> float:
     return 1e-5 * max(1.0, float(np.abs(want).max()))
 
 
-@pytest.mark.subprocess
-@pytest.mark.parametrize("kind", SEQS)
-@pytest.mark.parametrize("name", CASES)
-def test_seq_sharded_decode_matches_jax(runs, name, kind):
+def _check_decode(runs, name, kind, tag=""):
     refs, trees, ranks = runs
     grid = parallel.RankGrid(*GRID)
     _, B = SEQS[kind]
@@ -283,23 +310,39 @@ def test_seq_sharded_decode_matches_jax(runs, name, kind):
     pctx = parallel.ParallelContext(grid=grid, data_axes=("data",))
     _, specs = TM.decode_state_specs(built, InputShape("d", CAP, B, "decode"),
                                      pctx, seq_axis=SEQS[kind][0])
-    want_caches = bridge.to_torch(trees[f"{key}/caches"], device="cpu")
+    want_caches = bridge.to_torch(trees[f"{key}{tag}/caches"], device="cpu")
     for r, out in enumerate(ranks):
         rows = slice(0, 1) if B == 1 else slice(grid.coords(r)["data"] * 2,
                                                 grid.coords(r)["data"] * 2 + 2)
-        for what in ("prefill", "decode"):
-            want = refs[f"{key}/{what}"]
-            want = want[rows] if what == "prefill" else want[:, rows]
-            np.testing.assert_allclose(out[f"{key}/{what}"], want, rtol=0,
+        for what in ("/prefill", tag + "/decode"):
+            want = refs[f"{key}{what}"]
+            want = want[rows] if what == "/prefill" else want[:, rows]
+            np.testing.assert_allclose(out[f"{key}{what}"], want, rtol=0,
                                        atol=_bound(want))
-        assert np.array_equal(out[f"{key}/ids"], refs[f"{key}/ids"][:, rows])
+        assert np.array_equal(out[f"{key}{tag}/ids"], refs[f"{key}{tag}/ids"][:, rows])
         blocks = _keyed(parallel.shard_grid(want_caches, specs, grid, rank=r))
-        got = out[f"{key}/caches"]
+        got = out[f"{key}{tag}/caches"]
         assert set(got) == set(blocks)
         for path, want in blocks.items():
             assert got[path].shape == tuple(want.shape), path
             np.testing.assert_allclose(got[path], want.numpy(), rtol=0,
                                        atol=_bound(want.numpy()), err_msg=str(path))
+
+
+@pytest.mark.subprocess
+@pytest.mark.parametrize("kind", SEQS)
+@pytest.mark.parametrize("name", CASES)
+def test_seq_sharded_decode_matches_jax(runs, name, kind):
+    _check_decode(runs, name, kind)
+
+
+@pytest.mark.subprocess
+@pytest.mark.parametrize("name", RAGGED)
+def test_seq_sharded_ragged_decode_matches_jax(runs, name):
+    """Ragged rows (a (B,) position, row b at 20 + b + step) over caches
+    sharded on ``model``, against JAX's ``forward_decode`` under the same
+    ``decode_state_specs(seq_axis="model")`` shardings."""
+    _check_decode(runs, name, "m", "/ragged")
 
 
 @pytest.mark.subprocess

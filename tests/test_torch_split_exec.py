@@ -1,10 +1,13 @@
 """The port's split bank against the JAX bank (``repro/runtime/split_exec``)
 with the JAX backbone and butterflies carried across by the bridge, at the
 reduced 4-layer qwen3-8b config in f32, d_r=16, for splits 1 and 2 and the
-wire modes raw / reduced / int8 / int4:
+wire modes raw / reduced / int8 / int4, and int8 at ``wire_bits=16`` (the
+16-bit wire: int16 codes, 2 B a code):
 
   * ``edge_half`` codes equal (at most 1 apart on at most 0.1% of entries,
-    rounded up to a whole entry), scales within rtol 1e-5;
+    rounded up to a whole entry; at 16 bits, where a step is 1/32,767 of
+    the row's absmax, at most 1 apart), scales within rtol 1e-5, and the
+    payload's bytes and ``wire_stats`` equal;
   * ``cloud_half`` logits within 1e-4 on the same payload;
   * greedy tokens of ``submit_prefilled`` + ``run`` (cache handoff) and of
     streamed ``edge_step`` / ``stream_step`` identical to JAX's
@@ -21,15 +24,19 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.runtime.split_exec import SplitModelBank as JBank
+from repro.serving import pipeline as jpipe
 from repro_torch import bridge
 from repro_torch.configs import get_config as tget_config
 from repro_torch.core.quantization import unpack_int4
 from repro_torch.runtime.split_exec import SplitModelBank as TBank
+from repro_torch.serving import pipeline as tpipe
 from repro_torch.tree import tree_leaves
 
 D_R = 16
 SPLITS = (1, 2)
-WIRE_MODES = ("raw", "reduced", "int8", "int4")
+WIRE_MODES = ("raw", "reduced", "int8", "int4", "int16")
+# wire -> (the banks' wire_mode, wire_bits)
+WIRES = {"int16": ("int8", 16)}
 PROMPT = np.random.default_rng(7).integers(0, 512, (1, 13)).astype(np.int32)
 MAX_LEN, NEW = 24, 4
 
@@ -45,9 +52,10 @@ def banks():
     jcfg, tcfg = _cfgs()
     out = {}
     for wm in WIRE_MODES:
-        jb = JBank(jcfg, D_R, wire_mode=wm, seed=0)
+        mode, bits = WIRES.get(wm, (wm, 8))
+        jb = JBank(jcfg, D_R, wire_mode=mode, wire_bits=bits, seed=0)
         to_np = lambda t: jax.tree.map(np.asarray, t)
-        tb = TBank(tcfg, D_R, wire_mode=wm, seed=0, device="cpu",
+        tb = TBank(tcfg, D_R, wire_mode=mode, wire_bits=bits, seed=0, device="cpu",
                    params=bridge.to_torch(to_np(jb.params), device="cpu"),
                    butterfly={s: bridge.to_torch(to_np(jb.butterfly_params(s)),
                                                  device="cpu")
@@ -96,12 +104,17 @@ def test_split_path_matches_jax(banks, wm, split):
     jp, js, jc0 = jr.edge_half(jr.params, PROMPT)
     tp, ts, tc0 = tr.edge_half(tr.params, PROMPT)
     assert tuple(tp.shape) == tuple(jp.shape) and tp.dtype == \
-        {"raw": torch.float32, "reduced": torch.float32}.get(wm, torch.int8)
-    if wm in ("int8", "int4"):
+        {"raw": torch.float32, "reduced": torch.float32,
+         "int16": torch.int16}.get(wm, torch.int8)
+    if wm in ("int8", "int4", "int16"):
         diff = (_codes(tp, wm).int() - _codes(jp, wm).int()).abs()
         assert int(diff.max()) <= 1
-        assert int((diff > 0).sum()) <= math.ceil(1e-3 * diff.numel())
+        if wm != "int16":
+            assert int((diff > 0).sum()) <= math.ceil(1e-3 * diff.numel())
         np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5)
+        assert tp.nbytes + ts.nbytes == np.asarray(jp).nbytes + np.asarray(js).nbytes
+        assert tpipe.wire_stats(tr.cfg, 1, PROMPT.shape[1]) == \
+            jpipe.wire_stats(jr.cfg, 1, PROMPT.shape[1])
     else:
         np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-5, atol=1e-5)
     for a, b in zip(tree_leaves(tc0), jax.tree.leaves(jc0)):

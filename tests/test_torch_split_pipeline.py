@@ -248,6 +248,29 @@ def test_crossings_match_wire_stats(wire_mode):
                                               MB * cfg.vocab_size * 4)
 
 
+def test_16_bit_wire_crossings_and_logits():
+    """Under a 16-bit butterfly (``cfg.butterfly.wire_bits = 16``) the
+    pipeline's wire carries int16 codes, 2 B a code plus the f32 scales
+    (``wire_stats``), and its logits equal the unsplit forward's last
+    position through the same 16-bit wire within 1e-5 of the largest.  The
+    JAX package's pipeline has no such run to compare with: its carry holds
+    int8 codes, so it cannot trace a 16-bit wire."""
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), num_layers=2)
+    built = TM.build(cfg.with_butterfly(layer=SPLIT, d_r=D_R, wire_bits=16))
+    params = TM.init_model(torch.Generator().manual_seed(0), built, device="cpu")
+    toks = _tokens(built.cfg)
+    crossings = []
+    out = make_split_pipeline(built, ("cpu", "cpu"), MMB, S, MB, "int8")(
+        params, toks, crossings)
+    stats = wire_stats(built.cfg, MB, S)
+    assert stats["wire_bytes"] == MB * S * (2 * D_R + 4)
+    assert [c[1:] for c in crossings if c[0] == "edge->cloud"] == \
+        [(torch.int16, (MB, S, D_R), stats["wire_bytes"])] * MMB
+    want, _ = TM.forward_prefill(params, built, {"tokens": torch.from_numpy(toks)})
+    torch.testing.assert_close(out, want[:, 0], rtol=0,
+                               atol=1e-5 * max(1.0, float(want.abs().max())))
+
+
 @pytest.mark.parametrize("wire_mode", WIRE_MODES)
 def test_pipelined_equals_serial(wire_mode):
     built, params = _built("gemma3-12b", global_every=2, sliding_window=4)

@@ -114,3 +114,20 @@ def test_bincount_entry_point_keeps_leading_dims_and_refuses_wide_codes():
     assert torch.equal(codes, c2) and torch.equal(scales, s2)
     with pytest.raises(ValueError):
         tops.butterfly_reduce_quant_bincount(x, w, bits=16)
+
+
+def test_int16_codes_refused_as_jax_refuses_them():
+    """The entropy wire over the 16-bit wire's int16 codes: the JAX
+    package's coder refuses them, with an 8-bit prior (codes out of its
+    alphabet) and with a 16-bit one (65,536 symbols exceed its probability
+    scale), and the port's refuses them the same way."""
+    rng = np.random.default_rng(3)
+    codes = np.clip(np.round(rng.normal(0, 3000, (6, 16))), -32768,
+                    32767).astype(np.int16)
+    for bits in (8, 16):
+        errors = []
+        for wc in (jwc, twc):
+            with pytest.raises(ValueError) as err:
+                wc.coded_nbytes(codes, wc.WirePrior.default(16, bits))
+            errors.append(str(err.value))
+        assert errors[0] == errors[1]
