@@ -4642,7 +4642,10 @@ def _profiled(label: str, fn, out_dir: Optional[Path]):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+    # the device copies of host ranges (the port's ``repro_torch.*`` spans)
+    # are annotations, not work
+    dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
                  key=lambda e: e.time_range.start)
     busy_us, end = 0.0, float("-inf")
     by_name: dict = {}

@@ -23,6 +23,7 @@ from repro_torch.models import parallel
 from repro_torch.models.common import apply_rope, dense_init, dense_spec, \
     rms_norm
 from repro_torch.models.parallel import LOCAL, ParallelContext
+from repro_torch.runtime import metrics
 
 MASK_VALUE = -1e30
 
@@ -221,7 +222,9 @@ def attention_fullseq(params, x, *, cfg: ModelConfig, window: Optional[int],
     are a shard over replicated kv params projects only the kv head(s)
     they read (:func:`_kv_heads`), and returns those as its kv; under
     sequence-sharded caches (``pctx.for_cache``) it projects every kv head
-    of its params, which the caches keep."""
+    of its params, which the caches keep.  Under ``torch.profiler`` the
+    core (the S×S scores, mask, softmax and values, or the flash kernel) is
+    the span ``mixer.attn.core`` (``runtime.metrics.span``)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -232,15 +235,18 @@ def attention_fullseq(params, x, *, cfg: ModelConfig, window: Optional[int],
     q, k, v = _project_qkv(params, x, cfg, positions, rope=rope,
                            kv=(0, n_kv) if keep_all else (lo, n))
     ka, va = (k[:, :, lo:lo + n], v[:, :, lo:lo + n]) if keep_all else (k, v)
-    if use_kernel:
-        out = kops.flash_attention(q, ka, va, causal=causal, window=window)
-    else:
-        scores = _gqa_scores(q, ka)
-        if causal:
-            mask = causal_mask(S, S, window=window, device=x.device)[None, None, None]
+    with metrics.span("mixer.attn.core", x):
+        if use_kernel:
+            out = kops.flash_attention(q, ka, va, causal=causal, window=window)
         else:
-            mask = torch.ones((1, 1, 1, S, S), dtype=torch.bool, device=x.device)
-        out = _attend(scores, va, mask, x.dtype)
+            scores = _gqa_scores(q, ka)
+            if causal:
+                mask = causal_mask(S, S, window=window,
+                                   device=x.device)[None, None, None]
+            else:
+                mask = torch.ones((1, 1, 1, S, S), dtype=torch.bool,
+                                  device=x.device)
+            out = _attend(scores, va, mask, x.dtype)
     out = out.reshape(B, S, -1) @ params["wo"]
     return out, {"k": k, "v": v}
 

@@ -32,6 +32,7 @@ from repro_torch.models.common import apply_mlp, dense_spec, init_mlp, \
     init_rms_norm, rms_norm
 from repro_torch.models.parallel import (LOCAL, ParallelContext, model_copy,
                                          model_psum)
+from repro_torch.runtime import metrics
 from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
@@ -500,75 +501,89 @@ def apply_layer(ldef: LayerDef, p, x, *, cfg: ModelConfig, mode: str, cache,
     overlap: with ``defer_psum`` an attention+MLP layer returns its MLP output
     unreduced as ``pending_out`` (None where nothing is pending), and the
     next layer adds ``model_psum(pending)`` to x at its top, before norm1:
-    the same value, one layer later, in the same order of additions."""
+    the same value, one layer later, in the same order of additions.
+
+    Under ``torch.profiler`` the blocks are spans (``runtime.metrics.span``):
+    ``mixer.<mixer>`` from norm1 to its residual add, ``mixer.cross`` the
+    cross-attention block, ``ffn.mlp`` or ``ffn.moe`` from norm2 to its
+    residual add (or to the deferred partial sum)."""
     aux, pending_out = None, None
     if pending is not None:
         x = x + model_psum(pending, pctx)
     if ldef.shared:
         p = dict(p, mixer=shared_params["mixer"], ffn=shared_params["ffn"])
-    h = h_pre if h_pre is not None else rms_norm(x, p["norm1"], cfg.rms_eps)
     if ldef.mixer != "attn":
         fullseq, decode = {
             "mamba": (ssm_lib.mamba_fullseq, ssm_lib.mamba_decode),
             "mlstm": (xlstm_lib.mlstm_fullseq, xlstm_lib.mlstm_decode),
             "slstm": (xlstm_lib.slstm_fullseq, xlstm_lib.slstm_decode),
         }[ldef.mixer]
-        if mode == "decode":
-            out, st = decode(p["mixer"], h, cache, cfg=cfg, pctx=pctx)
-            for name, leaf in st.items():
-                cache[name].copy_(leaf)
-            return x + out, cache, None, None
-        out, st = fullseq(p["mixer"], h, cfg=cfg,
-                          return_state=mode == "prefill", pctx=pctx)
-        return x + out, st, None, None
+        with metrics.span("mixer." + ldef.mixer, x):
+            h = h_pre if h_pre is not None else rms_norm(x, p["norm1"],
+                                                         cfg.rms_eps)
+            if mode == "decode":
+                out, st = decode(p["mixer"], h, cache, cfg=cfg, pctx=pctx)
+                for name, leaf in st.items():
+                    cache[name].copy_(leaf)
+                return x + out, cache, None, None
+            out, st = fullseq(p["mixer"], h, cfg=cfg,
+                              return_state=mode == "prefill", pctx=pctx)
+            return x + out, st, None, None
     rope = not cfg.is_encdec          # whisper uses sinusoid embeds, no RoPE
     new_cache = None
-    mixer, attn_tp = _rank_attention(p["mixer"], cfg, pctx)
-    if attn_tp:
-        h = model_copy(h, pctx)
-    if mode == "decode":
-        out, kv = attn.attention_decode(mixer, h, cache["kv"], pos, cfg=cfg,
-                                        window=ldef.window, rope=rope,
-                                        pctx=pctx)
-        new_cache = {"kv": kv}
-    else:
-        out, kv = attn.attention_fullseq(mixer, h, cfg=cfg,
-                                         window=ldef.window,
-                                         use_kernel=use_kernel, causal=causal,
-                                         rope=rope, pctx=pctx)
-        if mode == "prefill":
-            kv = to_ring(kv, ldef.window) if ldef.window else kv
-            new_cache = {"kv": _seq_block(kv, cfg, pctx)}
-    x = x + (model_psum(out, pctx) if attn_tp else out)
-    if ldef.cross:
-        cross, cross_tp = _rank_attention(p["cross"], cfg, pctx)
-        hc = rms_norm(x, p["norm_cross"], cfg.rms_eps)
-        if cross_tp:
-            hc = model_copy(hc, pctx)
+    with metrics.span("mixer.attn", x):
+        h = h_pre if h_pre is not None else rms_norm(x, p["norm1"],
+                                                     cfg.rms_eps)
+        mixer, attn_tp = _rank_attention(p["mixer"], cfg, pctx)
+        if attn_tp:
+            h = model_copy(h, pctx)
         if mode == "decode":
-            ckv = cache["cross_kv"]
+            out, kv = attn.attention_decode(mixer, h, cache["kv"], pos,
+                                            cfg=cfg, window=ldef.window,
+                                            rope=rope, pctx=pctx)
+            new_cache = {"kv": kv}
         else:
-            enc = model_copy(enc_out, pctx) if cross_tp else enc_out
-            ckv = attn.encoder_kv(cross, enc, cfg=cfg)
-        out = attn.cross_attention(cross, hc, ckv, cfg=cfg, pctx=pctx)
-        x = x + (model_psum(out, pctx) if cross_tp else out)
-        if new_cache is not None:
-            new_cache["cross_kv"] = ckv if mode == "decode" else \
-                _seq_block(ckv, cfg, pctx, cut=False)
-    h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
-    if ldef.ffn == "moe":
-        out, moe_aux = moe_lib.apply_moe(p["ffn"], h2, cfg=cfg, act=cfg.act,
-                                         pctx=pctx)
-        x = x + out
-        aux = torch.stack([moe_aux["load_balance"], moe_aux["router_z"]])
-    else:
-        mlp_tp = pctx.tensor_parallel and p["ffn"]["w_down"].shape[0] < cfg.d_ff
-        part = apply_mlp(p["ffn"], model_copy(h2, pctx) if mlp_tp else h2,
-                         cfg.act)
-        if defer_psum and mlp_tp:
-            pending_out = part
+            out, kv = attn.attention_fullseq(mixer, h, cfg=cfg,
+                                             window=ldef.window,
+                                             use_kernel=use_kernel,
+                                             causal=causal, rope=rope,
+                                             pctx=pctx)
+            if mode == "prefill":
+                kv = to_ring(kv, ldef.window) if ldef.window else kv
+                new_cache = {"kv": _seq_block(kv, cfg, pctx)}
+        x = x + (model_psum(out, pctx) if attn_tp else out)
+    if ldef.cross:
+        with metrics.span("mixer.cross", x):
+            cross, cross_tp = _rank_attention(p["cross"], cfg, pctx)
+            hc = rms_norm(x, p["norm_cross"], cfg.rms_eps)
+            if cross_tp:
+                hc = model_copy(hc, pctx)
+            if mode == "decode":
+                ckv = cache["cross_kv"]
+            else:
+                enc = model_copy(enc_out, pctx) if cross_tp else enc_out
+                ckv = attn.encoder_kv(cross, enc, cfg=cfg)
+            out = attn.cross_attention(cross, hc, ckv, cfg=cfg, pctx=pctx)
+            x = x + (model_psum(out, pctx) if cross_tp else out)
+            if new_cache is not None:
+                new_cache["cross_kv"] = ckv if mode == "decode" else \
+                    _seq_block(ckv, cfg, pctx, cut=False)
+    with metrics.span("ffn.moe" if ldef.ffn == "moe" else "ffn.mlp", x):
+        h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
+        if ldef.ffn == "moe":
+            out, moe_aux = moe_lib.apply_moe(p["ffn"], h2, cfg=cfg,
+                                             act=cfg.act, pctx=pctx)
+            x = x + out
+            aux = torch.stack([moe_aux["load_balance"], moe_aux["router_z"]])
         else:
-            x = x + (model_psum(part, pctx) if mlp_tp else part)
+            mlp_tp = pctx.tensor_parallel and \
+                p["ffn"]["w_down"].shape[0] < cfg.d_ff
+            part = apply_mlp(p["ffn"], model_copy(h2, pctx) if mlp_tp else h2,
+                             cfg.act)
+            if defer_psum and mlp_tp:
+                pending_out = part
+            else:
+                x = x + (model_psum(part, pctx) if mlp_tp else part)
     return x, new_cache, aux, pending_out
 
 

@@ -11,8 +11,12 @@ static pieces:
   wire.py        contended uplink + downlink, windowed goodput feedback
   telemetry.py   per-request breakdown, p50/p95/p99, per-cell fairness
   tracing.py     flight recorder: virtual-clock spans -> Chrome trace JSON
-  metrics.py     counters/gauges/histograms, fixed-interval sampler, and
-                 opt-in wall-clock jit profiling
+  metrics.py     counters/gauges/histograms, fixed-interval sampler,
+                 opt-in wall-clock jit profiling, and the program's spans
+                 (``metrics.SPANS``: the split halves' and the engine's
+                 dispatches, each layer's mixer and FFN blocks, attention's
+                 core), recorded only while a ``torch.profiler`` session
+                 records, on its clock
   split_exec.py  real numerics for the edge/cloud halves + cost model
   transports.py  pluggable decode transports (cache handoff vs streamed rows)
   actors.py      edge-device fleets and the cloud continuous-batching server
@@ -27,25 +31,46 @@ static pieces:
 Entry point: ``repro_torch.launch.runtime_sim`` (CLI).
 
 The package surface below is the JAX package's public API, name for name;
-anything not exported here is an internal detail.
+anything not exported here is an internal detail.  Each name is imported
+at its first use, so the models import ``metrics`` without loading the
+simulator.
 """
-from repro_torch.runtime.actors import CloudServer, CloudSpec, EdgeDevice
-from repro_torch.runtime.clock import EventLoop
-from repro_torch.runtime.controller import AdaptiveSplitController
-from repro_torch.runtime.gateway import (CircuitBreaker, Gateway, GatewayPolicy,
-                                   JobQueue, ResponseCache)
-from repro_torch.runtime.metrics import (JitProfiler, MetricsRegistry,
-                                   MetricsSampler, read_metrics_jsonl)
-from repro_torch.runtime.simulator import (Arrival, CellSpec, SimConfig, Simulation,
-                                     Topology, WorkloadSpec, build_arrivals,
-                                     diurnal_arrivals, flash_arrivals,
-                                     pareto_arrivals, parse_topology,
-                                     poisson_arrivals, record_arrivals,
-                                     run_sim, trace_arrivals)
-from repro_torch.runtime.telemetry import RequestTrace, Telemetry
-from repro_torch.runtime.tracing import Tracer, validate_chrome_trace
-from repro_torch.runtime.transports import DecodeTransport, get_transport
-from repro_torch.runtime.wire import Wire
+import importlib
+
+# each exported name -> the module that defines it.  A name is imported at
+# its first use (PEP 562), so that importing one module of this package
+# (the models import ``metrics`` for their spans) does not load the
+# simulator, whose modules import the models.
+_HOME = {
+    "CloudServer": "actors", "CloudSpec": "actors", "EdgeDevice": "actors",
+    "EventLoop": "clock",
+    "AdaptiveSplitController": "controller",
+    "CircuitBreaker": "gateway", "Gateway": "gateway",
+    "GatewayPolicy": "gateway", "JobQueue": "gateway",
+    "ResponseCache": "gateway",
+    "JitProfiler": "metrics", "MetricsRegistry": "metrics",
+    "MetricsSampler": "metrics", "read_metrics_jsonl": "metrics",
+    "Arrival": "simulator", "CellSpec": "simulator", "SimConfig": "simulator",
+    "Simulation": "simulator", "Topology": "simulator",
+    "WorkloadSpec": "simulator", "build_arrivals": "simulator",
+    "diurnal_arrivals": "simulator", "flash_arrivals": "simulator",
+    "pareto_arrivals": "simulator", "parse_topology": "simulator",
+    "poisson_arrivals": "simulator", "record_arrivals": "simulator",
+    "run_sim": "simulator", "trace_arrivals": "simulator",
+    "RequestTrace": "telemetry", "Telemetry": "telemetry",
+    "Tracer": "tracing", "validate_chrome_trace": "tracing",
+    "DecodeTransport": "transports", "get_transport": "transports",
+    "Wire": "wire",
+}
+
+
+def __getattr__(name: str):
+    if name not in _HOME:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_HOME[name]}"), name)
+    globals()[name] = value
+    return value
+
 
 __all__ = [
     # simulation driver + config

@@ -1,6 +1,7 @@
-"""Time-series metrics + wall-clock jit profiling for the split runtime.
+"""Time-series metrics, wall-clock jit profiling and program spans for the
+split runtime.
 
-Three layers:
+Four layers:
 
 * :class:`MetricsRegistry` — named counters / gauges / histograms.
   ``Telemetry.counters`` is now a :class:`CountersView` over a registry, so
@@ -25,10 +26,31 @@ fallbacks) and the ``fault_backoff_s`` histogram of retry backoff delays.
   surfaces as a separate ``jit_profile`` section in the telemetry JSON —
   making "the sim says X ms but wall time is dominated by recompiles"
   visible.
+* :data:`SPANS` (a :class:`SpanRecorder`) — spans of the program's real
+  execution on the profiler's clock, for an operator who runs the port
+  under ``torch.profiler``.  The switch is the profiler itself: a span
+  site (``with span(name, at, **counts):``) records only while a
+  ``torch.profiler`` session records, read from the Python bool
+  ``torch.autograd.profiler._is_profiler_enabled``; at every other moment
+  it gets one shared no-op context manager (no profiler range, no CUDA
+  event, no clock read).  A recorded span is a range ``repro_torch.<name>``
+  on the profiler's host timeline (its fast record-function range), host
+  stamps on the profiler's clock (epoch ns), and on a CUDA device a
+  ``torch.cuda.Event``
+  pair on the current stream, resolved to stream time only when read
+  (never a synchronize while running).  The sites: ``split.<kind>``
+  around each dispatch of the split bank (counting ``real_positions`` and
+  bucket-padded ``computed_positions``), ``engine.step`` /
+  ``engine.stream_step`` around the serving engine's, and inside them
+  each layer's ``mixer.<mixer>``, ``mixer.cross`` and ``ffn.mlp`` /
+  ``ffn.moe`` blocks and attention's ``mixer.attn.core``.  A span's stream
+  time includes the device's idle inside it, so a root's children plus
+  its self time add up to the root.
 """
 from __future__ import annotations
 
 import json
+import threading
 import time
 from typing import Callable, Dict, List, MutableMapping, Optional
 
@@ -320,3 +342,160 @@ class JitProfiler:
             "compile_fraction": round(self.compile_wall_s / total, 4)
             if total > 0 else float("nan"),
         }
+
+
+# ---------------------------------------------------------------------------
+# program spans on the profiler's clock (recorded only under torch.profiler)
+# ---------------------------------------------------------------------------
+
+SPAN_PREFIX = "repro_torch."
+# its flag ``_is_profiler_enabled`` is the switch: a Python bool that every
+# torch.profiler session sets while it records
+_profiler = torch.autograd.profiler
+
+
+class SpanRecord:
+    """One recorded span.  ``start_ns``/``end_ns`` are host stamps on the
+    profiler's clock (epoch ns); ``root`` is the id of the outermost span
+    it ran under (its own id for a root); ``counts`` what the site
+    counted.  :attr:`stream_ms` is the device stream's time between the
+    span's two CUDA events (idle inside the span included), or the host
+    time of a span on the CPU."""
+
+    __slots__ = ("name", "id", "parent", "root", "start_ns", "end_ns",
+                 "counts", "_events", "_stream_ms")
+
+    def __init__(self, name: str, id: int, parent: Optional[int], root: int,
+                 counts: dict, events):
+        self.name, self.id, self.parent, self.root = name, id, parent, root
+        self.counts = counts
+        self._events = events
+        self._stream_ms: Optional[float] = None
+        self.start_ns = self.end_ns = 0
+
+    @property
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-6
+
+    @property
+    def stream_ms(self) -> float:
+        """Resolved at the first read, which waits for the end event."""
+        if self._stream_ms is None:
+            if self._events is None:
+                self._stream_ms = self.host_ms
+            else:
+                start, end = self._events
+                end.synchronize()
+                self._stream_ms = start.elapsed_time(end)
+                self._events = None
+        return self._stream_ms
+
+
+class _Recording:
+    """The context manager of a span that records: a profiler range named
+    ``repro_torch.<name>``, host stamps inside it, and the record's CUDA
+    events on ``stream``."""
+
+    __slots__ = ("recorder", "rec", "range", "stream")
+
+    def __init__(self, recorder: "SpanRecorder", rec: SpanRecord, stream):
+        self.recorder, self.rec, self.stream = recorder, rec, stream
+        # a range on the profiler's host timeline like ``record_function``'s,
+        # at about an eighth of its host cost under the profiler (no
+        # dispatcher op of its own, no device copy)
+        self.range = torch._C._profiler._RecordFunctionFast(
+            SPAN_PREFIX + rec.name)
+
+    def __enter__(self):
+        self.range.__enter__()
+        self.recorder._stack().append(self.rec)
+        if self.stream is not None:
+            self.rec._events[0].record(self.stream)
+        self.rec.start_ns = time.time_ns()
+        return self.rec
+
+    def __exit__(self, *exc):
+        if self.stream is not None:
+            self.rec._events[1].record(self.stream)
+        self.rec.end_ns = time.time_ns()
+        self.recorder._stack().pop()
+        self.range.__exit__(*exc)
+        return False
+
+
+class _Off:
+    """The one context manager every span site gets while no profiler
+    records: it does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class SpanRecorder:
+    """Spans of the program's real execution (the split halves' and the
+    serving engine's dispatches, each layer's mixer and FFN blocks,
+    attention's core), kept while a ``torch.profiler`` session records
+    and never otherwise.  Parents come from a per-thread stack.  A span
+    opened while the profiler records, after one was opened while it did
+    not, clears the records first, so a session that follows work run
+    without the profiler reads only its own; two sessions with no span
+    between them share their records unless :meth:`clear` runs between
+    them."""
+
+    def __init__(self):
+        self.records: List[SpanRecord] = []
+        self.stale = False
+        self._next_id = 0
+        self._local = threading.local()
+
+    def _stack(self) -> List[SpanRecord]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def clear(self) -> None:
+        self.records = []
+        self.stale = False
+
+    def open(self, name: str, at, counts: dict) -> _Recording:
+        if self.stale:
+            self.clear()
+        stack = self._stack()
+        self._next_id += 1
+        sid = self._next_id
+        parent = stack[-1] if stack else None
+        device = at.device if isinstance(at, torch.Tensor) else at
+        events = stream = None
+        if device is not None and torch.device(device).type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            stream = torch.cuda.current_stream(device)
+        rec = SpanRecord(name, sid, None if parent is None else parent.id,
+                         sid if parent is None else parent.root, counts,
+                         events)
+        self.records.append(rec)
+        return _Recording(self, rec, stream)
+
+
+SPANS = SpanRecorder()
+
+
+def span(name: str, at=None, **counts):
+    """``with span(name, at, **counts):`` records the block as the span
+    ``name`` in :data:`SPANS` while a ``torch.profiler`` session records
+    (``at``: a tensor or device whose current CUDA stream times it);
+    otherwise it returns a shared no-op context manager, at the cost of
+    one flag read."""
+    if not _profiler._is_profiler_enabled:
+        SPANS.stale = True
+        return _OFF
+    return SPANS.open(name, at, counts)

@@ -52,6 +52,7 @@ from repro_torch.models import model as M
 from repro_torch.models import parallel
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import embed, rms_norm, unembed
+from repro_torch.runtime import metrics
 from repro_torch.serving import pipeline as spl
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.tree import tree_map
@@ -320,13 +321,20 @@ class SplitModelBank:
         wire signature (mode, effective bits, decode-row block)."""
         return (kind, split, mp, B, S) + self._wire_sig
 
-    def timed_call(self, key: Tuple, fn, *args):
+    def timed_call(self, key: Tuple, fn, *args, shape=None):
         """Count ``key`` as the JAX bank's jit cache would, then call —
-        through the profiler when one is attached."""
+        through the profiler when one is attached — inside the span
+        ``split.<kind>`` (``runtime.metrics.span``), which counts the
+        positions the call computes (the key's bucket-padded B·S) and the
+        real ones (``shape``, the true (B, S); the key's when None)."""
         self.note_key(key)
-        if self.profiler is None:
-            return fn(*args)
-        return self.profiler.timed(key, fn, *args)
+        Bb, Sb = key[3:5]
+        B, S = shape or (Bb, Sb)
+        with metrics.span("split." + key[0], self.device,
+                          real_positions=B * S, computed_positions=Bb * Sb):
+            if self.profiler is None:
+                return fn(*args)
+            return self.profiler.timed(key, fn, *args)
 
     def note_key(self, key: Tuple) -> None:
         if key in self.jit_cache_keys:
@@ -593,7 +601,7 @@ class SplitRunner:
         payload, scales, cache0 = bank.timed_call(
             bank.cache_key("edge", self.split, self.edge_mp, Bb, Sb),
             bank._fn("edge", self.split, self.edge_mp), params,
-            bank._pad_toks(toks, Bb, Sb))
+            bank._pad_toks(toks, Bb, Sb), shape=(B, S))
         return (payload[:B, :S], scales[:B, :S],
                 bank._slice_cache(cache0, 0, self.split, B, S, self.edge_mp))
 
@@ -610,7 +618,7 @@ class SplitRunner:
         logits, cache1 = bank.timed_call(
             bank.cache_key("cloud", self.split, self.cloud_mp, Bb, Sb),
             bank._fn("cloud", self.split, self.cloud_mp), params, payload,
-            scales, S)
+            scales, S, shape=(B, S))
         return logits[:B], bank._slice_cache(cache1, 1, self.split, B, S,
                                              self.cloud_mp)
 
@@ -739,7 +747,7 @@ class SplitRunner:
         logits, caches = bank.timed_call(
             bank.cache_key("prefill", self.split, mp, Bb, Sb),
             bank._fn("prefill", self.split, mp), params,
-            bank._pad_toks(toks, Bb, Sb), S)
+            bank._pad_toks(toks, Bb, Sb), S, shape=(B, S))
         return logits[:B], [
             bank._slice_cache(caches[0], 0, self.split, B, S, mp),
             bank._slice_cache(caches[1], 1, self.split, B, S, mp)]

@@ -25,6 +25,7 @@ import torch
 from repro_torch import device as dev_lib
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tfm
+from repro_torch.runtime import metrics
 from repro_torch.tree import tree_map
 
 
@@ -253,10 +254,14 @@ class ServingEngine:
 
     def _dispatch(self, kind: str, fn, *args):
         """Run a sampled step, through the wall-clock profiler if one is
-        attached."""
-        if self._profiler is None:
-            return fn(*args)
-        return self._profiler.timed((kind,) + self._profile_key, fn, *args)
+        attached, inside the span ``engine.<step>`` (``kind`` without its
+        ``engine_``; ``runtime.metrics.span``)."""
+        with metrics.span("engine." + kind.removeprefix("engine_"),
+                          self.device):
+            if self._profiler is None:
+                return fn(*args)
+            return self._profiler.timed((kind,) + self._profile_key, fn,
+                                        *args)
 
     def _sampled_decode(self, tokens, caches, pos, temps):
         logits, caches = self._decode(self.params, tokens, caches, pos)
