@@ -48,8 +48,11 @@ result line):
                wire -> cloud_half and decode 16 tokens each in the serving
                engine (cache handoff); one more decodes 8 tokens streamed
                through edge_step/stream_step.  Both butterfly kernels'
-               launch counts must grow on this path, and the cloud logits
-               must stay within 5% of the reference forward's largest logit;
+               launch counts must grow on this path, each prefill must
+               launch the flash kernel once an attention layer (the bank's
+               bf16 prefill halves run attention's core on it), and the
+               cloud logits must stay within 5% of the reference forward's
+               largest logit;
                then the 16-bit wire on the same weights (banks at
                wire_bits=16 and "reduced" sharing the params and the
                butterfly): three prompts, 8 tokens each, through each wire,
@@ -445,7 +448,12 @@ def phase_kernels():
 # 100 tokens (phase 16), whisper-base's encoder over 1,500 frames (not
 # causal) and its decoder on a 32-token prompt (phase 17), and zamba2-7b's
 # shared attention (32/32 heads at hd 112) on its 2,048- and 100-token
-# prompts (phase 18)
+# prompts (phase 18); then every bucket the split bank's bf16 prefill halves
+# send to flash: qwen3-8b's 64 bucket (phases 1-2; 128 above), its 1,024,
+# 2,048 and 4,096 buckets and 8 x 1,024 (the benchmark's cells), its cloud
+# half at model=2 (16/4 heads a rank, phase 22), qwen3-14b's and
+# qwen3-moe's 64 buckets (phases 9 and 14; llama4's 128 bucket is
+# qwen3-14b's shape) and zamba2's 64 and 128 buckets (phase 18)
 FLASH_PATH = {
     "gemma3 S=2048 global": (1, 2048, 16, 8, 256, None),
     "gemma3 S=2048 window": (1, 2048, 16, 8, 256, 1024),
@@ -460,6 +468,16 @@ FLASH_PATH = {
     "whisper dec S=32": (1, 32, 8, 8, 64, None),
     "zamba2 S=2048": (1, 2048, 32, 32, 112, None),
     "zamba2 S=100": (1, 100, 32, 32, 112, None),
+    "qwen3 S=64": (1, 64, 32, 8, 128, None),
+    "qwen3 S=1024": (1, 1024, 32, 8, 128, None),
+    "qwen3 S=2048": (1, 2048, 32, 8, 128, None),
+    "qwen3 S=4096": (1, 4096, 32, 8, 128, None),
+    "qwen3 B=8 S=1024": (8, 1024, 32, 8, 128, None),
+    "qwen3 model=2 S=128": (1, 128, 16, 4, 128, None),
+    "qwen3-14b S=64": (1, 64, 40, 8, 128, None),
+    "qwen3-moe S=64": (1, 64, 64, 4, 128, None),
+    "zamba2 S=64": (1, 64, 32, 32, 112, None),
+    "zamba2 S=128": (1, 128, 32, 32, 112, None),
 }
 FLASH_FULL = {"whisper enc S=1500"}
 # the 2,048-token gemma3-12b prefill's 48 flash launches, by shape
@@ -807,6 +825,13 @@ def _prompts(n: int, lengths):
     return out
 
 
+def _attention_layers(bank) -> int:
+    """The bank's attention layers: a prefill through its halves launches
+    the flash kernel once each."""
+    return sum(seg.repeats * sum(ldef.mixer == "attn" for ldef in seg.unit)
+               for seg in bank.built.stages[0])
+
+
 def _serve_handoff(runner, engine, prompts, new_tokens, record: bool = False):
     """Cache handoff: each prompt prefills through edge_half -> host wire ->
     cloud_half and joins the engine, which then decodes them together.
@@ -920,11 +945,16 @@ def phase_serving(arch: str = "qwen3-8b", new_tokens: int = 16,
     launches = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # the bank's attention is the plain one: only the butterfly kernels run
+    # the bank's bf16 prefill halves run attention's core on the flash
+    # kernel, once an attention layer a prefill; decode runs the plain core
     print(f"{label}: launches on the main path {launches}")
     if min(launches["butterfly_reduce_quant"],
            launches["butterfly_dequant_restore"]) <= 0:
         fail(f"a kernel was not launched on the {arch} split path: {launches}")
+    want_flash = (n + streamed) * _attention_layers(bank)
+    if launches["flash_attention"] != want_flash:
+        fail(f"{label}: the prefills launched flash {launches['flash_attention']} "
+             f"times, expected {want_flash}")
     done = reqs + ([sreq] if streamed else [])
     for r in done:
         if not r.done:
@@ -1049,11 +1079,13 @@ def phase_int16_wire(runner, new_tokens: int = 8, lengths=(64, 100, 128)):
     hist = {w: [[torch.from_numpy(h) for h in q.logits_history] for q in out[0]]
             for w, out in served.items()}
     print(f"int16 wire: launches {launches}")
-    # a request's prefill crosses the wire once, and each engine step
-    # decodes its slots through the hosted model's in-graph wire once
+    # a request's prefill crosses the wire once and runs each attention
+    # layer's core on the flash kernel, and each engine step decodes its
+    # slots through the hosted model's in-graph wire once
     want = dict.fromkeys(launches, 0)
     want["butterfly_reduce_quant"] = want["butterfly_dequant_restore"] = \
         len(prompts) + served["int16"][6]
+    want["flash_attention"] = len(prompts) * _attention_layers(bank)
     if launches != want:
         fail(f"int16 wire: launched {launches}, expected {want}")
     d_r = bank.d_r
@@ -2101,7 +2133,7 @@ def phase_bincount_entry(runner, prompts):
     toks = torch.tensor(np.stack(prompts), dtype=torch.int64, device="cuda")
     # the edge half's layers, as edge_half runs them, up to the boundary
     x, _ = bank._layers(params, bank._embed(params, toks), 0, runner.split,
-                        "prefill", None, None)
+                        "prefill", None, None, use_kernel=True)
     w = params["butterfly"]["w_reduce"]
     batches = [x[i:i + 1] for i in range(len(prompts))] + [x]
     torch.cuda.synchronize()
@@ -3623,6 +3655,7 @@ def _model_axis_rank(rank, device, refs):
     out["served"] = _serve_recorded(hetero, engine, serve, c["new_tokens"])
     out["served_launches"] = _counts()
     out["served_steps"] = c["new_tokens"] - 1
+    out["layers"] = _attention_layers(bank)
 
     group = make_pods(pods)[1].pctx.group
     out["all_reduce_ms"] = {rows: _collective_ms(group, rows)
@@ -3725,6 +3758,7 @@ def phase_model_axis(refs, smi: str):
         want = dict.fromkeys(out["served_launches"], 0)
         want["butterfly_reduce_quant"] = want["butterfly_dequant_restore"] = \
             len(c["lengths"]) + steps
+        want["flash_attention"] = len(c["lengths"]) * out["layers"]
         if out["served_launches"] != want:
             fail(f"model axis rank {r}: the bank launched "
                  f"{out['served_launches']}, expected {want}")

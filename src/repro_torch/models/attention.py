@@ -224,7 +224,9 @@ def attention_fullseq(params, x, *, cfg: ModelConfig, window: Optional[int],
     sequence-sharded caches (``pctx.for_cache``) it projects every kv head
     of its params, which the caches keep.  Under ``torch.profiler`` the
     core (the S×S scores, mask, softmax and values, or the flash kernel) is
-    the span ``mixer.attn.core`` (``runtime.metrics.span``)."""
+    the span ``mixer.attn.core`` (``runtime.metrics.span``), counting
+    ``flash`` 1 where it took the kernel and 0 where it took the plain
+    path."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -235,7 +237,7 @@ def attention_fullseq(params, x, *, cfg: ModelConfig, window: Optional[int],
     q, k, v = _project_qkv(params, x, cfg, positions, rope=rope,
                            kv=(0, n_kv) if keep_all else (lo, n))
     ka, va = (k[:, :, lo:lo + n], v[:, :, lo:lo + n]) if keep_all else (k, v)
-    with metrics.span("mixer.attn.core", x):
+    with metrics.span("mixer.attn.core", x, flash=int(use_kernel)):
         if use_kernel:
             out = kops.flash_attention(q, ka, va, causal=causal, window=window)
         else:

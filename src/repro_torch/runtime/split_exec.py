@@ -14,6 +14,10 @@ wires (int8, int4 and entropy at ``wire_bits`` 8, or 16-bit codes at
 ``wire_bits=16``) run through the butterfly unit's fused wrappers
 (``core/butterfly.py`` -> ``kernels/ops.py``): the Hopper kernels on the
 card (their int16 variants at 16 bits), their plain versions on the CPU.  The unfused codec runs only in :meth:`SplitRunner.reference_prefill`.
+The prefill halves (edge, cloud and the engine's whole-model prefill) run
+attention's core through the flash kernel where :func:`flash_core` finds
+bf16 on the card; f32 banks, the CPU, decode and the reference
+keep the plain f32 S×S scores.
 
 Each half runs at a model-axis degree (``edge_mp``, ``cloud_mp``).  The JAX
 bank wraps a degree-``mp`` half in a ``shard_map`` over ``mp`` devices; the
@@ -62,6 +66,15 @@ from repro_torch.tree import tree_map
 # no such block, but keeps the value so the keys of both packages compare
 # equal.
 ROW_BLOCK = 8
+
+
+def flash_core(x: torch.Tensor) -> bool:
+    """Whether a prefill on activations ``x`` runs attention's core
+    through the flash kernel: bf16 on a CUDA device.  Elsewhere (f32, the
+    CPU) the core keeps the plain f32 S×S scores, as the JAX bank computes
+    them.  A head dim the kernel does not take raises from its launch
+    check."""
+    return x.dtype == torch.bfloat16 and x.device.type == "cuda"
 
 
 def act_bytes(cfg) -> int:
@@ -493,20 +506,24 @@ class SplitModelBank:
                      scale=cfg.arch_type == "dense" and cfg.act == "gelu")
 
     def _layers(self, params, x, lo, hi, mode, cache, pos,
-                pctx=parallel.LOCAL):
+                pctx=parallel.LOCAL, use_kernel: bool = False):
         """(x, caches) of flat layers [lo, hi); the MoE aux losses are
         dropped, as the JAX bank drops them.  Both halves read the whole
-        shared block (zamba2's), never a layer-range slice of it."""
+        shared block (zamba2's), never a layer-range slice of it.  With
+        ``use_kernel`` a prefill runs attention's core through the flash
+        kernel where :func:`flash_core` finds ``x`` in bf16 on the card."""
         x, caches, _ = tfm.apply_layer_range(
             list(self.built.stages[0]), params["stages"][0], x, lo, hi,
             cfg=self.base_cfg, mode=mode, range_cache=cache, pos=pos,
-            pctx=pctx, shared_params=params.get("shared_attn"))
+            pctx=pctx, shared_params=params.get("shared_attn"),
+            use_kernel=use_kernel and flash_core(x))
         return x, caches
 
     def _make_edge(self, split: int, pctx):
         def edge(params, toks):
             x, cache0 = self._layers(params, self._embed(params, toks), 0,
-                                     split, "prefill", None, None, pctx)
+                                     split, "prefill", None, None, pctx,
+                                     use_kernel=True)
             payload, scales = self._reduce(params["butterfly"], x)
             return payload, scales, cache0
         return edge
@@ -516,7 +533,7 @@ class SplitModelBank:
             x = self._restore(params["butterfly"], payload, scales)
             x, cache1 = self._layers(params, x, split,
                                      self.base_cfg.num_layers, "prefill",
-                                     None, None, pctx)
+                                     None, None, pctx, use_kernel=True)
             return self._head(params, x[:, length - 1:length])[:, 0], cache1
         return cloud
 
@@ -524,11 +541,12 @@ class SplitModelBank:
         """Whole hosted-model prefill (both halves and the wire)."""
         def prefill(params, toks, length: int):
             x, cache0 = self._layers(params, self._embed(params, toks), 0,
-                                     split, "prefill", None, None, pctx)
+                                     split, "prefill", None, None, pctx,
+                                     use_kernel=True)
             x = self._wire_ingraph(params["butterfly"], x, use_kernel=True)
             x, cache1 = self._layers(params, x, split,
                                      self.base_cfg.num_layers, "prefill",
-                                     None, None, pctx)
+                                     None, None, pctx, use_kernel=True)
             return self._head(params, x[:, length - 1:length]), [cache0, cache1]
         return prefill
 
@@ -783,7 +801,8 @@ class SplitRunner:
     # --------------------------------------------------------------- reference
     def reference_prefill(self, toks):
         """Single-model forward (what the split path must reproduce), with
-        the reference (unfused, activation-dtype) wire codec."""
+        the reference (unfused, activation-dtype) wire codec and attention's
+        plain core."""
         bank = self.bank
         params = self.params
         x, cache0 = bank._layers(params, bank._embed(params, self._tensor(toks)),

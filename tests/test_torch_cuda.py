@@ -479,6 +479,38 @@ def test_split_path_launches_both_kernels(cuda):
     assert delta <= 0.05 * float(ref_logits.abs().max())
 
 
+def test_bf16_bank_prefill_halves_launch_the_flash_kernel(cuda):
+    """A bf16 reduced qwen3 bank (4 layers, split after 2) on the card:
+    edge_half + cloud_half launch the flash kernel once a layer, and at
+    each prompt length its cloud logits stay within 5% of max|ref| of
+    reference_prefill's (the plain f32 core and the unfused wire), with the
+    reference's greedy token; the reference, and an f32 bank's halves, launch
+    none."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.split_exec import SplitModelBank
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), num_layers=4,
+                              dtype="bfloat16")
+    bank = SplitModelBank(cfg, 16, seed=0, device=cuda)
+    bank32 = SplitModelBank(dataclasses.replace(cfg, dtype="float32"), 16,
+                            seed=0, device=cuda)
+    r, r32 = bank.runner(2), bank32.runner(2)
+    rng = np.random.default_rng(0)
+    for S in (21, 64, 100):
+        toks = rng.integers(0, cfg.vocab_size, (1, S))
+        n = fa.flash_attention.launches
+        payload, scales, _ = r.edge_half(r.params, toks)
+        logits, _ = r.cloud_half(r.params, payload, scales)
+        assert fa.flash_attention.launches == n + cfg.num_layers
+        ref_logits, _ = r.reference_prefill(toks)
+        payload, scales, _ = r32.edge_half(r32.params, toks)
+        r32.cloud_half(r32.params, payload, scales)
+        assert fa.flash_attention.launches == n + cfg.num_layers
+        ref = ref_logits[:, -1]
+        delta = float((logits - ref).abs().max())
+        assert delta <= 0.05 * float(ref.abs().max()), (S, delta)
+        assert int(logits.argmax()) == int(ref.argmax()), S
+
+
 # B, S, T, N, K: aligned, ragged S < T, one query, more queries than keys
 # (rows that see no key under a causal mask), wide GQA groups
 FLASH_SHAPES = [(2, 128, 128, 4, 2), (1, 37, 53, 4, 2), (1, 1, 77, 8, 2),

@@ -10,16 +10,23 @@ of a 4-layer reduced qwen3-8b bank split after layer 2, on the CPU:
     parents, under their root's id;
   * each record's host start is on the profiler's clock;
   * the logits are bit-identical with the profiler on and off;
-  * a second profiler session keeps only its own records.
+  * a second profiler session keeps only its own records;
+  * the bank's prefill halves take the flash kernel (``kops.flash_attention``,
+    a counting stand-in here) once a layer where ``split_exec.flash_core``
+    finds bf16 on the card (the device check faked), and each
+    ``mixer.attn.core`` span counts ``flash`` 1 there and 0 on the plain
+    path; an f32 bank, a CPU bank and ``reference_prefill`` never take it.
 """
 import dataclasses
+import types
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
-from repro_torch.runtime import metrics
+from repro_torch.kernels import ops as kops
+from repro_torch.runtime import metrics, split_exec
 from repro_torch.runtime.split_exec import SplitModelBank
 
 SPLIT, LAYERS, S = 2, 4, 13
@@ -117,3 +124,60 @@ def test_each_session_reads_only_its_own_records(runner, toks):
     _profiled(runner, toks)
     second = {r.id for r in metrics.SPANS.records}
     assert len(second) == len(first) and not second & first
+
+
+@pytest.mark.parametrize("dtype, device, want", [
+    (torch.bfloat16, "cuda", True), (torch.float32, "cuda", False),
+    (torch.float16, "cuda", False), (torch.bfloat16, "cpu", False),
+    (torch.float32, "cpu", False)])
+def test_flash_core_follows_dtype_and_device(dtype, device, want):
+    x = types.SimpleNamespace(dtype=dtype, device=torch.device(device))
+    assert split_exec.flash_core(x) is want
+
+
+@pytest.fixture(scope="module")
+def runner_bf16(runner):
+    cfg = dataclasses.replace(runner.bank.base_cfg, dtype="bfloat16")
+    return SplitModelBank(cfg, 16, device="cpu", seed=0).runner(SPLIT)
+
+
+def _count_flash(monkeypatch, on_card: bool):
+    """A counting stand-in for the flash kernel that forwards to the plain
+    result; with ``on_card`` the bank's device check sees a CUDA device."""
+    calls = []
+    plain = kops.flash_attention
+
+    def flash(q, k, v, **kw):
+        calls.append(q.shape)
+        return plain(q, k, v, **kw)
+
+    monkeypatch.setattr(kops, "flash_attention", flash)
+    if on_card:
+        real = split_exec.flash_core
+        monkeypatch.setattr(split_exec, "flash_core", lambda x: real(
+            types.SimpleNamespace(dtype=x.dtype, device=torch.device("cuda"))))
+    return calls
+
+
+def _core_flash_counts():
+    return [r.counts for r in metrics.SPANS.records
+            if r.name == "mixer.attn.core"]
+
+
+@pytest.mark.parametrize("dtype, on_card, takes", [
+    ("bfloat16", True, True), ("float32", True, False),
+    ("bfloat16", False, False)])
+def test_prefill_halves_take_the_flash_kernel_where_it_fits(
+        runner, runner_bf16, toks, monkeypatch, dtype, on_card, takes):
+    r = runner_bf16 if dtype == "bfloat16" else runner
+    calls = _count_flash(monkeypatch, on_card)
+    off = _halves(r, toks)
+    assert len(calls) == (LAYERS if takes else 0)
+    assert all(shape == (1, 16, 4, 64) for shape in calls)
+    on, _ = _profiled(r, toks)
+    assert torch.equal(on, off)
+    assert _core_flash_counts() == [{"flash": int(takes)}] * LAYERS
+    r._engine_prefill(r.params, toks)
+    assert len(calls) == (3 * LAYERS if takes else 0)
+    r.reference_prefill(toks)
+    assert len(calls) == (3 * LAYERS if takes else 0)
